@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch port on one NVIDIA card: ``python3 chip_smoke.py``.
 
 Drives the port (``src/repro_torch``, never the JAX package) through its
-serving tick on the card and holds every hand-written kernel of that path
-against its plain PyTorch version:
+two slices on the card — the multi-cell serving tick and the paper's
+single-instance evaluation — and holds every hand-written kernel of those
+paths against its plain PyTorch version:
 
 1. prints the card (``nvidia-smi``) and builds every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
@@ -12,22 +13,40 @@ against its plain PyTorch version:
    all-infeasible instances) and on the metro day batch
    (``metro_diurnal_trace(256, n_domains=32)``, 6144 rows): V bitwise,
    tau and best_a equal;
-3. K3 (``kernels/resize/resize.py::resize_bilinear``) against its plain
+3. K2 (``kernels/pg/pg.py::masked_argmax``) against ``masked_argmax_ref``
+   at (T, A) = (50, 300), (200, 1280), (4096, 1280) and (77, 999), with
+   planted ties, all-masked rows, dead rows and an all-false ``cap_ok``:
+   g and idx bitwise;
+4. K3 (``kernels/resize/resize.py::resize_bilinear``) against its plain
    version at 128×128×3, 640×640×3 and 1024×2048×3, batch 8,
    z ∈ {0.04, 0.25, 0.5, 1}, float32, within 1e-5;
-4. solves the metro day batch coupled with ``inner="kernel"`` and with
+5. solves the metro day batch coupled with ``inner="kernel"`` and with
    ``inner="torch"`` (the plain bit-domain round): decisions equal, every
    solution valid, link budgets kept; prints rounds, host syncs, ms/solve;
-5. THE MAIN PATH: a 256-cell ``MultiCellEngine`` (``multi_cell_pools(256,
-   seed=1)``, 32 contiguous backhaul domains at 1.2 per cell) driven by
+6. SLICE 1'S MAIN PATH: a 256-cell ``MultiCellEngine`` (``multi_cell_pools(
+   256, seed=1)``, 32 contiguous backhaul domains at 1.2 per cell) driven by
    ``drive_closed_loop(horizon=8, process=True)``, with the kernel launch
    counts zeroed just before and read just after; a twin engine on the same
    card with ``sesm.inner = "torch"`` runs the same traffic and must decide
    identically at every step;
-6. times each kernel, its plain version and (K3) the library call at the
-   shapes the main path gave it, and prints the ``{"kernels": [...]}`` line,
-   the card's name and power limit, and finally the ``{"ok": true, ...}``
-   line.
+7. SLICE 2'S MAIN PATH, the paper's evaluation at full width, counts zeroed
+   just before and read just after: the Fig. 6 sweep (``fig6_sweep(m)`` for
+   m = 2 (A = 300) and m = 4 (A = 1280), 90 instances each) and one
+   T = 200, A = 1280 instance through ``run_algorithm(name, inst,
+   backend="torch")`` for all six algorithms; Fig. 7's Colosseum periods
+   through ``SESM(backend="torch").slice``; ``solve_greedy_many`` on the
+   mixed-grid ``multi_cell_trace(4, 8, seed=1, n_grids=2)``. A twin on
+   ``inner="torch"`` must decide identically (admitted, alloc, z); against
+   the numpy oracle the phase reports the satisfied counts and every
+   instance that decides differently, and fails unless each difference
+   starts at an f32 near-tie (a float64 replay of the oracle, picking in
+   float32 from the same state each round, first disagrees where the two
+   picks' float64 values are within 1e-6 of each other);
+8. times each kernel (per call, and its own device time from
+   ``torch.profiler`` as ``device_ms``), its plain version and the library
+   call (where one exists) at the shapes the main paths gave it, and prints
+   the ``{"kernels": [...]}`` line, the card's name and power limit, and
+   finally the ``{"ok": true, ...}`` line.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -56,6 +75,14 @@ HORIZON = 8
 # first tick, so the 8-step closed loop never outgrows its device session
 STANDING = 33
 SHAPES = ((128, 128), (640, 640), (1024, 2048))
+K2_SHAPES = ((50, 300), (200, 1280), (4096, 1280), (77, 999))
+FIG6_TASKS, FIG6_SEEDS = (10, 20, 30, 40, 50), (0, 1, 2)
+FIG7_FPS = (10.0, 7.0, 5.0, 3.0)
+FIG7_ALGOS = {"sem-o-ran": dict(semantic=True, flexible=True),
+              "minres-sem": dict(semantic=True, flexible=False),
+              "flexres-n-sem": dict(semantic=False, flexible=True)}
+# relative float64 gap under which two picks are an f32 near-tie
+TIE_RTOL = 1e-6
 MIX = [("coco_bags", 0.35, 8.0), ("coco_animals", 0.50, 6.0),
        ("cityscapes_flat", 0.35, 5.0), ("coco_person", 0.20, 5.0)]
 
@@ -206,6 +233,55 @@ def phase_k1(dev, metro_stacked):
 
 # --------------------------------------------------------------- phase 3
 
+def k2_inputs(rng, t, a, dev, cap_all_false=False):
+    """K2 inputs with planted ties (sel takes 8 values), all-masked rows
+    and dead rows; ``cap_all_false`` masks every allocation."""
+    import numpy as np
+    import torch
+    sel = (rng.integers(-4, 4, a) * 0.25).astype(np.float32)
+    sel[a // 2:a // 2 + 16] = sel[:16]               # equal lanes: ties
+    lat = rng.random((t, a)) < 0.3
+    lat[::9] = False                                 # nothing feasible
+    lat[2::9] = True                                 # everything feasible
+    cap = np.zeros(a, bool) if cap_all_false else rng.random(a) < 0.7
+    alive = rng.random(t) < 0.8
+    alive[3::11] = False                             # dead rows
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (sel, lat, cap, alive)]
+
+
+def phase_k2(dev):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.pg import pg as PK
+    rng = np.random.default_rng(3)
+    err = 0.0
+    for t, a in K2_SHAPES:
+        for cap_all_false in (False, True):
+            ins = k2_inputs(rng, t, a, dev, cap_all_false)
+            g, idx = PK.masked_argmax(*ins)
+            rg, ridx = PK.masked_argmax_ref(*ins)
+            torch.cuda.synchronize()
+            what = f"T={t} A={a} cap_ok all false={cap_all_false}"
+            if not torch.equal(g.view(torch.int32), rg.view(torch.int32)):
+                raise AssertionError(f"K2 {what}: g differs from the plain "
+                                     "version")
+            if not torch.equal(idx, ridx):
+                raise AssertionError(f"K2 {what}: idx differs")
+            found = torch.isfinite(rg)
+            if found.any():
+                err = max(err, (g[found] - rg[found]).abs().max().item())
+            if cap_all_false and (found.any() or (idx != 0).any()):
+                raise AssertionError(f"K2 {what}: a masked row was found")
+            if not cap_all_false:
+                n_found = int(found.sum())
+        log(f"[K2] T={t} A={a}: g and idx bitwise equal; {n_found} of {t} "
+            "rows with a candidate, none with cap_ok all false")
+    return err
+
+
+# --------------------------------------------------------------- phase 4
+
 def phase_k3(dev):
     import numpy as np
     import torch
@@ -240,7 +316,7 @@ def phase_k3(dev):
     return err
 
 
-# --------------------------------------------------------------- phase 4
+# --------------------------------------------------------------- phase 5
 
 def phase_metro_solve(dev, stacked):
     import numpy as np
@@ -283,7 +359,7 @@ def phase_metro_solve(dev, stacked):
     return k
 
 
-# --------------------------------------------------------------- phase 5
+# --------------------------------------------------------------- phase 6
 
 def make_engine(dev, inner):
     import numpy as np
@@ -367,38 +443,315 @@ def phase_serving(dev):
         f"{len(dec)} steps; its re-slice ms/tick median "
         f"{np.median(tticks):.1f}")
     zs = [d[2] for step in dec for cell in step for d in cell if d[1]]
-    profile_tick(eng)
+    profile_call(eng.reslice, "steady re-slice tick")
     return launches, sesm._serve_session.max_tasks, zs
 
 
-def profile_tick(eng):
-    """Where one steady re-slice tick of the main engine spends its time:
-    wall time, device busy time (summed kernel time) and the top kernels,
-    from a ``torch.profiler`` trace."""
+def profile_call(fn, what: str):
+    """Where one call of ``fn`` spends its time: wall time, device busy
+    time (summed kernel time), launches and the top kernels, from a
+    ``torch.profiler`` trace of a warm call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    eng.reslice()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.reslice()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = {}
+    kern, count = {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kern[e.name] = kern.get(e.name, 0.0) + _device_time(e)
+            count += 1
     busy = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[trace] steady re-slice tick: wall {wall_us / 1e3:.1f} ms, device "
-        f"busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f} %), "
-        f"{len(kern)} kernel names")
+    log(f"[trace] {what}: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f} %), {count} "
+        f"kernel launches of {len(kern)} names")
     for name, us in top:
         log(f"[trace]   {us:9.1f} us  {name[:90]}")
 
 
-# --------------------------------------------------------------- phase 6
+# --------------------------------------------------------------- phase 7
+
+def eval_instances():
+    """The paper's evaluation inputs: the Fig. 6 sweep for m = 2 and 4 and
+    the largest instance of ``benchmarks/solver_perf.py``."""
+    from repro_torch.core import build_instance, scenarios
+    sweep = {}
+    for m in (2, 4):
+        insts, _ = scenarios.fig6_sweep(m, n_tasks=FIG6_TASKS,
+                                        seeds=FIG6_SEEDS)
+        sweep[f"fig6 m={m}"] = insts
+    sweep["T=200 m=4"] = [build_instance(
+        scenarios.numerical_pool(4),
+        scenarios.numerical_tasks(200, "med", "high"))]
+    return sweep
+
+
+def fig7_instance(fps):
+    """The instance ``SESM.slice`` builds for :func:`fig7_requests`."""
+    from repro_torch.core import scenarios
+    from repro_torch.serving import SDLA
+    return SDLA().build_instance(fig7_requests(fps),
+                                 scenarios.colosseum_pool())
+
+
+def fig7_requests(fps):
+    from repro_torch.serving import SliceRequest
+    return [SliceRequest("object-recognition", "yolox", app,
+                         max_latency_s=0.7, min_accuracy=acc,
+                         jobs_per_sec=fps)
+            for app, acc in (("coco_bags", 0.30), ("coco_animals", 0.50),
+                             ("cityscapes_flat", 0.30))]
+
+
+def run_evaluation(dev, sweep, backend, inner):
+    """Every evaluation front door once: all six algorithms on every
+    instance, Fig. 7's periods through ``SESM.slice``, the mixed-grid
+    ``solve_greedy_many``."""
+    from repro_torch.core import (ALGORITHMS, run_algorithm, scenarios,
+                                  solve_greedy_many)
+    from repro_torch.serving import SESM
+    sols = {key: [{name: run_algorithm(name, inst, backend, inner=inner,
+                                       device=dev)
+                   for name in ALGORITHMS} for inst in insts]
+            for key, insts in sweep.items()}
+    fig7 = {}
+    for algo, flags in FIG7_ALGOS.items():
+        sesm = SESM(scenarios.colosseum_pool(), backend=backend, inner=inner,
+                    device=dev)
+        sesm.algorithm = dict(flags)
+        fig7[algo] = [[(d.admitted, d.z, tuple(sorted(d.alloc.items())))
+                       for d in sesm.slice(fig7_requests(fps))]
+                      for fps in FIG7_FPS]
+    many_insts, _ = scenarios.multi_cell_trace(4, 8, seed=1, n_grids=2)
+    if backend == "numpy":
+        from repro_torch.core import solve_greedy
+        many = [solve_greedy(inst) for inst in many_insts]
+    else:
+        many = solve_greedy_many(many_insts, inner=inner, device=dev)
+    return sols, fig7, many
+
+
+def same_decision(a, b) -> bool:
+    import numpy as np
+    return (np.array_equal(a.admitted, b.admitted)
+            and np.array_equal(a.alloc, b.alloc) and np.array_equal(a.z, b.z))
+
+
+def f32_divergence(inst, semantic, flexible):
+    """Replay Alg. 1 in float64 (the numpy oracle) and, from the same state
+    each round, pick (task, allocation) in float32 as the device solve does
+    (``greedy._inner_torch`` on host tensors — bitwise the round K2 serves).
+    Returns None when every round picks alike, else the relative float64
+    gap between the two picks at the first round where they differ: the
+    larger of the task-priority gap and the allocation-score gap."""
+    import numpy as np
+    import torch
+    from repro_torch.core import greedy as G
+    lat, z_idx = G._select_tables(inst, semantic)
+    lat_ok = lat <= inst.tasks.max_latency[:, None]
+    alive = (z_idx >= 0) & lat_ok.any(axis=1)
+    S, p, grid = inst.pool.capacity, inst.pool.price, inst.grid
+    cost = G.lexicographic_cost(grid)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float64),
+                               dtype=torch.float32)
+
+    grid32, p32, s32, cost32 = f32(grid), f32(p), f32(S), f32(cost)
+    lat32 = torch.from_numpy(lat_ok)
+    occupied = np.zeros_like(S)
+    while alive.any():
+        cap_ok = (grid <= (S - occupied) + 1e-9).all(axis=1)
+        pg = G.primal_gradient(grid, p, S, occupied)
+        feas = lat_ok & cap_ok[None, :] & alive[:, None]
+        occ32 = f32(occupied)
+        g32, a32, h32 = G._inner_torch(grid32, p32, s32, occ32, s32 - occ32,
+                                       lat32, torch.from_numpy(alive), cost32,
+                                       flexible)
+        alive &= feas.any(axis=1)
+        if not alive.any():
+            return None
+        score = np.where(feas, (pg if flexible else -cost)[None, :], -np.inf)
+        best_a = score.argmax(axis=1)
+        prio = np.where(alive, pg[best_a], -np.inf)
+        tau = int(prio.argmax())
+        g32 = torch.where(torch.from_numpy(alive) & h32, g32, float("-inf"))
+        tau32 = int(torch.argmax(g32))
+        pick32 = int(a32[tau32])
+        if (tau32, pick32) != (tau, int(best_a[tau])):
+            top = score[tau32, best_a[tau32]]
+            return max(abs(prio[tau] - prio[tau32]) / abs(prio[tau]),
+                       abs(top - score[tau32, pick32]) / abs(top))
+        occupied = occupied + grid[best_a[tau]]
+        alive[tau] = False
+    return None
+
+
+def phase_evaluation(dev):
+    """Slice 2's main path with the launch counts zeroed just before and
+    read just after, then its twin (``inner="torch"``) and the numpy
+    oracle outside the counted window."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ALGORITHMS
+    from repro_torch.kernels.pg import pg as PK
+    from repro_torch.kernels.resize import resize as PR
+    sweep = eval_instances()
+    kernels = {"pg_round": PK.ROUND_KERNEL, "masked_argmax": PK.ARGMAX_KERNEL,
+               "resize": PR.RESIZE_KERNEL}
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    sols, fig7, many = run_evaluation(dev, sweep, "torch", None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    n_inst = sum(len(v) for v in sweep.values())
+    log(f"[eval] {n_inst} instances x {len(ALGORITHMS)} algorithms, "
+        f"{len(FIG7_FPS)} Fig. 7 periods x {len(FIG7_ALGOS)} algorithms, "
+        f"{len(many)} mixed-grid cells in {wall:.1f} s; launches {launches}")
+    if launches["masked_argmax"] <= 0 or launches["pg_round"] <= 0:
+        raise AssertionError(f"the evaluation path did not run K2 and K1: "
+                             f"{launches}")
+
+    t0 = time.perf_counter()
+    tsols, tfig7, tmany = run_evaluation(dev, sweep, "torch", "torch")
+    log(f"[eval] twin (inner=torch) in {time.perf_counter() - t0:.1f} s")
+    for key in sweep:
+        for i, (a, b) in enumerate(zip(sols[key], tsols[key])):
+            for name in ALGORITHMS:
+                if not same_decision(a[name], b[name]):
+                    raise AssertionError(f"{key} #{i} {name}: K2 and the "
+                                         "torch round decide differently")
+    if fig7 != tfig7:
+        raise AssertionError("Fig. 7 SESM.slice: K2 and the torch round "
+                             "decide differently")
+    if not all(same_decision(a, b) for a, b in zip(many, tmany)):
+        raise AssertionError("solve_greedy_many: K1 and the torch round "
+                             "decide differently")
+    log("[eval] decisions (admitted, alloc, z) identical to the twin on "
+        "every instance, algorithm, period and cell")
+
+    osols, ofig7, omany = run_evaluation(dev, sweep, "numpy", None)
+    flags = {"sem-o-ran": (True, True), "si-edge": (False, False),
+             "minres-sem": (True, False), "flexres-n-sem": (False, True)}
+    for key, insts in sweep.items():
+        for name in ALGORITHMS:
+            sat = sum(int(s[name].num_satisfied) for s in sols[key])
+            osat = sum(int(s[name].num_satisfied) for s in osols[key])
+            diff = [i for i, (a, b) in enumerate(zip(sols[key], osols[key]))
+                    if not same_decision(a[name], b[name])]
+            gaps = [f32_divergence(insts[i], *flags[name]) for i in diff] \
+                if name in flags else [None] * len(diff)
+            bad = [i for i, gap in zip(diff, gaps)
+                   if gap is None or gap > TIE_RTOL]
+            log(f"[eval] {key} {name}: satisfied {sat} (oracle {osat}); "
+                f"{len(diff)} of {len(insts)} instances decide differently"
+                + (f" at #{diff} (f32 gaps "
+                   f"{[float(f'{g:.3g}') if g is not None else None for g in gaps]})"
+                   if diff else ""))
+            if bad:
+                raise AssertionError(f"{key} {name}: instances {bad} differ "
+                                     "from the oracle beyond an f32 tie")
+    fig7_diff = [(a, p) for a in FIG7_ALGOS for p in range(len(FIG7_FPS))
+                 if fig7[a][p] != ofig7[a][p]]
+    many_diff = [i for i, (a, b) in enumerate(zip(many, omany))
+                 if not same_decision(a, b)]
+    log(f"[eval] Fig. 7 (algorithm, period) differing from the numpy "
+        f"backend: {fig7_diff or 'none'}; mixed-grid cells differing from "
+        f"the oracle: {many_diff or 'none'}")
+    from repro_torch.core import scenarios
+    many_insts, _ = scenarios.multi_cell_trace(4, 8, seed=1, n_grids=2)
+    fig7_insts = [fig7_instance(fps) for fps in FIG7_FPS]
+    for what, inst, semantic, flexible in (
+            [(f"Fig. 7 {a} period {p}", fig7_insts[p],
+              FIG7_ALGOS[a]["semantic"], FIG7_ALGOS[a]["flexible"])
+             for a, p in fig7_diff]
+            + [(f"mixed-grid cell {i}", many_insts[i], True, True)
+               for i in many_diff]):
+        gap = f32_divergence(inst, semantic, flexible)
+        log(f"[eval] {what}: first f32 divergence gap {gap}")
+        if gap is None or gap > TIE_RTOL:
+            raise AssertionError(f"{what}: differs from the oracle beyond "
+                                 "an f32 tie")
+    sem = fig7["sem-o-ran"][0]
+    log(f"[eval] Fig. 7 p0 (10 fps) SEM-O-RAN: admitted "
+        f"{[d[0] for d in sem]}, z {[round(d[1], 3) for d in sem]}; "
+        f"MinRes-SEM admits Animals: {fig7['minres-sem'][0][1][0]}")
+    from repro_torch.core import run_algorithm
+    big = sweep["T=200 m=4"][0]
+    profile_call(lambda: run_algorithm("sem-o-ran", big, "torch", device=dev),
+                 "SEM-O-RAN single solve, T=200 A=1280")
+    return launches, big
+
+# --------------------------------------------------------------- phase 8
+
+def k2_path_inputs(inst, dev):
+    """K2's inputs on the first round of ``inst``'s SEM-O-RAN solve:
+    sel = the gradient at zero occupancy, the instance's latency mask, every
+    allocation within capacity, the candidate tasks alive."""
+    import numpy as np
+    import torch
+    from repro_torch.core.greedy import primal_gradient
+    from repro_torch.core.sfesp import _f32
+    lat_ok = inst.lat <= inst.tasks.max_latency[:, None]
+    alive = (inst.z_star_idx >= 0) & lat_ok.any(axis=1)
+    grid, cap = _f32(inst.grid, dev), _f32(inst.pool.capacity, dev)
+    sel = primal_gradient(grid, _f32(inst.pool.price, dev), cap,
+                          torch.zeros_like(cap))
+    cap_ok = (grid <= cap[None, :] + 1e-9).all(dim=1)
+    return [sel, torch.from_numpy(lat_ok).to(dev), cap_ok,
+            torch.from_numpy(np.ascontiguousarray(alive)).to(dev)]
+
+
+def time_k2(dev, big, launches, k2_err):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.pg import pg as PK
+    ins = k2_path_inputs(big, dev)
+    t, a = ins[1].shape
+    k2 = dict(name="masked_argmax", route="cuda",
+              source="src/repro_torch/kernels/csrc/masked_argmax.cu",
+              replaces="src/repro/kernels/pg/pg.py:73",
+              launches=launches["masked_argmax"], max_abs_err=k2_err)
+    k2["ms"] = cuda_ms(lambda: PK.masked_argmax(*ins), iters=200)
+    k2["plain_ms"] = cuda_ms(lambda: PK.masked_argmax_ref(*ins))
+    neg = torch.tensor(float("-inf"), device=dev)
+    score = torch.where(ins[1] & ins[2][None, :] & ins[3][:, None],
+                        ins[0][None, :], neg)
+    # library yardstick: where + max, timed as the max over the
+    # materialized score alone
+    k2["library_ms"] = cuda_ms(lambda: torch.max(score, dim=1), iters=200)
+    # each input read once (mask T*A, sel 4A, cap_ok A, alive T), each
+    # output written once (g 4T, idx 4T); one compare per (task, lane)
+    k2_bytes = t * a + 5 * a + t + 8 * t
+    k2_ops = t * a
+    k2["bound_ms"] = max(k2_bytes / HBM_BYTES_PER_S,
+                         k2_ops / F32_FLOP_PER_S) * 1e3
+    k2["bound_by"] = "bytes" if k2_bytes / HBM_BYTES_PER_S \
+        >= k2_ops / F32_FLOP_PER_S else "operations"
+    k2_dev = device_us(lambda: PK.masked_argmax(*ins), "masked_argmax")
+    k2["device_ms"] = None if k2_dev is None else k2_dev / 1e3
+    log(f"[time] K2 T={t} A={a} (first round of the T=200 instance): "
+        f"kernel {k2['ms']*1e3:.1f} us per call (device {fmt_us(k2_dev)}), "
+        f"plain {k2['plain_ms']*1e3:.1f} us, torch.max over the score "
+        f"{k2['library_ms']*1e3:.1f} us, bound {k2['bound_ms']*1e3:.3f} us "
+        f"({k2['bound_by']})")
+    for t2, a2 in ((50, 300), (50, 1280), (4096, 1280)):
+        ins2 = k2_inputs(np.random.default_rng(4), t2, a2, dev)
+        ms = cuda_ms(lambda: PK.masked_argmax(*ins2), iters=200)
+        dus = device_us(lambda: PK.masked_argmax(*ins2), "masked_argmax")
+        log(f"[time] K2 T={t2} A={a2}: kernel {ms*1e3:.1f} us per call "
+            f"(device {fmt_us(dus)}), bound "
+            f"{(t2 * a2 + 5 * a2 + 9 * t2) / HBM_BYTES_PER_S * 1e6:.3f} us")
+    return k2
+
 
 def time_kernels(dev, tmax, zs, launches, k1_err, k3_err):
     import numpy as np
@@ -426,10 +779,11 @@ def time_kernels(dev, tmax, zs, launches, k1_err, k3_err):
     k1["bound_by"] = "bytes" if k1_bytes / HBM_BYTES_PER_S \
         >= k1_ops / F32_FLOP_PER_S else "operations"
     k1["library_ms"] = None
+    k1_dev = device_us(lambda: PK.batch_round(words, *rest), "pg_round")
+    k1["device_ms"] = None if k1_dev is None else k1_dev / 1e3
     log(f"[time] K1 B={b} T={t} W={w} A={a}: kernel {k1['ms']*1e3:.1f} us "
-        f"per call (device "
-        f"{fmt_us(device_us(lambda: PK.batch_round(words, *rest), 'pg_round'))}"
-        f"), plain {k1['plain_ms']*1e3:.1f} us, bound "
+        f"per call (device {fmt_us(k1_dev)}), plain "
+        f"{k1['plain_ms']*1e3:.1f} us, bound "
         f"{k1['bound_ms']*1e3:.3f} us ({k1['bound_by']})")
 
     # K3 at the main path's shape: a job batch of 5 frames of 128x128x3 at
@@ -461,6 +815,7 @@ def time_kernels(dev, tmax, zs, launches, k1_err, k3_err):
     k3["bound_by"] = "bytes" if k3_bytes / HBM_BYTES_PER_S \
         >= k3_ops / F32_FLOP_PER_S else "operations"
     k3_dev = device_us(lambda: PR.resize_bilinear(img, th, tw), "resize")
+    k3["device_ms"] = None if k3_dev is None else k3_dev / 1e3
     log(f"[time] K3 5x128x128x3 z={z:.4f} -> {ho}x{wo}: kernel "
         f"{k3['ms']*1e3:.1f} us per call (device {fmt_us(k3_dev)}), "
         f"plain {k3['plain_ms']*1e3:.1f} us, "
@@ -521,10 +876,13 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     k1_err = phase_k1(dev, metro)
+    k2_err = phase_k2(dev)
     k3_err = phase_k3(dev)
     phase_metro_solve(dev, metro)
     launches, tmax, zs = phase_serving(dev)
-    kernels = time_kernels(dev, tmax, zs, launches, k1_err, k3_err)
+    eval_launches, big = phase_evaluation(dev)
+    k1, k3 = time_kernels(dev, tmax, zs, launches, k1_err, k3_err)
+    kernels = [k1, time_k2(dev, big, eval_launches, k2_err), k3]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

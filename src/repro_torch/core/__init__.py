@@ -1,5 +1,6 @@
 """Port of ``src/repro/core``: the SF-ESP data model, instance construction,
-stacking cache and batched greedy solve, on PyTorch."""
+stacking cache, the single-instance and batched greedy solves, the paper's
+baselines, the exact solver and the scenario library, on PyTorch."""
 
 from .types import (CouplingSpec, ProblemInstance, ResourcePool, Solution,
                     StackedInstances, TaskSet, make_allocation_grid)
@@ -10,9 +11,12 @@ from .sfesp import (DeviceStack, TaskRows, build_instance, check_solution,
                     task_feasibility_rows, task_link_load)
 from .greedy import (dispatch_device_batch, primal_gradient, resolve_inner,
                      solve, solve_device_batch, solve_greedy,
-                     solve_greedy_batch, unpack_device_batch)
+                     solve_greedy_batch, solve_greedy_many,
+                     solve_greedy_torch, unpack_device_batch)
 from . import events
 from .semantics import DEFAULT_MODEL, SemanticModel
+from .exact import solve_exact
+from .baselines import ALGORITHMS, run_algorithm, solve_coupled_ref
 from . import latency, scenarios, semantics
 
 __all__ = [
@@ -25,5 +29,7 @@ __all__ = [
     "task_feasibility_rows", "task_link_load",
     "dispatch_device_batch", "primal_gradient", "resolve_inner", "solve",
     "solve_device_batch", "solve_greedy", "solve_greedy_batch",
-    "unpack_device_batch", "events", "latency", "scenarios", "semantics",
+    "solve_greedy_many", "solve_greedy_torch", "unpack_device_batch",
+    "solve_exact", "solve_coupled_ref", "ALGORITHMS", "run_algorithm",
+    "events", "latency", "scenarios", "semantics",
 ]

@@ -1,37 +1,45 @@
 """Port of ``src/repro/core/greedy.py``: paper Algorithm 1 (primal effective
-gradient greedy), as a numpy oracle and as the batched device solve.
+gradient greedy), as a numpy oracle and as device solves.
 
 * :func:`solve_greedy` — the readable numpy reference of Alg. 1, copied from
   the JAX package; the oracle of the tests.
+* :func:`solve_greedy_torch` — the single-instance device solve, the
+  counterpart of the reference's ``solve_greedy_jax``: front door of
+  :func:`solve` (``backend="torch"``), ``baselines.run_algorithm`` and
+  ``SESM.slice``.
 * :func:`solve_greedy_batch` / :func:`solve_device_batch` /
   :func:`dispatch_device_batch` — the batched sweep and serving engine over
   a :class:`~repro_torch.core.sfesp.DeviceStack`, uncoupled and coupled, in
-  all four (semantic × flexible) quadrants.
+  all four (semantic × flexible) quadrants; :func:`solve_greedy_many` groups
+  mixed-grid instance sets into one batch per grid.
 
-The flexible round (Eq. 3) has two interchangeable implementations:
-``inner="kernel"`` launches K1 (``kernels/pg/pg.py::batch_round``, the CUDA
-counterpart of the reference's ``inner="pallas"``) and ``inner="torch"`` runs
-the bit-domain round of the reference's ``_flex_round_fn`` as torch ops (the
-counterpart of ``inner="jnp"``). ``inner=None`` follows the device, as the
-reference's ``resolve_interpret`` follows the backend: CUDA gets the kernel,
-the CPU gets the torch round, and ``"kernel"`` on a CPU device raises. Both
-give the same decisions. The MinRes path (``flexible=False``) stays the dense
-per-instance round, as in the reference, which has no kernel there.
+Each device solve has two interchangeable inner steps, named as in the
+serving tick: ``inner="kernel"`` launches a hand-written CUDA kernel (the
+counterpart of the reference's ``inner="pallas"``) and ``inner="torch"``
+runs the same step as plain torch ops (the counterpart of ``"jnp"``). In
+the batched solve the kernel is K1 (``kernels/pg/pg.py::batch_round``, the
+fused flexible round; the MinRes path stays the dense per-instance round, as
+in the reference, which has no kernel there); in the single-instance solve
+it is K2 (``kernels/pg/ops.py::pg_argmax`` over ``pg.py::masked_argmax``,
+every quadrant). ``inner=None`` follows the device, as the reference's
+``resolve_interpret`` follows the backend: CUDA gets the kernel, the CPU
+gets the torch step, and ``"kernel"`` on a CPU device raises. Both give the
+same decisions.
 
-The reference runs the admission loop as one ``lax.while_loop``; the port
+The reference runs each admission loop as one ``lax.while_loop``; the port
 drives it from the host, one device round at a time. Rounds after
-convergence are no-ops (every update is masked by ``v > -inf``), so the loop
-tests ``alive.any()`` — a host sync — only once every ``_SYNC_EVERY`` rounds
-without changing a decision. The result dicts report ``rounds`` run and
-``syncs`` (device waits, including the decision read-back).
+convergence are no-ops (every update is masked), so the loop tests
+``alive.any()`` — a host sync — only once every ``_SYNC_EVERY`` rounds
+without changing a decision. The batched result dicts report ``rounds`` run
+and ``syncs`` (device waits, including the decision read-back).
 
 Two facts about the reference, so nobody chases a phantom mismatch:
 
-* The JAX serving tick as shipped never runs K1: ``MultiCellEngine`` builds
-  its ``SESM`` without ``inner``, which defaults to ``"jnp"``, so
-  ``dispatch_device_batch`` runs the jnp bit-domain round. K1 runs only
-  through ``SESM(inner="pallas")`` or ``solve_greedy_batch(inner="pallas")``.
-  The port puts K1 on the tick whenever the device is CUDA.
+* The JAX serving tick as shipped never runs K1, and its ``run_algorithm``
+  never runs K2: ``MultiCellEngine`` builds its ``SESM`` without ``inner``
+  and ``baselines`` calls ``solve_greedy_jax`` without it, so both default
+  to ``"jnp"``. The port puts its kernels on those paths whenever the device
+  is CUDA.
 * Under ``jax.jit`` on the CPU, XLA contracts the m-term sums of
   ``primal_gradient`` into FMAs (``acc = p_0·d_0; acc = fma(p_k, d_k,
   acc)``), so the jitted gradient differs by an ulp from eager JAX, numpy
@@ -45,15 +53,19 @@ Two facts about the reference, so nobody chases a phantom mismatch:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..kernels import resolve_device
 from . import semantics
-from .sfesp import (DeviceStack, device_stack, lexicographic_cost,
-                    objective_value, stack_instances)
+from .sfesp import (DeviceStack, _f32, device_stack, lexicographic_cost,
+                    next_pow2, objective_value, stack_instances)
 from .types import ProblemInstance, Solution, StackedInstances
 
-__all__ = ["primal_gradient", "solve_greedy", "solve_greedy_batch", "solve",
+__all__ = ["primal_gradient", "solve_greedy", "solve_greedy_torch",
+           "solve_greedy_batch", "solve_greedy_many", "solve",
            "solve_device_batch", "dispatch_device_batch",
            "unpack_device_batch", "resolve_inner", "lexicographic_cost"]
 
@@ -212,9 +224,8 @@ def _pack_solution(inst, semantic, admitted, alloc_idx, z_idx) -> Solution:
     )
 
 
-
 # ---------------------------------------------------------------------------
-# Device backend: host-driven rounds over device tensors
+# Device backends
 # ---------------------------------------------------------------------------
 
 def resolve_inner(inner: str | None, device) -> str:
@@ -228,10 +239,97 @@ def resolve_inner(inner: str | None, device) -> str:
                          f"got {inner!r}")
     if inner == "kernel" and device.type != "cuda":
         raise ValueError(
-            "inner='kernel' launches the CUDA kernel K1 and needs a CUDA "
-            f"device (got {device}); use inner='torch' or None on the CPU")
+            "inner='kernel' launches a CUDA kernel (K1 or K2) and needs a "
+            f"CUDA device (got {device}); use inner='torch' or None on the "
+            "CPU")
     return inner
 
+
+# ---------------------------------------------------------------------------
+# Single-instance device solve (the reference's solve_greedy_jax)
+# ---------------------------------------------------------------------------
+
+def _inner_torch(grid, price, cap, occupied, remaining, lat_ok, alive, cost,
+                 flexible: bool):
+    """One admission round as plain torch ops (the reference's
+    ``_inner_jnp``): per-task best allocation and gradient.
+
+    Returns (G (T,), best_a (T,), has_feasible (T,)); the contract of
+    ``kernels/pg/ops.py::pg_argmax``, which serves it from K2.
+    """
+    cap_ok = (grid <= remaining[None, :] + 1e-9).all(dim=1)         # (A,)
+    pg = primal_gradient(grid, price, cap, occupied)                # (A,)
+    feas = lat_ok & cap_ok[None, :] & alive[:, None]                # (T, A)
+    sel = pg if flexible else -cost
+    score = torch.where(feas, sel[None, :], _NEG)
+    best_a = score.argmax(dim=1)
+    has = feas.any(dim=1)
+    G = torch.where(has, pg[best_a], _NEG)
+    return G, best_a, has
+
+
+def _round(state, lat_ok, grid, price, cap, cost, inner_fn):
+    """One admission round (Alg. 1 lines 8-19) as a masked state update.
+
+    A no-op once nothing is alive: ``admit`` is False, every update keeps
+    its old value, so the host loop may run past convergence. ``tau`` stays
+    a one-element tensor, so no index forces a host sync.
+    """
+    admitted, alloc_idx, occupied, alive = state
+    remaining = cap - occupied
+    G, best_a, has = inner_fn(grid, price, cap, occupied, remaining,
+                              lat_ok, alive, cost)
+    alive = alive & has                                  # drop infeasible
+    G = torch.where(alive, G, _NEG)
+    tau = torch.argmax(G).reshape(1)
+    admit = alive.any().reshape(1)
+    pick = best_a[tau]
+    admitted[tau] |= admit
+    alloc_idx[tau] = torch.where(admit, pick.to(torch.int32), alloc_idx[tau])
+    occupied = occupied + torch.where(admit, grid[pick], 0.0)[0]
+    alive[tau] = False
+    return admitted, alloc_idx, occupied, alive
+
+
+def solve_greedy_torch(inst: ProblemInstance, *, semantic: bool = True,
+                       flexible: bool = True, inner: str | None = None,
+                       device="cuda") -> Solution:
+    """Single-instance device solve of Alg. 1 (the reference's
+    ``solve_greedy_jax``): float32 tables on ``device``, one host-driven
+    loop of :func:`_round`. ``inner="kernel"`` serves each round from K2,
+    ``"torch"`` from :func:`_inner_torch`; ``None`` follows the device.
+    Decisions equal :func:`solve_greedy` up to float32 argmax ties (both
+    take the first maximum)."""
+    dev = resolve_device(device)
+    inner = resolve_inner(inner, dev)
+    lat, z_idx = _select_tables(inst, semantic)
+    lat_ok = lat <= inst.tasks.max_latency[:, None]
+    alive0 = (z_idx >= 0) & lat_ok.any(axis=1)
+    if inner == "kernel":
+        from ..kernels.pg.ops import pg_argmax
+        inner_fn = functools.partial(pg_argmax, flexible=flexible)
+    else:
+        inner_fn = functools.partial(_inner_torch, flexible=flexible)
+    lat_ok_t = torch.from_numpy(lat_ok).to(dev)
+    grid = _f32(inst.grid, dev)
+    price = _f32(inst.pool.price, dev)
+    cap = _f32(inst.pool.capacity, dev)
+    cost = _f32(lexicographic_cost(inst.grid), dev)
+    T = lat.shape[0]
+    init = (torch.zeros(T, dtype=torch.bool, device=dev),
+            torch.full((T,), -1, dtype=torch.int32, device=dev),
+            torch.zeros(inst.m, dtype=torch.float32, device=dev),
+            torch.from_numpy(alive0).to(dev))
+    (admitted, alloc_idx, _, _), _, _ = _run_rounds(
+        lambda st: _round(st, lat_ok_t, grid, price, cap, cost, inner_fn),
+        init, 3)
+    return _pack_solution(inst, semantic, admitted.cpu().numpy(),
+                          alloc_idx.cpu().numpy().astype(np.int64), z_idx)
+
+
+# ---------------------------------------------------------------------------
+# Batched device solve
+# ---------------------------------------------------------------------------
 
 def _pack_bits(mask):
     """Pack a boolean (..., A) mask into 32-bit words (..., ceil(A/32)).
@@ -587,17 +685,67 @@ def _pack_batch_solutions(stacked: StackedInstances, admitted: np.ndarray,
     return out
 
 
+def solve_greedy_many(insts, *, semantic: bool = True, flexible: bool = True,
+                      inner: str | None = None,
+                      device="cuda") -> list[Solution]:
+    """Grid-grouped sweep dispatcher: batch-solve instances with MIXED grids.
+
+    Groups the instances by grid identity and solves each group through
+    :func:`solve_greedy_batch`, padding ``Tmax`` and the batch to
+    power-of-two buckets, as the reference does. Returns one
+    :class:`Solution` per instance, in input order; decisions are those of
+    :func:`solve_greedy_batch` on each group. Backhaul-coupled cells are
+    solved jointly within their grid group, so cells of one coupling group
+    must share an allocation grid (a link spanning grid groups would have
+    its budget double-counted — rejected up front).
+    """
+    insts = list(insts)
+    groups: dict[bytes, list[int]] = {}
+    keys: list[bytes] = []
+    for i, inst in enumerate(insts):
+        key = np.ascontiguousarray(inst.grid).tobytes() \
+            + repr(inst.grid.shape).encode()
+        keys.append(key)
+        groups.setdefault(key, []).append(i)
+    link_users: dict[tuple, set] = {}
+    for i, inst in enumerate(insts):
+        spec = inst.coupling
+        if spec is None:
+            continue
+        for link in np.nonzero(spec.incidence[0])[0]:
+            # link sets are identified by capacity-array identity, matching
+            # the merge_coupling contract
+            lid = (id(spec.link_capacity), int(link))
+            link_users.setdefault(lid, set()).add(keys[i])
+    if any(len(g) > 1 for g in link_users.values()):
+        raise ValueError(
+            "backhaul-coupled cells must share one allocation grid "
+            "(identical pool.levels); a shared link cannot span grid groups")
+    out: list[Solution | None] = [None] * len(insts)
+    for idxs in groups.values():
+        sub = [insts[i] for i in idxs]
+        tmax = next_pow2(max(inst.num_tasks for inst in sub))
+        stacked = stack_instances(sub, tmax=tmax)
+        sols = solve_greedy_batch(stacked, semantic=semantic,
+                                  flexible=flexible, inner=inner,
+                                  pad_batch_to=next_pow2(len(sub)),
+                                  device=device)
+        for i, sol in zip(idxs, sols):
+            out[i] = sol
+    return out
 
 
 def solve(inst: ProblemInstance, *, semantic: bool = True,
-          flexible: bool = True, backend: str = "numpy") -> Solution:
-    """Front door of single-cell serving admission (``SESM.slice``).
-
-    ``backend="numpy"`` is the oracle. The reference's device backend is
-    ``solve_greedy_jax``, the single-instance solve over kernel K2, which is
-    not ported yet (ROADMAP.md, queue 1 item 4 and queue 2)."""
+          flexible: bool = True, backend: str = "numpy",
+          inner: str | None = None, device="cuda") -> Solution:
+    """Front door used by serving admission (``SESM.slice``) and the
+    evaluation: ``backend="numpy"`` is the oracle, ``"torch"`` the
+    single-instance device solve :func:`solve_greedy_torch` on ``device``
+    (``inner`` as there)."""
     if backend == "numpy":
         return solve_greedy(inst, semantic=semantic, flexible=flexible)
-    raise NotImplementedError(
-        f"backend {backend!r}: the single-instance device solve needs "
-        "kernel K2, not ported yet (ROADMAP.md queue 2)")
+    if backend != "torch":
+        raise ValueError(f"backend must be 'numpy' or 'torch', got "
+                         f"{backend!r}")
+    return solve_greedy_torch(inst, semantic=semantic, flexible=flexible,
+                              inner=inner, device=device)

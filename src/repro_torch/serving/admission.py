@@ -1,9 +1,9 @@
 """Port of ``src/repro/serving/admission.py``: the Semantic Edge Slicing
 Module (SESM) — the Near-real-time RIC xApp.
 
-Runs the SF-ESP greedy (core.greedy; on a CUDA device its flexible rounds run
-the K1 kernel)
-over the current request set + edge status and emits the three-fold output of
+Runs the SF-ESP greedy (core.greedy; on a CUDA device the batched solve's
+flexible rounds run K1 and the single-cell solve's rounds run K2) over the
+current request set + edge status and emits the three-fold output of
 paper Section III-B: (i) admitted tasks, (ii) per-task compression level,
 (iii) per-task resource slices. Re-slicing is full (new and running tasks are
 equally considered — already-running tasks may be evicted, Section III-C).
@@ -142,9 +142,13 @@ class SESM:
     over a device mesh) is not ported yet.
 
     ``device`` is where the solves run (``"cuda"`` by default; raises when
-    no card is visible). ``inner`` picks the flexible round (``"kernel"`` =
-    K1, ``"torch"`` = the plain bit-domain round); ``None`` follows the
-    device. It is a plain attribute: a twin engine may set it per tick.
+    no card is visible). ``backend`` picks :meth:`slice`'s solver:
+    ``"numpy"`` (the oracle, the default) or ``"torch"`` (the single-
+    instance device solve); the batched front doors always solve on
+    ``device``. ``inner`` picks the device round (``"kernel"`` = K1 in the
+    batched solve and K2 in the single-instance one, ``"torch"`` = their
+    plain torch rounds); ``None`` follows the device. It is a plain
+    attribute: a twin engine may set it per tick.
     """
 
     def __init__(self, pool: ResourcePool, sdla: SDLA | None = None,
@@ -186,7 +190,8 @@ class SESM:
         if not requests:
             return []
         inst = self.sdla.build_instance(requests, self.pool)
-        sol = solve(inst, backend=self.backend, **self.algorithm)
+        sol = solve(inst, backend=self.backend, inner=self.inner,
+                    device=self.device, **self.algorithm)
         return self._decisions(requests, inst, sol)
 
     def solve_batch(self, request_sets: list[list[SliceRequest]],

@@ -28,9 +28,10 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import (CouplingSpec, TaskSet,  # noqa: E402
                               build_instance, device_stack,
                               dispatch_device_batch, empty_device_stack,
-                              restack, scenarios, semantics,
-                              solve_device_batch, solve_greedy,
-                              solve_greedy_batch, stack_instances,
+                              restack, run_algorithm, scenarios, semantics,
+                              solve, solve_device_batch, solve_greedy,
+                              solve_greedy_batch, solve_greedy_many,
+                              solve_greedy_torch, stack_instances,
                               unpack_device_batch)
 from repro_torch.core import latency as PLat  # noqa: E402
 from repro_torch.core.sfesp import _solver_tables  # noqa: E402
@@ -197,11 +198,20 @@ def test_solve_reports_rounds_and_syncs():
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the CUDA default does not raise")
-    st = stack_instances(to_port(_scenario("fig6")[:2]))
+    insts = to_port(_scenario("fig6")[:2])
+    st = stack_instances(insts)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         solve_greedy_batch(st)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         device_stack(st)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        solve_greedy_torch(insts[0])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        solve(insts[0], backend="torch")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_algorithm("sem-o-ran", insts[0], backend="torch")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        solve_greedy_many(insts)
 
 
 # ------------------------------------------------------------ device stack

@@ -56,6 +56,41 @@ def test_round_kernel_matches_plain_on_card(b, t, a, m, cuda_device, rng):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t,a", [(1, 1), (37, 97), (50, 300), (200, 1280),
+                                 (1031, 999)])
+def test_argmax_kernel_matches_plain_on_card(t, a, cuda_device, rng):
+    sel = (rng.integers(-4, 4, a) * 0.25).astype(np.float32)   # ties
+    lat = rng.random((t, a)) < 0.35
+    lat[::5] = False                                           # all masked
+    alive = rng.random(t) < 0.8
+    alive[1::7] = False                                        # dead rows
+    for cap in (rng.random(a) < 0.7, np.zeros(a, bool)):
+        ins = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+               for x in (sel, lat, cap, alive)]
+        ref = PK.masked_argmax_ref(*ins)
+        before = PK.ARGMAX_KERNEL.launches
+        out = PK.masked_argmax(*ins)
+        torch.cuda.synchronize()
+        assert PK.ARGMAX_KERNEL.launches == before + 1
+        assert torch.equal(out[0].view(torch.int32), ref[0].view(torch.int32))
+        assert torch.equal(out[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_single_solve_kernel_matches_torch_round_on_card(cuda_device):
+    from repro_torch.core import scenarios, solve_greedy_torch
+    for inst in scenarios.fig6_sweep(4, n_tasks=(20, 50), seeds=(0,))[0][::5]:
+        for sem in (True, False):
+            for flex in (True, False):
+                a = solve_greedy_torch(inst, semantic=sem, flexible=flex,
+                                       inner="kernel", device=cuda_device)
+                b = solve_greedy_torch(inst, semantic=sem, flexible=flex,
+                                       inner="torch", device=cuda_device)
+                assert np.array_equal(a.admitted, b.admitted)
+                assert np.array_equal(a.alloc, b.alloc)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_resize_kernel_matches_plain_on_card(dtype, cuda_device, rng):
     img = torch.from_numpy(rng.standard_normal((3, 17, 31, 4)).astype(

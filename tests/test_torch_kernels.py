@@ -1,6 +1,7 @@
 """The port's kernel modules against the JAX reference, on the CPU.
 
-K1 (``repro_torch/kernels/pg/pg.py``) and K3
+K1 and K2 (``repro_torch/kernels/pg/pg.py``, with K2's round
+``kernels/pg/ops.py::pg_argmax``) and K3
 (``repro_torch/kernels/resize/resize.py``) run here through their plain
 PyTorch versions — a CUDA kernel has no host mode — and those are held
 against the Pallas kernels (interpret mode, as ``tests/test_kernels_pg.py``
@@ -20,12 +21,15 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import greedy as JG  # noqa: E402
+from repro.kernels.pg import ops as j_pg_ops  # noqa: E402
 from repro.kernels.pg import pg as JK  # noqa: E402
 from repro.kernels.pg.ref import batch_round_ref as j_round_ref  # noqa: E402
+from repro.kernels.pg.ref import masked_argmax_ref as j_argmax_ref  # noqa: E402
 from repro.kernels.resize import ops as j_ops  # noqa: E402
 from repro.kernels.resize import ref as j_rref  # noqa: E402
 
 from repro_torch.core import greedy as G  # noqa: E402
+from repro_torch.kernels.pg import ops as p_pg_ops  # noqa: E402
 from repro_torch.kernels.pg import pg as PK  # noqa: E402
 from repro_torch.kernels.resize import ops as p_ops  # noqa: E402
 from repro_torch.kernels.resize import resize as PR  # noqa: E402
@@ -183,6 +187,97 @@ def test_kernel_inner_refuses_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         G.solve_greedy_batch([inst], inner="kernel", device="cpu")
     assert G.solve_greedy_batch([inst], device="cpu")[0].admitted.all()
+    with pytest.raises(ValueError, match="CUDA"):
+        G.solve_greedy_torch(inst, inner="kernel", device="cpu")
+    assert G.solve_greedy_torch(inst, device="cpu").admitted.all()
+
+
+# ------------------------------------------------------------------- K2
+
+def _argmax_inputs(rng, t, a):
+    """K2 inputs with planted ties (sel drawn from 8 values, so rows share
+    maxima at several lanes), all-masked rows and dead rows."""
+    sel = rng.integers(-4, 4, a).astype(np.float32) * 0.25
+    lat = rng.random((t, a)) < 0.35
+    lat[::5] = False                                  # nothing feasible
+    cap = rng.random(a) < 0.7
+    alive = rng.random(t) < 0.8
+    alive[1::7] = False                               # dead rows
+    return sel, lat, cap, alive
+
+
+def _check_argmax(sel, lat, cap, alive):
+    """The plain K2 against the reference's oracle and its Pallas kernel
+    (interpret mode, blocks that do not divide T or A): equal, with -inf
+    and index 0 on rows with nothing feasible."""
+    j = [jnp.asarray(x) for x in (sel, lat, cap, alive)]
+    g0, i0 = (np.asarray(x) for x in j_argmax_ref(*j))
+    g1, i1 = (np.asarray(x) for x in JK.masked_argmax(
+        *j, block_t=8, block_a=128, interpret=True))
+    assert np.array_equal(g0, g1) and np.array_equal(i0, i1)
+    p = [torch.from_numpy(np.ascontiguousarray(x)) for x in (sel, lat, cap,
+                                                              alive)]
+    for out in (PK.masked_argmax(*p), PK.masked_argmax_ref(*p),
+                PK.masked_argmax(p[0], *(x.to(torch.uint8) for x in p[1:]))):
+        g, i = (x.numpy() for x in out)
+        assert g.dtype == np.float32 and i.dtype == np.int32
+        assert np.array_equal(g, g0) and np.array_equal(i, i0)
+    none = ~(lat & cap[None, :] & alive[:, None]).any(1)
+    assert np.isneginf(g0[none]).all() and (i0[none] == 0).all()
+
+
+@pytest.mark.parametrize("t,a", [(1, 1), (3, 7), (17, 129), (37, 300),
+                                 (50, 1280)])
+def test_masked_argmax_plain_matches_reference(t, a, rng):
+    _check_argmax(*_argmax_inputs(rng, t, a))
+
+
+def test_masked_argmax_all_false_cap_and_all_ties(rng):
+    sel, lat, cap, alive = _argmax_inputs(rng, 13, 77)
+    _check_argmax(sel, lat, np.zeros_like(cap), alive)
+    _check_argmax(np.zeros_like(sel), lat, cap, alive)
+
+
+def test_masked_argmax_checks_its_inputs():
+    sel = torch.zeros(4)
+    ok = torch.ones(3, 4, dtype=torch.bool)
+    with pytest.raises(TypeError, match="sel"):
+        PK.masked_argmax(sel.double(), ok, ok[0], ok[:, 0])
+    with pytest.raises(TypeError, match="cap_ok"):
+        PK.masked_argmax(sel, ok, ok[0, :3], ok[:, 0])
+    with pytest.raises(TypeError, match="alive"):
+        PK.masked_argmax(sel, ok, ok[0], ok[:, 0].float())
+    with pytest.raises(ValueError, match="allocation"):
+        PK.masked_argmax(torch.zeros(0), ok[:, :0], ok[0, :0], ok[:, 0])
+
+
+@pytest.mark.parametrize("flexible", [True, False])
+@pytest.mark.parametrize("occupied_frac", [0.0, 0.6])
+def test_pg_argmax_matches_reference(flexible, occupied_frac, rng):
+    """K2's round: the reference's ``pg_argmax`` run eagerly around its
+    Pallas kernel (interpret mode) against the port's over the plain K2 and
+    the port's ``_inner_torch``: G bitwise, best_a and has equal."""
+    a, t, m = 150, 23, 2
+    grid = rng.integers(1, 10, (a, m)).astype(np.float32)
+    price = rng.uniform(0.05, 0.2, m).astype(np.float32)
+    cap = rng.integers(10, 30, m).astype(np.float32)
+    occ = np.floor(cap * occupied_frac * rng.random(m)).astype(np.float32)
+    lat = rng.random((t, a)) < 0.3
+    lat[4] = False
+    alive = rng.random(t) < 0.8
+    cost = (grid * np.array([1.0, 1000.0], np.float32)).sum(1)
+    args = (grid, price, cap, occ, cap - occ, lat, alive, cost)
+    with jax.disable_jit():
+        jG, ja, jh = (np.asarray(x) for x in j_pg_ops.pg_argmax(
+            *(jnp.asarray(x) for x in args), flexible=flexible,
+            interpret=True, block_t=8, block_a=128))
+    targs = [torch.from_numpy(np.ascontiguousarray(x)) for x in args]
+    for out in (p_pg_ops.pg_argmax(*targs, flexible=flexible),
+                G._inner_torch(*targs, flexible=flexible)):
+        pG, pa, ph = (x.numpy() for x in out)
+        assert (_bits(pG) == _bits(jG)).all()
+        assert np.array_equal(pa, ja) and np.array_equal(ph, jh)
+    assert jh.any() and not jh.all()
 
 
 # ------------------------------------------------------------------- K3
