@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch port on one NVIDIA card: ``python3 chip_smoke.py``.
 
 Drives the port (``src/repro_torch``, never the JAX package) through its
-two slices on the card — the multi-cell serving tick and the paper's
-single-instance evaluation — and holds every hand-written kernel of those
-paths against its plain PyTorch version:
+three slices on the card — the multi-cell serving tick, the paper's
+single-instance evaluation and the serving engine's LM-service jobs — and
+holds every hand-written kernel of those paths against its plain PyTorch
+version:
 
 1. prints the card (``nvidia-smi``) and builds every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
@@ -42,7 +43,24 @@ paths against its plain PyTorch version:
    starts at an f32 near-tie (a float64 replay of the oracle, picking in
    float32 from the same state each round, first disagrees where the two
    picks' float64 values are within 1e-6 of each other);
-8. times each kernel (per call, and its own device time from
+8. K4 (``kernels/attn/attn.py::flash_attention_fwd``) against its plain
+   version at (B, T, Hq, Hkv, Dh) = (8, 16, 32, 2, 128) (the LM job),
+   (2, 2048, 32, 2, 128), (1, 1000, 32, 2, 128), (2, 77, 32, 8, 120),
+   (2, 333, 16, 8, 256) and (1, 1, 4, 4, 16), causal, and two non-causal
+   shapes with Tq != Tk, in float32 (within 2e-5: sums in another order)
+   and bfloat16 (within 3e-2: one rounding of outputs of order 1), on unit
+   normals;
+9. SLICE 3'S MAIN PATH: an ``EdgeServingEngine`` on the Colosseum pool
+   with chatglm3-6b at full width (bf16, random weights from a seeded
+   generator) registered as ``launch/serve.py`` registers its model,
+   the launcher's four requests, ``reslice()`` and three ``process()``
+   ticks, the launch counts zeroed just before and read just after (K4
+   must launch 28 times per LM job batch); then ``prefill`` at B = 2,
+   T = 2048 (``cache_len=2048``) through K4 and once more with the
+   full-causal route pointed at K4's plain version: last-token logits and
+   caches agree within a bf16 tolerance, and the top-1 tokens are
+   compared; wall ms, device busy share and peak memory are printed;
+10. times each kernel (per call, and its own device time from
    ``torch.profiler`` as ``device_ms``), its plain version and the library
    call (where one exists) at the shapes the main paths gave it, and prints
    the ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -68,6 +86,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the tensor cores — the roof each kernel's bound is taken against
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# dense bf16 tensor-core peak: the roof for work on bf16 inputs
+BF16_FLOP_PER_S = 989e12
 
 N_CELLS, N_DOMAINS, BACKHAUL_PER_CELL = 256, 32, 1.2
 HORIZON = 8
@@ -85,6 +105,18 @@ FIG7_ALGOS = {"sem-o-ran": dict(semantic=True, flexible=True),
 TIE_RTOL = 1e-6
 MIX = [("coco_bags", 0.35, 8.0), ("coco_animals", 0.50, 6.0),
        ("cityscapes_flat", 0.35, 5.0), ("coco_person", 0.20, 5.0)]
+# K4 checks: (B, Tq, Tk, Hq, Hkv, Dh, causal)
+K4_SHAPES = ((8, 16, 16, 32, 2, 128, True), (2, 2048, 2048, 32, 2, 128, True),
+             (1, 1000, 1000, 32, 2, 128, True), (2, 77, 77, 32, 8, 120, True),
+             (2, 333, 333, 16, 8, 256, True), (1, 1, 1, 4, 4, 16, True),
+             (2, 16, 333, 32, 2, 128, False), (1, 1000, 77, 16, 8, 256, False))
+K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+LM_ARCH, LM_TICKS = "chatglm3-6b", 3
+PREFILL_B, PREFILL_T = 2, 2048
+# K4 against its plain twin through 28 bf16 layers: the two attentions
+# round their bf16 outputs apart by at most an ulp here and there, and the
+# residual stream carries that on; logits are of order 1
+PREFILL_LOGIT_TOL, PREFILL_CACHE_TOL = 0.25, 0.25
 
 
 def log(*args):
@@ -692,6 +724,198 @@ def phase_evaluation(dev):
 
 # --------------------------------------------------------------- phase 8
 
+def k4_inputs(rng, shape, dev, dtype):
+    """Unit-normal q, k, v for a K4 shape (B, Tq, Tk, Hq, Hkv, Dh, causal)."""
+    import numpy as np
+    import torch
+    b, tq, tk, hq, hkv, dh, _ = shape
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dev, getattr(torch, dtype))
+        for s in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh))]
+
+
+def phase_k4(dev, shapes=K4_SHAPES):
+    """K4 against its plain version; returns the max abs error by dtype."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.attn import attn as PA
+    rng = np.random.default_rng(5)
+    err = {}
+    for dtype, tol in K4_TOL.items():
+        for shape in shapes:
+            q, k, v = k4_inputs(rng, shape, dev, dtype)
+            causal = shape[-1]
+            out = PA.flash_attention_fwd(q, k, v, causal=causal)
+            ref = PA.flash_attention_fwd_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if out.dtype != q.dtype or out.shape != q.shape:
+                raise AssertionError(f"K4 {shape} {dtype}: output "
+                                     f"{out.dtype} {tuple(out.shape)}")
+            e = (out.float() - ref.float()).abs().max().item()
+            if not e <= tol:
+                raise AssertionError(f"K4 {shape} {dtype}: max err {e} > "
+                                     f"{tol}")
+            err[dtype] = max(err.get(dtype, 0.0), e)
+            del q, k, v, out, ref
+        log(f"[K4] {dtype}: {len(shapes)} shapes (B, Tq, Tk, Hq, Hkv, Dh, "
+            f"causal) within {tol}, max abs err {err[dtype]:.3g}")
+    return err
+
+
+# --------------------------------------------------------------- phase 9
+
+def lm_model(dev, cfg):
+    """``cfg``'s parameters from a seeded generator on ``dev``."""
+    import torch
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"[lm] {cfg.name}: {n / 1e9:.3f} B parameters ({cfg.param_dtype}, "
+        f"param_count() {cfg.param_count() / 1e9:.3f} B) drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def phase_lm_serving(dev, cfg, params, ticks=LM_TICKS):
+    """Slice 3's serving path: the launcher's engine, model and requests on
+    the card, counts zeroed just before the re-slice and the ticks and read
+    just after. Returns the launch counts and the shapes K4 was given."""
+    import torch
+    from repro_torch.core import scenarios
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.kernels.pg import pg as PK
+    from repro_torch.kernels.resize import resize as PR
+    from repro_torch.launch import serve
+    from repro_torch.serving import EdgeServingEngine
+    eng = EdgeServingEngine(scenarios.colosseum_pool(), device=dev)
+    eng.register_model(cfg.name, cfg, params, serve.infer_fn(cfg))
+    for req in serve.requests(cfg.name):
+        eng.submit(req)
+    cell = eng.runtime
+    batches, shapes = [], set()
+    run_lm, flash = cell._run_lm_job, PA.flash_attention_fwd
+
+    def counted_job(rt, b):
+        batches.append(b)
+        return run_lm(rt, b)
+
+    def seen_flash(q, k, v, *, causal=True):
+        shapes.add((tuple(q.shape), tuple(k.shape), str(q.dtype), causal))
+        return flash(q, k, v, causal=causal)
+    cell._run_lm_job, PA.flash_attention_fwd = counted_job, seen_flash
+    kernels = {"pg_round": PK.ROUND_KERNEL, "resize": PR.RESIZE_KERNEL,
+               "flash_attn": PA.FLASH_KERNEL}
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        decisions = eng.reslice()
+        t1 = time.perf_counter()
+        for _ in range(ticks):
+            eng.process(wall_dt=1.0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {name: k.launches for name, k in kernels.items()}
+    finally:
+        del cell._run_lm_job
+        PA.flash_attention_fwd = flash
+    for d in decisions:
+        log(f"[lm] {d.request.app_class:16s} {d.request.model:12s} "
+            f"admitted={d.admitted} z={d.z:.3f} alloc={d.alloc}")
+    lm = [rt for rt in eng.tasks.values()
+          if rt.decision.request.model == cfg.name]
+    if len(lm) != 1 or lm[0].jobs_done <= 0:
+        raise AssertionError("the LM task was not admitted or ran no job")
+    for rid, m in eng.metrics().items():
+        log(f"[lm] task {rid} {m['app']:16s} jobs={m['jobs_done']} "
+            f"p50={m['p50_latency_s']}")
+    if launches["flash_attn"] != cfg.n_layers * len(batches):
+        raise AssertionError(f"K4 launched {launches['flash_attn']} times "
+                             f"for {len(batches)} LM batches of "
+                             f"{cfg.n_layers} layers")
+    if launches["resize"] <= 0:
+        raise AssertionError(f"the vision jobs did not run K3: {launches}")
+    log(f"[lm] re-slice {1e3 * (t1 - t0):.1f} ms; {ticks} ticks in "
+        f"{1e3 * (t2 - t1):.1f} ms; LM job batches {batches} "
+        f"({lm[0].jobs_done} jobs); launches {launches}; K4 shapes "
+        f"{sorted(shapes)}")
+    return launches, sorted(shapes)
+
+
+def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T):
+    """``prefill`` at (b, t) through K4, then its twin with the full-causal
+    route pointed at K4's plain version."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.models import attention as MA
+    from repro_torch.models import prefill
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (b, t), dtype=np.int32)).to(dev)
+
+    def run():
+        return prefill(params, {"tokens": toks}, cfg, cache_len=t)
+    run()                                                    # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    PA.FLASH_KERNEL.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = PA.FLASH_KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.n_layers:
+        raise AssertionError(f"the prefill launched K4 {launches} times")
+    if logits.shape != (b, cfg.vocab_size) \
+            or not torch.isfinite(logits.float()).all():
+        raise AssertionError("prefill logits are not finite of shape "
+                             f"{(b, cfg.vocab_size)}")
+    kernel_route = MA.attn_kernel
+    MA.attn_kernel = types.SimpleNamespace(
+        flash_attention_fwd=PA.flash_attention_fwd_ref)
+    try:
+        t0 = time.perf_counter()
+        plogits, pcache = run()
+        torch.cuda.synchronize()
+        plain_wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        MA.attn_kernel = kernel_route
+    if PA.FLASH_KERNEL.launches != launches:
+        raise AssertionError("the plain twin launched K4")
+    d_logit = (logits.float() - plogits.float()).abs()
+    d_cache = max((a.float() - c.float()).abs().max().item()
+                  for a, c in zip(_leaves(cache), _leaves(pcache)))
+    top = (logits.argmax(-1) == plogits.argmax(-1)).sum().item()
+    log(f"[prefill] {cfg.name} B={b} T={t}: {wall:.1f} ms through K4 "
+        f"({launches} launches), {plain_wall:.1f} ms with the plain "
+        f"attention; peak memory {peak / 2**30:.2f} GiB")
+    log(f"[prefill] K4 vs plain twin: logits max abs diff "
+        f"{d_logit.max().item():.4g} (mean {d_logit.mean().item():.3g}, "
+        f"|logits| max {logits.float().abs().max().item():.3g}); caches "
+        f"max abs diff {d_cache:.4g}; top-1 token equal in {top} of {b}")
+    if not d_logit.max().item() <= PREFILL_LOGIT_TOL:
+        raise AssertionError(f"prefill logits differ beyond "
+                             f"{PREFILL_LOGIT_TOL}")
+    if not d_cache <= PREFILL_CACHE_TOL:
+        raise AssertionError(f"prefill caches differ beyond "
+                             f"{PREFILL_CACHE_TOL}")
+    profile_call(run, f"{cfg.name} prefill B={b} T={t}")
+
+
+# --------------------------------------------------------------- phase 10
+
 def k2_path_inputs(inst, dev):
     """K2's inputs on the first round of ``inst``'s SEM-O-RAN solve:
     sel = the gradient at zero occupancy, the instance's latency mask, every
@@ -840,6 +1064,75 @@ def time_kernels(dev, tmax, zs, launches, k1_err, k3_err):
     return [k1, k3]
 
 
+def k4_work(shape, esize):
+    """(bytes, flops) K4 must move and do for ``shape``: q, k, v read once
+    and o written once; 4·Dh flops (two products) per (query, key) pair the
+    mask keeps."""
+    b, tq, tk, hq, hkv, dh, causal = shape
+    pairs = sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
+    nbytes = (2 * b * tq * hq * dh + 2 * b * tk * hkv * dh) * esize
+    return nbytes, 4 * dh * pairs * b * hq
+
+
+def time_k4(dev, engine_shapes, launches, prefill_launches, err):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attn import attn as PA
+    rng = np.random.default_rng(6)
+    row = dict(name="flash_attn", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attn.cu",
+               replaces="src/repro/kernels/attn/attn.py:63",
+               launches=launches["flash_attn"],
+               launches_prefill_2048=prefill_launches,
+               max_abs_err=err["bfloat16"], max_abs_err_f32=err["float32"])
+    qs, ks, dt, causal = max(engine_shapes)     # the largest LM batch
+    big = (PREFILL_B, PREFILL_T, PREFILL_T, 32, 2, 128, True)
+    engine = (qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], causal)
+    for what, shape in (("engine", engine), ("prefill", big)):
+        q, k, v = k4_inputs(rng, shape, dev, dt.removeprefix("torch."))
+        iters = 200 if what == "engine" else 20
+        ms = cuda_ms(lambda: PA.flash_attention_fwd(q, k, v, causal=causal),
+                     iters=iters)
+        dev_us = device_us(lambda: PA.flash_attention_fwd(
+            q, k, v, causal=causal), "flash_fwd_kernel", iters=iters)
+        plain = cuda_ms(lambda: PA.flash_attention_fwd_ref(
+            q, k, v, causal=causal), iters=10)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), iters=iters)
+        lib_err = (F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True).transpose(1, 2)
+            .float() - PA.flash_attention_fwd(q, k, v, causal=causal)
+            .float()).abs().max().item()
+        nbytes, flops = k4_work(shape, q.element_size())
+        peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 \
+            else F32_FLOP_PER_S
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak \
+            else "operations"
+        f32_bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) \
+            * 1e3
+        log(f"[time] K4 {what} {shape} {q.dtype}: kernel {ms * 1e3:.1f} us "
+            f"per call (device {fmt_us(dev_us)}), plain {plain * 1e3:.1f} "
+            f"us, SDPA {lib * 1e3:.1f} us (max diff to K4 {lib_err:.3g}); "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP: bound "
+            f"{bound * 1e3:.3f} us ({by}, {q.dtype} peak), f32 CUDA-core "
+            f"bound {f32_bound * 1e3:.1f} us")
+        if what == "prefill":
+            row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                       bound_by=by, bound_ms_f32_cuda_cores=f32_bound,
+                       device_ms=None if dev_us is None else dev_us / 1e3,
+                       shape=list(shape[:6]))
+        else:
+            row.update(engine_shape=list(shape[:6]), engine_ms=ms,
+                       engine_device_ms=None if dev_us is None
+                       else dev_us / 1e3, engine_plain_ms=plain,
+                       engine_library_ms=lib, engine_bound_ms=bound)
+        del q, k, v, qt, kt, vt
+    return row
+
+
 def main() -> int:
     try:
         import numpy as np  # noqa: F401
@@ -878,11 +1171,20 @@ def main() -> int:
     k1_err = phase_k1(dev, metro)
     k2_err = phase_k2(dev)
     k3_err = phase_k3(dev)
+    k4_err = phase_k4(dev)
     phase_metro_solve(dev, metro)
     launches, tmax, zs = phase_serving(dev)
     eval_launches, big = phase_evaluation(dev)
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    params = lm_model(dev, cfg)
+    lm_launches, k4_shapes = phase_lm_serving(dev, cfg, params)
+    phase_lm_prefill(dev, cfg, params)
+    del params
+    torch.cuda.empty_cache()
     k1, k3 = time_kernels(dev, tmax, zs, launches, k1_err, k3_err)
-    kernels = [k1, time_k2(dev, big, eval_launches, k2_err), k3]
+    kernels = [k1, time_k2(dev, big, eval_launches, k2_err), k3,
+               time_k4(dev, k4_shapes, lm_launches, cfg.n_layers, k4_err)]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

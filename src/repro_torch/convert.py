@@ -12,16 +12,21 @@ deployment must share ONE ``link_capacity`` array (``merge_coupling``
 identifies the link set by array identity) and one semantic model object
 (``stack_instances`` refuses mixed models). :class:`Converter` memoizes both
 by the identity of the source array or model it was given.
+
+LM-service models do have parameters: :func:`lm_params` carries a reference
+parameter tree, given as numpy arrays, into the port's tree.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.semantics import DEFAULT_MODEL, SemanticModel
 from .core.types import CouplingSpec, ProblemInstance, ResourcePool, TaskSet
 
-__all__ = ["Converter", "resource_pool", "semantic_model", "task_set"]
+__all__ = ["Converter", "lm_params", "resource_pool", "semantic_model",
+           "task_set"]
 
 _TASK_FIELDS = ("app_idx", "min_accuracy", "max_latency", "bits_per_job",
                 "jobs_per_sec", "gpu_time_per_job", "n_ues")
@@ -98,3 +103,32 @@ class Converter:
             coupling=None if coupling is None else self.coupling(**coupling),
             semantics=self.model(model_source, model_params)
             if model_source is not None else None)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(np.array(a).view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params(tree, cfg, device="cuda"):
+    """The port's parameter tree for model ``cfg`` from the reference's
+    (``init_params`` output with every leaf a numpy array, as
+    ``jax.tree.map(np.asarray, params)`` gives it): the same keys, tuples
+    and leaves, each leaf a tensor on ``device`` of the array's type."""
+    if tuple(np.shape(tree["embed"])) != (cfg.vocab_size, cfg.d_model):
+        raise ValueError(f"embed {np.shape(tree['embed'])} does not fit "
+                         f"{cfg.name}")
+    if ("lm_head" in tree) == cfg.tie_embeddings:
+        raise ValueError(f"lm_head does not fit tie_embeddings="
+                         f"{cfg.tie_embeddings}")
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(conv(v) for v in node)
+        return _tensor(node, device)
+    return conv(tree)

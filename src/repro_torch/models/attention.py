@@ -1,0 +1,171 @@
+"""Port of ``src/repro/models/attention.py``: GQA/MQA attention for prefill,
+full-causal and sliding-window.
+
+Full-causal attention with no window is kernel K4
+(``kernels/attn/attn.py::flash_attention_fwd``): the CUDA kernel on a CUDA
+tensor, its plain version on a CPU tensor. That is the function the
+reference computes there with its chunked streaming softmax in jnp. The
+sliding-window kind keeps the reference's banded plain path: per query
+chunk one KV slice of width window + chunk, masked softmax in float32.
+
+Sliding-window layers use a rolling (ring) KV cache of length ``window``
+(Mistral-style): slot ``i`` holds the newest position ≡ i (mod window).
+``attn_train``, ``attn_decode`` and cross-attention wait (ROADMAP.md,
+queue 1).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.attn import attn as attn_kernel
+from .common import TensorSpec
+from .layers import apply_rotary, dense_init, rms_norm, rotary_cos_sin
+
+__all__ = ["attn_init", "attn_prefill", "cache_spec", "flash_attention"]
+
+NEG = -1e30
+
+
+def attn_init(generator, cfg, *, cross: bool = False, dtype=torch.float32,
+              device=None):
+    d, dh = cfg.d_model, cfg.d_head
+    p = {
+        "wq": dense_init(generator, (d, cfg.n_heads * dh), dtype=dtype,
+                         device=device),
+        "wk": dense_init(generator, (d, cfg.n_kv_heads * dh), dtype=dtype,
+                         device=device),
+        "wv": dense_init(generator, (d, cfg.n_kv_heads * dh), dtype=dtype,
+                         device=device),
+        "wo": dense_init(generator, (cfg.n_heads * dh, d), dtype=dtype,
+                         device=device),
+    }
+    if cfg.qk_norm and not cross:
+        dev = device or generator.device
+        p["q_scale"] = torch.zeros((dh,), dtype=dtype, device=dev)
+        p["k_scale"] = torch.zeros((dh,), dtype=dtype, device=dev)
+    return p
+
+
+def _project(params, x, cfg, positions, *, rope: bool = True):
+    b, t, _ = x.shape
+    dh = cfg.d_head
+    q = (x @ params["wq"]).reshape(b, t, cfg.n_heads, dh)
+    k = (x @ params["wk"]).reshape(b, t, cfg.n_kv_heads, dh)
+    v = (x @ params["wv"]).reshape(b, t, cfg.n_kv_heads, dh)
+    if cfg.qk_norm and "q_scale" in params:
+        q = rms_norm(q, params["q_scale"], cfg.norm_eps)
+        k = rms_norm(k, params["k_scale"], cfg.norm_eps)
+    if rope:
+        cos, sin = rotary_cos_sin(positions, int(dh * cfg.rope_fraction),
+                                  cfg.rope_theta)
+        q = apply_rotary(q, cos, sin, cfg.rope_fraction)
+        k = apply_rotary(k, cos, sin, cfg.rope_fraction)
+    return q, k, v
+
+
+def _banded(q, k, v, *, window: int, chunk_q: int, q_offset: int):
+    """The reference's sliding-window path: per query chunk one KV slice of
+    static width window + chunk (front padding makes every slice start
+    valid; 2·chunk of end padding keeps the last one in bounds), masked
+    softmax in float32."""
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    cq = min(chunk_q, tq)
+    n_q = -(-tq // cq)
+    if n_q * cq != tq:
+        q = F.pad(q, (0, 0, 0, 0, 0, n_q * cq - tq))
+    qc = (q * dh ** -0.5).reshape(b, n_q, cq, hkv, g, dh)
+    span = window + cq
+    k_pad = F.pad(k, (0, 0, 0, 0, span, 2 * cq))
+    v_pad = F.pad(v, (0, 0, 0, 0, span, 2 * cq))
+    neg = torch.tensor(NEG, device=q.device)
+    outs = []
+    for qi in range(n_q):
+        q_start = qi * cq + q_offset
+        # dynamic_slice clamps its start into bounds; so does this
+        k_start = min(max(q_start - window + 1 + span, 0),
+                      k_pad.shape[1] - span)
+        k_blk = k_pad[:, k_start:k_start + span]
+        v_blk = v_pad[:, k_start:k_start + span]
+        qpos = q_start + torch.arange(cq, device=q.device)
+        kpos = q_start - window + 1 + torch.arange(span, device=q.device)
+        mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] >= 0) \
+            & (kpos[None, :] < tk) \
+            & (kpos[None, :] > qpos[:, None] - window)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc[:, qi].float(),
+                         k_blk.float())
+        p = torch.softmax(torch.where(mask, s, neg), dim=-1)
+        outs.append(torch.einsum("bhgqk,bkhd->bqhgd", p, v_blk.float()))
+    out = torch.cat(outs, dim=1).reshape(b, n_q * cq, hq, dh)
+    return out[:, :tq].to(v.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int | None,
+                    chunk_q: int, chunk_k: int, q_offset: int = 0):
+    """q (B,Tq,Hq,Dh); k,v (B,Tk,Hkv,Dh) → (B,Tq,Hq,Dh).
+
+    ``window`` (if set) restricts each query to the previous ``window`` keys
+    (inclusive of self) — the sliding-window kind, on the banded plain path.
+    With no window the attention is K4's function and goes through K4's
+    wrapper; ``q_offset`` (the position of q[0] relative to k[0]) must then
+    be 0, the only value the prefill gives it. ``chunk_k`` is the
+    reference's KV chunk, which K4 tiles on its own.
+    """
+    if window is not None:
+        return _banded(q, k, v, window=window, chunk_q=chunk_q,
+                       q_offset=q_offset)
+    if q_offset != 0:
+        raise NotImplementedError(
+            "full attention with q_offset != 0 (prefill continuation, "
+            "decode) waits for attn_decode: ROADMAP.md queue 1")
+    return attn_kernel.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# prefill entry point
+# ---------------------------------------------------------------------------
+
+def cache_spec(cfg, kind: str, batch: int, seq_len: int, dtype):
+    """Shape of the KV cache for one attention layer of the given kind."""
+    length = min(cfg.window, seq_len) if kind == "local" else seq_len
+    shp = (batch, length, cfg.n_kv_heads, cfg.d_head)
+    return {"k": TensorSpec(shp, dtype), "v": TensorSpec(shp, dtype)}
+
+
+def attn_prefill(params, x, cfg, kind: str, cache_len: int):
+    """Full-sequence pass that also returns the populated KV cache.
+
+    For "local" layers the cache is the rolling window (last ``window``
+    positions, ring-aligned); otherwise the full ``cache_len`` buffer with the
+    first T slots filled.
+    """
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=x.device)[None, :]
+    q, k, v = _project(params, x, cfg, positions)
+    window = cfg.window if kind == "local" else None
+    o = flash_attention(q, k, v, causal=True, window=window,
+                        chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
+    y = o.reshape(b, t, -1) @ params["wo"]
+
+    if kind == "local":
+        w = min(cfg.window, cache_len)
+        k_tail, v_tail = k[:, -w:], v[:, -w:]
+        if t >= w:
+            shift = t % w
+            k_c = torch.roll(k_tail, shift, dims=1)
+            v_c = torch.roll(v_tail, shift, dims=1)
+        else:
+            k_c = k.new_zeros((b, w) + tuple(k.shape[2:]))
+            v_c = v.new_zeros((b, w) + tuple(v.shape[2:]))
+            k_c[:, :t] = k_tail
+            v_c[:, :t] = v_tail
+    else:
+        k_c = k.new_zeros((b, cache_len) + tuple(k.shape[2:]))
+        v_c = v.new_zeros((b, cache_len) + tuple(v.shape[2:]))
+        k_c[:, :t] = k
+        v_c[:, :t] = v
+    return y, {"k": k_c, "v": v_c}

@@ -6,8 +6,9 @@ plane: per admitted task, input streams are compressed by the slicer-chosen
 factor z (the K3 bilinear-resize kernel on a CUDA device, for frame
 streams), batched, and run with the sliced accelerator share. Frames are
 generated on the host exactly as in the reference and uploaded to the
-engine's device. LM-service tasks (``_run_lm_job``) wait for the port of the
-LM stack: registering an LM model raises.
+engine's device. LM-service tasks (``_run_lm_job``) run the registered
+model's infer function — a prefill, whose full-causal attention is the K4
+flash-attention kernel on a CUDA device — on the reference's token draw.
 
 Resource mapping (DESIGN.md §4): the "gpu" resource type is a count of
 accelerator slices; on the emulated runtime each slice contributes a fixed
@@ -105,7 +106,7 @@ class CellRuntime:
     engine-level O(1) ``locate``): every path a request enters or leaves the
     cell through keeps it consistent — submit, hand-in, departure, handover,
     drain, shed, retry-exhaustion drop. ``device`` is where the cell's vision
-    jobs compress their frames.
+    jobs compress their frames and its LM jobs run their prompts.
     """
 
     def __init__(self, pool: ResourcePool, sdla: SDLA, *, max_batch: int = 8,
@@ -168,6 +169,7 @@ class CellRuntime:
         self._registry = registry
         self._arrivals = 0
         self.frames = FrameStream()
+        self._models: dict[str, tuple] = {}
         self.step = 0
 
     # ------------------------------------------------------- SoA plumbing
@@ -298,12 +300,9 @@ class CellRuntime:
         return len(self.queued_ids())
 
     def register_model(self, name: str, cfg, params, infer_fn):
-        """LM-service tasks run through the LM stack, which the port does not
-        have yet (ROADMAP.md, queue 1: "LM stack and launch")."""
-        raise NotImplementedError(
-            "LM-service tasks need the LM stack (models/, training/, "
-            "launch/), not ported yet: ROADMAP.md queue 1, 'LM stack and "
-            "launch'")
+        """infer_fn(params, inputs) → outputs; used for LM-service tasks.
+        ``params`` lie on the engine's device."""
+        self._models[name] = (cfg, params, infer_fn)
 
     def submit(self, request: SliceRequest):
         self._enter(request, self.max_retries, 0.0, None)
@@ -635,6 +634,18 @@ class CellRuntime:
                                                 use_kernel=True)
         return compressed.cpu().numpy()
 
+    def _run_lm_job(self, rt: TaskRuntime, batch: int):
+        """LM-service path: the reference's token draw for this step, on the
+        engine's device, through the registered infer function. The logits
+        are read back (as float32 numpy), so the measured compute time
+        covers the prefill — the reference returns an un-awaited array."""
+        cfg, params, infer_fn = self._models[rt.decision.request.model]
+        rng = np.random.default_rng(self.step)
+        toks = rng.integers(0, cfg.vocab_size, size=(batch, 16), dtype=np.int32)
+        out = infer_fn(params, {"tokens": torch.from_numpy(toks).to(
+            self.device)})
+        return out.float().cpu().numpy()
+
     def process(self, wall_dt: float = 1.0):
         """One engine tick: run the admitted tasks' arrived jobs."""
         self.step += 1
@@ -645,7 +656,10 @@ class CellRuntime:
             while done < n_jobs:
                 b = min(self.max_batch, n_jobs - done)
                 t0 = time.time()
-                self._run_vision_job(rt, b)
+                if req.model in self._models:
+                    self._run_lm_job(rt, b)
+                else:
+                    self._run_vision_job(rt, b)
                 compute_s = (time.time() - t0) / b
                 # end-to-end accounting: modeled network + sched latency with
                 # the sliced radio share, plus the measured compute time. The

@@ -1,0 +1,124 @@
+"""K4's plain version and the port's attention against the JAX reference, on
+the CPU.
+
+``repro_torch.kernels.attn.attn.flash_attention_fwd`` on a CPU tensor is
+K4's plain version (the CUDA kernel has no host mode; ``tests/
+test_torch_cuda.py`` holds the kernel against it on a card). It is held
+against the reference's Pallas kernel in interpret mode and its oracle
+``attention_ref``; the port's ``models.attention.flash_attention`` against
+the reference's chunked jnp version, with and without a window. Inputs are
+unit normals from a seeded numpy generator. Tolerances: 2e-5 in float32
+(sums in another order), 3e-2 in bfloat16 (one bf16 rounding of outputs
+of order 1), the reference's own in ``tests/test_kernels_attn.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.attn.attn import flash_attention_fwd as j_flash  # noqa: E402
+from repro.kernels.attn.ref import attention_ref as j_ref  # noqa: E402
+from repro.models.attention import flash_attention as j_chunked  # noqa: E402
+
+from repro_torch.kernels.attn import attn as PA  # noqa: E402
+from repro_torch.kernels.attn.ops import flash_attention_fwd  # noqa: E402
+from repro_torch.models import attention as MA  # noqa: E402
+
+_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+_DT = {"float32": (jnp.float32, torch.float32),
+       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _qkv(rng, b, tq, tk, hq, hkv, dh, dtype):
+    """Unit-normal q, k, v as (jax, torch) pairs of the same values (bf16
+    values are rounded once, by JAX, and carried bit for bit)."""
+    jdt, tdt = _DT[dtype]
+    out = []
+    for shape in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh)):
+        j = jnp.asarray(rng.standard_normal(shape).astype(np.float32), jdt)
+        t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt)
+        out.append((j, t))
+    return out
+
+
+def _close(got, want, tol):
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert np.allclose(got, want, atol=tol, rtol=0), \
+        float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("tq,hq,hkv,dh", [(33, 4, 2, 16), (64, 4, 1, 32),
+                                          (40, 6, 6, 8), (17, 8, 2, 16)])
+@pytest.mark.parametrize("blocks", [(16, 8), (32, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_interpret_and_oracle(tq, hq, hkv, dh, blocks,
+                                                   dtype, rng):
+    (jq, q), (jk, k), (jv, v) = _qkv(rng, 2, tq, tq, hq, hkv, dh, dtype)
+    before = PA.FLASH_KERNEL.launches
+    got = flash_attention_fwd(q, k, v)
+    assert got.dtype == q.dtype and PA.FLASH_KERNEL.launches == before
+    _close(got, j_flash(jq, jk, jv, block_q=blocks[0], block_k=blocks[1]),
+           _TOL[dtype])
+    _close(got, j_ref(jq, jk, jv), _TOL[dtype])
+
+
+@pytest.mark.parametrize("tq,tk", [(24, 24), (24, 40), (40, 17)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_noncausal(tq, tk, dtype, rng):
+    (jq, q), (jk, k), (jv, v) = _qkv(rng, 1, tq, tk, 4, 2, 8, dtype)
+    got = flash_attention_fwd(q, k, v, causal=False)
+    _close(got, j_flash(jq, jk, jv, causal=False, block_q=8, block_k=8),
+           _TOL[dtype])
+    _close(got, j_ref(jq, jk, jv, causal=False), _TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_at_chatglm3_head_geometry(dtype, rng):
+    """chatglm3-6b's heads (32 query over 2 KV heads, Dh = 128) at T = 33."""
+    (jq, q), (jk, k), (jv, v) = _qkv(rng, 1, 33, 33, 32, 2, 128, dtype)
+    got = flash_attention_fwd(q, k, v)
+    _close(got, j_flash(jq, jk, jv, block_q=16, block_k=16), _TOL[dtype])
+    _close(got, j_ref(jq, jk, jv), _TOL[dtype])
+
+
+@pytest.mark.parametrize("t,window,chunk", [(48, None, 16), (37, None, 16),
+                                            (37, 16, 16), (50, 8, 16),
+                                            (20, 64, 8)])
+def test_model_flash_attention_matches_reference(t, window, chunk, rng):
+    """The port's ``flash_attention`` (K4's route with no window, the banded
+    plain path with one) against the reference's chunked jnp version."""
+    (jq, q), (jk, k), (jv, v) = _qkv(rng, 2, t, t, 4, 2, 16, "float32")
+    got = MA.flash_attention(q, k, v, causal=True, window=window,
+                             chunk_q=chunk, chunk_k=chunk)
+    want = j_chunked(jq, jk, jv, causal=True, window=window, chunk_q=chunk,
+                     chunk_k=chunk)
+    _close(got, want, _TOL["float32"])
+
+
+def test_full_attention_with_offset_waits_for_decode(rng):
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MA.flash_attention(q, q, q, causal=True, window=None, chunk_q=4,
+                           chunk_k=4, q_offset=3)
+
+
+@pytest.mark.parametrize("bad", ["gqa", "dh", "dtype", "shape"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    q, k = torch.zeros(1, 4, 6, 8), torch.zeros(1, 4, 4, 8)
+    if bad == "gqa":
+        args, err = (q, k, k), ValueError
+    elif bad == "dh":
+        big = torch.zeros(1, 4, 2, 264)
+        args, err = (big, big, big), ValueError
+    elif bad == "dtype":
+        h = torch.zeros(1, 4, 2, 8, dtype=torch.float16)
+        args, err = (h, h, h), TypeError
+    else:
+        args, err = (q, k[:, :, :, :4], k), ValueError
+    with pytest.raises(err):
+        flash_attention_fwd(*args)

@@ -103,3 +103,63 @@ def test_resize_kernel_matches_plain_on_card(dtype, cuda_device, rng):
         ref = PR.resize_bilinear_ref(img, *taps)
         tol = 1e-5 if dtype == torch.float32 else 3e-2
         assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,dh,causal", [
+    (8, 16, 16, 32, 2, 128, True), (1, 1000, 1000, 32, 2, 128, True),
+    (2, 77, 77, 32, 8, 120, True), (2, 333, 333, 16, 8, 256, True),
+    (1, 1, 1, 4, 4, 16, True), (2, 33, 33, 4, 2, 16, True),
+    (2, 24, 40, 4, 2, 8, False), (1, 130, 17, 6, 3, 64, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh, causal,
+                                            dtype, cuda_device, rng):
+    """K4 against its plain version on unit normals: 2e-5 in float32 (sums
+    in another order), 3e-2 in bfloat16 (one rounding of outputs of order
+    1), the reference's tolerances."""
+    from repro_torch.kernels.attn import attn as PA
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, dtype)
+               for s in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh)))
+    ref = PA.flash_attention_fwd_ref(q, k, v, causal=causal)
+    before = PA.FLASH_KERNEL.launches
+    out = PA.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert PA.FLASH_KERNEL.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert torch.allclose(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_prefill_through_the_kernel_on_card(cuda_device):
+    """A chatglm3-geometry smoke model's prefill on the card (K4) against
+    the same prefill on the host (K4's plain version), float32: logits
+    within 2e-5, caches within 5e-5 (other sums of the projections)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.models import init_params, prefill
+    cfg = reduce_for_smoke(get_config("chatglm3-6b"), n_heads=32,
+                           n_kv_heads=2, d_head=128)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 37), dtype=np.int32))
+    want, wcache = prefill(params, {"tokens": toks}, cfg, cache_len=40)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda_device)
+    dev = to_card(params)
+    before = PA.FLASH_KERNEL.launches
+    got, gcache = prefill(dev, {"tokens": toks.to(cuda_device)}, cfg,
+                          cache_len=40)
+    torch.cuda.synchronize()
+    assert PA.FLASH_KERNEL.launches == before + cfg.n_layers
+    assert torch.allclose(got.cpu(), want, rtol=0, atol=2e-5)
+    for i in range(cfg.n_repeats):
+        for n in ("k", "v"):
+            assert torch.allclose(gcache["scan"]["pos0"][n][i].cpu(),
+                                  wcache["scan"]["pos0"][n][i], rtol=1e-5,
+                                  atol=5e-5)

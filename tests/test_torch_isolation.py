@@ -24,7 +24,10 @@ def _modules():
 
 def test_every_port_module_imports_with_jax_and_repro_blocked():
     mods = _modules()
-    assert "repro_torch.serving.multicell" in mods
+    for m in ("repro_torch.serving.multicell", "repro_torch.models.model",
+              "repro_torch.models.attention", "repro_torch.kernels.attn.attn",
+              "repro_torch.configs.chatglm3_6b", "repro_torch.launch.serve"):
+        assert m in mods, m
     prog = textwrap.dedent(f"""
         import importlib, sys
 

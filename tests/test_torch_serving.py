@@ -7,6 +7,8 @@ processed jobs), and must agree record for record and decision for decision
 at every step, with identical session-cache counters.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -150,10 +152,78 @@ def test_vision_job_compresses_frames_by_z():
     assert rt.jobs_done > 0
 
 
-def test_lm_models_wait_for_the_lm_stack():
-    eng = MultiCellEngine(scenarios.multi_cell_pools(1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.cells[0].register_model("lm", None, None, None)
+def _lm_twins(arch):
+    """A reference and a port ``EdgeServingEngine`` with the launcher's
+    request mix and the same smoke LM (the reference's weights carried
+    across), each re-sliced once and processed twice."""
+    import functools
+    import jax
+    from repro.configs import get_smoke_config as j_get_smoke
+    from repro.models import init_params as j_init
+    from repro.models import prefill as j_prefill
+    from repro.serving import EdgeServingEngine as JEdge
+    from repro_torch.convert import lm_params
+    from repro_torch.launch import serve
+    from repro_torch.models import ModelConfig
+
+    jcfg = j_get_smoke(arch)
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
+    jparams = j_init(jax.random.PRNGKey(0), jcfg)
+    ref = JEdge(JS.colosseum_pool())
+    ref.register_model(arch, jcfg, jparams, jax.jit(functools.partial(
+        lambda p, b, cfg: j_prefill(p, b, cfg, cache_len=32)[0], cfg=jcfg)))
+    port = EdgeServingEngine(scenarios.colosseum_pool(), device="cpu")
+    port.register_model(arch, cfg, lm_params(
+        jax.tree.map(np.asarray, jparams), cfg, "cpu"), serve.infer_fn(cfg))
+    for req in serve.requests(arch):
+        port.submit(req)
+        ref.submit(JRequest(req.service, req.model, req.app_class,
+                            max_latency_s=req.max_latency_s,
+                            min_accuracy=req.min_accuracy,
+                            jobs_per_sec=req.jobs_per_sec))
+    decisions = ref.reslice(), port.reslice()
+    for _ in range(2):
+        ref.process()
+        port.process()
+    return ref, port, decisions
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "h2o-danube-3-4b"])
+def test_twin_lm_engines_decide_and_serve_alike(arch):
+    """Identical decisions and ``jobs_done``; the LM job's logits at the
+    same step within 2e-5 (float32 prefills, sums in another order)."""
+    ref, port, (jd, pd) = _lm_twins(arch)
+    assert [(d.request.app_class, d.admitted, d.z, d.alloc) for d in pd] == \
+        [(d.request.app_class, d.admitted, d.z, d.alloc) for d in jd]
+    assert [rt.jobs_done for rt in port.tasks.values()] == \
+        [rt.jobs_done for rt in ref.tasks.values()]
+    (lm,) = [rt for rt in port.tasks.values()
+             if rt.decision.request.model == arch]
+    (jlm,) = [rt for rt in ref.tasks.values()
+              if rt.decision.request.model == arch]
+    assert lm.jobs_done == jlm.jobs_done > 0
+    got = port.runtime._run_lm_job(lm, 3)
+    want = np.asarray(ref.runtime._run_lm_job(jlm, 3))
+    assert port.runtime.step == ref.runtime.step == 2
+    assert got.dtype == np.float32 and got.shape == want.shape == (3, 512)
+    assert np.allclose(got, want, atol=2e-5, rtol=0)
+
+
+def test_serve_launcher_runs_on_the_host(capsys):
+    from repro_torch.launch import serve
+    eng = serve.main(["--device", "cpu", "--ticks", "1"])
+    out = capsys.readouterr().out
+    assert out.count("admitted=True") == 4
+    assert all(rt.jobs_done > 0 for rt in eng.tasks.values())
+    assert "h2o-danube-3-4b" in eng.runtime._models
+
+
+def test_serve_launcher_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the CUDA default does not raise")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--ticks", "1"])
 
 
 def test_engine_defaults_to_cuda():
