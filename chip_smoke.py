@@ -47,22 +47,29 @@ version:
    version at (B, T, Hq, Hkv, Dh) = (8, 16, 32, 2, 128) (the LM job),
    (2, 2048, 32, 2, 128), (1, 1000, 32, 2, 128), (2, 77, 32, 8, 120),
    (2, 333, 16, 8, 256) and (1, 1, 4, 4, 16), causal, and two non-causal
-   shapes with Tq != Tk, in float32 (within 2e-5: sums in another order)
-   and bfloat16 (within 3e-2: one rounding of outputs of order 1), on unit
-   normals;
+   shapes with Tq != Tk, on unit normals, on both kernels: float32 on the
+   CUDA-core kernel (``csrc/flash_attn.cu``, within 2e-5: sums in another
+   order), bfloat16 on the tensor-core kernel (``csrc/flash_attn_tc.cu``,
+   the route bf16 takes) and on the CUDA-core kernel (within rtol 2^-7,
+   atol 3e-2: P is rounded to bf16 before the second product, which can
+   move a rounded output of magnitude >= 4 by one bf16 ulp);
 9. SLICE 3'S MAIN PATH: an ``EdgeServingEngine`` on the Colosseum pool
    with chatglm3-6b at full width (bf16, random weights from a seeded
    generator) registered as ``launch/serve.py`` registers its model,
    the launcher's four requests, ``reslice()`` and three ``process()``
    ticks, the launch counts zeroed just before and read just after (K4
-   must launch 28 times per LM job batch); then ``prefill`` at B = 2,
-   T = 2048 (``cache_len=2048``) through K4 and once more with the
-   full-causal route pointed at K4's plain version: last-token logits and
-   caches agree within a bf16 tolerance, and the top-1 tokens are
-   compared; wall ms, device busy share and peak memory are printed;
+   must launch 28 times per LM job batch, every time on the tensor-core
+   kernel); then ``prefill`` at B = 2, T = 2048 (``cache_len=2048``)
+   through K4 (28 launches, all on the tensor-core kernel) and once more
+   with the full-causal route pointed at K4's plain version: last-token
+   logits and caches agree within a bf16 tolerance, and the top-1 tokens
+   are compared; wall ms, device busy share, K4's share and peak memory
+   are printed;
 10. times each kernel (per call, and its own device time from
    ``torch.profiler`` as ``device_ms``), its plain version and the library
-   call (where one exists) at the shapes the main paths gave it, and prints
+   call (where one exists) at the shapes the main paths gave it — K4 on
+   both kernels at the LM job's shape and at (2, 2048), with the
+   tensor-core kernel's ptxas report and launch configuration — and prints
    the ``{"kernels": [...]}`` line, the card's name and power limit, and
    finally the ``{"ok": true, ...}`` line.
 
@@ -110,7 +117,10 @@ K4_SHAPES = ((8, 16, 16, 32, 2, 128, True), (2, 2048, 2048, 32, 2, 128, True),
              (1, 1000, 1000, 32, 2, 128, True), (2, 77, 77, 32, 8, 120, True),
              (2, 333, 333, 16, 8, 256, True), (1, 1, 1, 4, 4, 16, True),
              (2, 16, 333, 32, 2, 128, False), (1, 1000, 77, 16, 8, 256, False))
-K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# K4 tolerances (rtol, atol) by dtype: f32 sums in another order; bf16
+# rounds P to bf16 before the second product, which can move a rounded
+# output of magnitude >= 4 by one bf16 ulp (0.031)
+K4_TOL = {"float32": (0.0, 2e-5), "bfloat16": (2 ** -7, 3e-2)}
 LM_ARCH, LM_TICKS = "chatglm3-6b", 3
 PREFILL_B, PREFILL_T = 2, 2048
 # K4 against its plain twin through 28 bf16 layers: the two attentions
@@ -181,6 +191,8 @@ def fmt_us(x) -> str:
 # --------------------------------------------------------------- phase 1
 
 def build_kernels():
+    """Builds every kernel library; returns the ptxas report of each source
+    this run compiled."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     report = _build.build()
@@ -191,7 +203,7 @@ def build_kernels():
         for line in rep["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
-    return secs
+    return report
 
 
 # --------------------------------------------------------------- phase 2
@@ -482,7 +494,8 @@ def phase_serving(dev):
 def profile_call(fn, what: str):
     """Where one call of ``fn`` spends its time: wall time, device busy
     time (summed kernel time), launches and the top kernels, from a
-    ``torch.profiler`` trace of a warm call."""
+    ``torch.profiler`` trace of a warm call. Returns (wall us, device us
+    by kernel name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -505,6 +518,7 @@ def profile_call(fn, what: str):
         f"kernel launches of {len(kern)} names")
     for name, us in top:
         log(f"[trace]   {us:9.1f} us  {name[:90]}")
+    return wall_us, kern
 
 
 # --------------------------------------------------------------- phase 7
@@ -735,30 +749,47 @@ def k4_inputs(rng, shape, dev, dtype):
 
 
 def phase_k4(dev, shapes=K4_SHAPES):
-    """K4 against its plain version; returns the max abs error by dtype."""
+    """K4 against its plain version on both kernels: float32 on the
+    CUDA-core kernel, bfloat16 on the tensor-core kernel (the route
+    ``flash_attention_fwd`` takes) and, held there by ``launch``, on the
+    CUDA-core kernel; a second launch on the same inputs must agree bit
+    for bit. Returns the max abs error by (kernel, dtype)."""
     import numpy as np
     import torch
     from repro_torch.kernels.attn import attn as PA
     rng = np.random.default_rng(5)
     err = {}
-    for dtype, tol in K4_TOL.items():
+    checks = (("cuda_cores", "float32"), ("tensor_cores", "bfloat16"),
+              ("cuda_cores", "bfloat16"))
+    for kernel, dtype in checks:
+        rtol, atol = K4_TOL[dtype]
         for shape in shapes:
             q, k, v = k4_inputs(rng, shape, dev, dtype)
             causal = shape[-1]
-            out = PA.flash_attention_fwd(q, k, v, causal=causal)
+            if kernel == PA.route(q.dtype, q.shape[3]):
+                out = PA.flash_attention_fwd(q, k, v, causal=causal)
+            else:
+                out = PA.launch(kernel, q, k, v, causal=causal)
+            again = PA.launch(kernel, q, k, v, causal=causal)
             ref = PA.flash_attention_fwd_ref(q, k, v, causal=causal)
             torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"K4 {kernel} {shape} {dtype}: two "
+                                     "launches on the same inputs differ")
             if out.dtype != q.dtype or out.shape != q.shape:
-                raise AssertionError(f"K4 {shape} {dtype}: output "
+                raise AssertionError(f"K4 {kernel} {shape} {dtype}: output "
                                      f"{out.dtype} {tuple(out.shape)}")
+            if not torch.allclose(out.float(), ref.float(), rtol=rtol,
+                                  atol=atol):
+                e = (out.float() - ref.float()).abs().max().item()
+                raise AssertionError(f"K4 {kernel} {shape} {dtype}: max err "
+                                     f"{e} beyond rtol {rtol}, atol {atol}")
             e = (out.float() - ref.float()).abs().max().item()
-            if not e <= tol:
-                raise AssertionError(f"K4 {shape} {dtype}: max err {e} > "
-                                     f"{tol}")
-            err[dtype] = max(err.get(dtype, 0.0), e)
-            del q, k, v, out, ref
-        log(f"[K4] {dtype}: {len(shapes)} shapes (B, Tq, Tk, Hq, Hkv, Dh, "
-            f"causal) within {tol}, max abs err {err[dtype]:.3g}")
+            err[kernel, dtype] = max(err.get((kernel, dtype), 0.0), e)
+            del q, k, v, out, again, ref
+        log(f"[K4] {kernel} {dtype}: {len(shapes)} shapes (B, Tq, Tk, Hq, "
+            f"Hkv, Dh, causal) within rtol {rtol:.3g}, atol {atol}; max abs "
+            f"err {err[kernel, dtype]:.3g}")
     return err
 
 
@@ -814,7 +845,9 @@ def phase_lm_serving(dev, cfg, params, ticks=LM_TICKS):
         return flash(q, k, v, causal=causal)
     cell._run_lm_job, PA.flash_attention_fwd = counted_job, seen_flash
     kernels = {"pg_round": PK.ROUND_KERNEL, "resize": PR.RESIZE_KERNEL,
-               "flash_attn": PA.FLASH_KERNEL}
+               "flash_attn": PA.FLASH_KERNEL,
+               "flash_attn_tc": PA.FLASH_TC_KERNEL,
+               "flash_attn_core": PA.FLASH_CORE_KERNEL}
     try:
         for k in kernels.values():
             k.launches = 0
@@ -839,10 +872,12 @@ def phase_lm_serving(dev, cfg, params, ticks=LM_TICKS):
     for rid, m in eng.metrics().items():
         log(f"[lm] task {rid} {m['app']:16s} jobs={m['jobs_done']} "
             f"p50={m['p50_latency_s']}")
-    if launches["flash_attn"] != cfg.n_layers * len(batches):
-        raise AssertionError(f"K4 launched {launches['flash_attn']} times "
-                             f"for {len(batches)} LM batches of "
-                             f"{cfg.n_layers} layers")
+    if launches["flash_attn_tc"] != cfg.n_layers * len(batches) \
+            or launches["flash_attn"] != launches["flash_attn_tc"]:
+        raise AssertionError(f"K4 launched {launches} times for "
+                             f"{len(batches)} LM batches of {cfg.n_layers} "
+                             f"layers: all must be on the tensor-core "
+                             f"kernel")
     if launches["resize"] <= 0:
         raise AssertionError(f"the vision jobs did not run K3: {launches}")
     log(f"[lm] re-slice {1e3 * (t1 - t0):.1f} ms; {ticks} ticks in "
@@ -854,7 +889,8 @@ def phase_lm_serving(dev, cfg, params, ticks=LM_TICKS):
 
 def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T):
     """``prefill`` at (b, t) through K4, then its twin with the full-causal
-    route pointed at K4's plain version."""
+    route pointed at K4's plain version (and, as yardsticks, at K4's
+    CUDA-core kernel and at SDPA)."""
     import types
     import numpy as np
     import torch
@@ -876,8 +912,11 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T):
     wall = (time.perf_counter() - t0) * 1e3
     launches = PA.FLASH_KERNEL.launches
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.n_layers:
-        raise AssertionError(f"the prefill launched K4 {launches} times")
+    if PA.FLASH_TC_KERNEL.launches != cfg.n_layers or launches != cfg.n_layers:
+        raise AssertionError(
+            f"the prefill launched K4 {launches} times, "
+            f"{PA.FLASH_TC_KERNEL.launches} on the tensor-core kernel; "
+            f"{cfg.n_layers} on it expected")
     if logits.shape != (b, cfg.vocab_size) \
             or not torch.isfinite(logits.float()).all():
         raise AssertionError("prefill logits are not finite of shape "
@@ -898,20 +937,61 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T):
     d_cache = max((a.float() - c.float()).abs().max().item()
                   for a, c in zip(_leaves(cache), _leaves(pcache)))
     top = (logits.argmax(-1) == plogits.argmax(-1)).sum().item()
+    # the twin's lead of its top-1 token over the token K4 ranks first, by
+    # row: a top-1 that differs is a near-tie only if the lead is within
+    # what the two runs' logits differ by (twice the max diff)
+    pl = plogits.float()
+    lead = (pl.max(-1).values
+            - pl.gather(-1, logits.argmax(-1, keepdim=True))[:, 0])
+    top2 = pl.topk(2, dim=-1).values
     log(f"[prefill] {cfg.name} B={b} T={t}: {wall:.1f} ms through K4 "
-        f"({launches} launches), {plain_wall:.1f} ms with the plain "
+        f"({launches} launches, all on the tensor-core kernel), "
+        f"{plain_wall:.1f} ms with the plain "
         f"attention; peak memory {peak / 2**30:.2f} GiB")
     log(f"[prefill] K4 vs plain twin: logits max abs diff "
         f"{d_logit.max().item():.4g} (mean {d_logit.mean().item():.3g}, "
         f"|logits| max {logits.float().abs().max().item():.3g}); caches "
-        f"max abs diff {d_cache:.4g}; top-1 token equal in {top} of {b}")
+        f"max abs diff {d_cache:.4g}; top-1 token equal in {top} of {b}; "
+        f"the twin's top-2 margin by row {(top2[:, 0] - top2[:, 1]).tolist()}"
+        f", its lead over K4's top-1 {lead.tolist()}")
+    if not (lead <= 2 * d_logit.max()).all():
+        raise AssertionError("K4's top-1 token differs from the twin's "
+                             "beyond a near-tie")
     if not d_logit.max().item() <= PREFILL_LOGIT_TOL:
         raise AssertionError(f"prefill logits differ beyond "
                              f"{PREFILL_LOGIT_TOL}")
     if not d_cache <= PREFILL_CACHE_TOL:
         raise AssertionError(f"prefill caches differ beyond "
                              f"{PREFILL_CACHE_TOL}")
-    profile_call(run, f"{cfg.name} prefill B={b} T={t}")
+    # yardsticks for a top-1 that differs: the same prefill with K4 held on
+    # its CUDA-core kernel (bf16 in, f32 arithmetic, the first design) and
+    # with SDPA, each against the plain twin
+    import torch.nn.functional as F
+
+    def sdpa(q, k, v, *, causal=True):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True).transpose(1, 2).contiguous()
+
+    def core(q, k, v, *, causal=True):
+        return PA.launch("cuda_cores", q, k, v, causal=causal)
+    for name, fn in (("CUDA-core K4", core), ("SDPA", sdpa)):
+        MA.attn_kernel = types.SimpleNamespace(flash_attention_fwd=fn)
+        try:
+            ylogits = run()[0].float()
+        finally:
+            MA.attn_kernel = kernel_route
+        log(f"[prefill] {name} twin: logits max abs diff "
+            f"{(ylogits - pl).abs().max().item():.4g} to the plain twin, "
+            f"{(ylogits - logits.float()).abs().max().item():.4g} to K4; "
+            f"top-1 {ylogits.argmax(-1).tolist()} (K4 "
+            f"{logits.argmax(-1).tolist()}, plain {pl.argmax(-1).tolist()})")
+    wall_us, kern = profile_call(run, f"{cfg.name} prefill B={b} T={t}")
+    k4_us = sum(us for name, us in kern.items() if "flash_tc_kernel" in name)
+    log(f"[trace] {cfg.name} prefill B={b} T={t}: K4 (flash_tc_kernel) "
+        f"{k4_us / 1e3:.3f} ms of the device time, "
+        f"{100 * k4_us / max(sum(kern.values()), 1e-9):.1f} % of it, "
+        f"{100 * k4_us / wall_us:.1f} % of the wall time")
 
 
 # --------------------------------------------------------------- phase 10
@@ -1074,28 +1154,81 @@ def k4_work(shape, esize):
     return nbytes, 4 * dh * pairs * b * hq
 
 
-def time_k4(dev, engine_shapes, launches, prefill_launches, err):
+def tc_report(log_text: str | None):
+    """The tensor-core kernel's ptxas lines (when this run built it) and
+    each instantiation's launch configuration, from the library itself."""
+    import ctypes
+    from repro_torch.kernels.attn import attn as PA
+    for line in (log_text or "").splitlines():
+        if "flash_tc_kernel" in line or "registers" in line \
+                or "spill" in line or "smem" in line:
+            log(f"[ptxas] flash_attn_tc.cu: {line.strip()[:160]}")
+    fn = PA.FLASH_TC_KERNEL.library().flash_attn_tc_info
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    report = {}
+    for dh in (64, 128, 256):
+        code = fn(dh, out)
+        if code != 0:
+            raise RuntimeError(f"flash_attn_tc_info({dh}): CUDA error {code}")
+        report[dh] = dict(threads=out[0], smem_bytes=out[1],
+                          registers=out[2], spill_bytes=out[3],
+                          stages=out[4], keys_per_tile=out[5])
+        log(f"[ptxas] flash_tc_kernel for Dh <= {dh}: {out[0]} threads, "
+            f"{out[1]} B dynamic shared memory, {out[2]} registers at "
+            f"launch (setmaxnreg: producer 24, consumers 240), {out[3]} B "
+            f"local (spills), {out[4]} K/V stages of {out[5]} keys")
+    return report
+
+
+def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
+    """K4 at the engine's LM job shape and at the 2048-token prefill: the
+    tensor-core kernel (the path's), the CUDA-core kernel on the same bf16
+    inputs (the old design) and in float32, its plain version and SDPA."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attn import attn as PA
     rng = np.random.default_rng(6)
     row = dict(name="flash_attn", route="cuda",
-               source="src/repro_torch/kernels/csrc/flash_attn.cu",
+               source="src/repro_torch/kernels/csrc/flash_attn_tc.cu",
                replaces="src/repro/kernels/attn/attn.py:63",
-               launches=launches["flash_attn"],
+               k4_route="tensor_cores",
+               launches=launches["flash_attn_tc"],
                launches_prefill_2048=prefill_launches,
-               max_abs_err=err["bfloat16"], max_abs_err_f32=err["float32"])
+               max_abs_err=err["tensor_cores", "bfloat16"],
+               max_abs_err_f32=err["cuda_cores", "float32"],
+               max_abs_err_bf16_cuda_cores=err["cuda_cores", "bfloat16"],
+               cuda_core_source="src/repro_torch/kernels/csrc/flash_attn.cu",
+               tc_kernel=tc_report(ptxas))
     qs, ks, dt, causal = max(engine_shapes)     # the largest LM batch
     big = (PREFILL_B, PREFILL_T, PREFILL_T, 32, 2, 128, True)
     engine = (qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], causal)
-    for what, shape in (("engine", engine), ("prefill", big)):
+    # the engine's LM batches, batches of 8 LM jobs, the prefill
+    lm8 = (8, 16, 16, 32, 2, 128, True)
+    for what, shape in (("engine", engine), ("lm_job_b8", lm8),
+                        ("prefill", big)):
         q, k, v = k4_inputs(rng, shape, dev, dt.removeprefix("torch."))
-        iters = 200 if what == "engine" else 20
-        ms = cuda_ms(lambda: PA.flash_attention_fwd(q, k, v, causal=causal),
-                     iters=iters)
-        dev_us = device_us(lambda: PA.flash_attention_fwd(
-            q, k, v, causal=causal), "flash_fwd_kernel", iters=iters)
+        iters = 20 if what == "prefill" else 200
+        tc = PA.flash_attention_fwd
+        if PA.route(q.dtype, q.shape[3]) != "tensor_cores":
+            raise AssertionError(f"K4 {shape} {q.dtype} is not routed to the "
+                                 "tensor cores")
+        ms = cuda_ms(lambda: tc(q, k, v, causal=causal), iters=iters)
+        dev_us = device_us(lambda: tc(q, k, v, causal=causal),
+                           "flash_tc_kernel", iters=iters)
+        core = cuda_ms(lambda: PA.launch("cuda_cores", q, k, v,
+                                         causal=causal), iters=iters)
+        core_us = device_us(lambda: PA.launch("cuda_cores", q, k, v,
+                                              causal=causal),
+                            "flash_fwd_kernel", iters=iters)
+        qf, kf, vf = (x.float() for x in (q, k, v))
+        core32 = cuda_ms(lambda: PA.flash_attention_fwd(qf, kf, vf,
+                                                        causal=causal),
+                         iters=iters)
+        core32_us = device_us(lambda: PA.flash_attention_fwd(
+            qf, kf, vf, causal=causal), "flash_fwd_kernel", iters=iters)
         plain = cuda_ms(lambda: PA.flash_attention_fwd_ref(
             q, k, v, causal=causal), iters=10)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1103,33 +1236,37 @@ def time_k4(dev, engine_shapes, launches, prefill_launches, err):
             qt, kt, vt, is_causal=causal, enable_gqa=True), iters=iters)
         lib_err = (F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True).transpose(1, 2)
-            .float() - PA.flash_attention_fwd(q, k, v, causal=causal)
-            .float()).abs().max().item()
+            .float() - tc(q, k, v, causal=causal).float()).abs().max().item()
         nbytes, flops = k4_work(shape, q.element_size())
-        peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 \
-            else F32_FLOP_PER_S
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak \
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S \
             else "operations"
         f32_bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) \
             * 1e3
-        log(f"[time] K4 {what} {shape} {q.dtype}: kernel {ms * 1e3:.1f} us "
-            f"per call (device {fmt_us(dev_us)}), plain {plain * 1e3:.1f} "
-            f"us, SDPA {lib * 1e3:.1f} us (max diff to K4 {lib_err:.3g}); "
+        tflops = None if dev_us is None else flops / dev_us / 1e6
+        log(f"[time] K4 {what} {shape} {q.dtype}: tensor-core kernel "
+            f"{ms * 1e3:.1f} us per call (device {fmt_us(dev_us)}"
+            + ("" if tflops is None else f", {tflops:.0f} TFLOP/s, "
+               f"{100 * bound * 1e3 / dev_us:.1f} % of the bound")
+            + f"); CUDA-core kernel bf16 {core * 1e3:.1f} us (device "
+            f"{fmt_us(core_us)}), f32 {core32 * 1e3:.1f} us (device "
+            f"{fmt_us(core32_us)}); plain {plain * 1e3:.1f} us; SDPA "
+            f"{lib * 1e3:.1f} us (max diff to K4 {lib_err:.3g}); "
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP: bound "
-            f"{bound * 1e3:.3f} us ({by}, {q.dtype} peak), f32 CUDA-core "
-            f"bound {f32_bound * 1e3:.1f} us")
+            f"{bound * 1e3:.3f} us ({by}, bf16 peak), f32 CUDA-core bound "
+            f"{f32_bound * 1e3:.1f} us")
+        ms_of = (lambda us: None if us is None else us / 1e3)
+        pre = {"prefill": "", "engine": "engine_", "lm_job_b8": "lm8_"}[what]
+        row.update({f"{pre}ms": ms, f"{pre}device_ms": ms_of(dev_us),
+                    f"{pre}plain_ms": plain, f"{pre}library_ms": lib,
+                    f"{pre}bound_ms": bound, f"{pre}shape": list(shape[:6]),
+                    f"{pre}cuda_core_bf16_ms": core,
+                    f"{pre}cuda_core_bf16_device_ms": ms_of(core_us),
+                    f"{pre}cuda_core_f32_ms": core32,
+                    f"{pre}cuda_core_f32_device_ms": ms_of(core32_us)})
         if what == "prefill":
-            row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                       bound_by=by, bound_ms_f32_cuda_cores=f32_bound,
-                       device_ms=None if dev_us is None else dev_us / 1e3,
-                       shape=list(shape[:6]))
-        else:
-            row.update(engine_shape=list(shape[:6]), engine_ms=ms,
-                       engine_device_ms=None if dev_us is None
-                       else dev_us / 1e3, engine_plain_ms=plain,
-                       engine_library_ms=lib, engine_bound_ms=bound)
-        del q, k, v, qt, kt, vt
+            row.update(bound_by=by, bound_ms_f32_cuda_cores=f32_bound)
+        del q, k, v, qt, kt, vt, qf, kf, vf
     return row
 
 
@@ -1157,7 +1294,7 @@ def main() -> int:
     card = nvidia_smi()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda")
-    build_kernels()
+    built = build_kernels()
 
     from repro_torch.core import next_pow2, scenarios, stack_instances
     t0 = time.perf_counter()
@@ -1184,7 +1321,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1, k3 = time_kernels(dev, tmax, zs, launches, k1_err, k3_err)
     kernels = [k1, time_k2(dev, big, eval_launches, k2_err), k3,
-               time_k4(dev, k4_shapes, lm_launches, cfg.n_layers, k4_err)]
+               time_k4(dev, k4_shapes, lm_launches, cfg.n_layers, k4_err,
+                       built.get("flash_attn_tc.cu", {}).get("log"))]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

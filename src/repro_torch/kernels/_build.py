@@ -117,6 +117,11 @@ class CudaKernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
+    def library(self) -> ctypes.CDLL:
+        """The loaded library, for its other exported functions."""
+        self._load()
+        return self._lib
+
     def __call__(self, *args) -> None:
         code = self._load()(*args)
         if code != 0:

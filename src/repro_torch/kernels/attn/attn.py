@@ -2,11 +2,16 @@
 
 Port of ``src/repro/kernels/attn/attn.py::flash_attention_fwd`` (the Pallas
 kernel with its epilogue); its plain version is the counterpart of
-``src/repro/kernels/attn/ref.py``. The CUDA kernel is ``csrc/flash_attn.cu``:
-one block per (batch, query head, query tile) that streams over the KV
-tiles itself.
+``src/repro/kernels/attn/ref.py``. Two hand-written CUDA kernels compute it,
+chosen by :func:`route`:
 
-:func:`flash_attention_fwd` launches the kernel for CUDA tensors and
+- ``"tensor_cores"`` (``csrc/flash_attn_tc.cu``): bf16 with ``Dh % 8 == 0``.
+  ``wgmma`` products with K/V tiles loaded by TMA; P is rounded to bf16
+  before the second product, as in every bf16 flash attention.
+- ``"cuda_cores"`` (``csrc/flash_attn.cu``): float32, and bf16 of any other
+  head width. f32 FMAs on the CUDA cores, the reference's arithmetic.
+
+:func:`flash_attention_fwd` launches the routed kernel for CUDA tensors and
 computes :func:`flash_attention_fwd_ref` for CPU tensors.
 """
 
@@ -18,18 +23,62 @@ import torch
 
 from .._build import CudaKernel
 
-__all__ = ["FLASH_KERNEL", "NEG", "flash_attention_fwd",
-           "flash_attention_fwd_ref"]
+__all__ = ["FLASH_CORE_KERNEL", "FLASH_KERNEL", "FLASH_TC_KERNEL", "NEG",
+           "flash_attention_fwd", "flash_attention_fwd_ref", "launch",
+           "route", "tc_head_width"]
 
 NEG = -1e30
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-FLASH_KERNEL = CudaKernel(
+FLASH_CORE_KERNEL = CudaKernel(
     "flash_attn.cu", "flash_attn_launch",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
+FLASH_TC_KERNEL = CudaKernel(
+    "flash_attn_tc.cu", "flash_attn_tc_launch",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+# TMA takes 16-byte-aligned bases and row strides: Dh % 8 bf16
+TC_HEAD_MULTIPLE = 8
+
+
+class _K4Launches:
+    """Every launch of K4, on either route: ``launches`` is the sum of the
+    two kernels' counts, and setting it to 0 zeroes both."""
+
+    kernels = (FLASH_CORE_KERNEL, FLASH_TC_KERNEL)
+
+    @property
+    def launches(self) -> int:
+        return sum(k.launches for k in self.kernels)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        if value != 0:
+            raise ValueError("K4's launch count can only be reset to 0")
+        for k in self.kernels:
+            k.launches = 0
+
+
+FLASH_KERNEL = _K4Launches()
+
+
+def route(dtype: torch.dtype, dh: int) -> str:
+    """Which kernel computes K4 for ``dtype`` at head width ``dh``:
+    ``"tensor_cores"`` for bf16 with ``dh % 8 == 0``, else ``"cuda_cores"``."""
+    if dtype == torch.bfloat16 and dh % TC_HEAD_MULTIPLE == 0:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def tc_head_width(dh: int) -> int:
+    """The head width the tensor-core kernel computes at: ``dh`` padded to
+    64, 128 or 256 (whole 64-column TMA boxes; the padding reads as zeros)."""
+    if not TC_HEAD_MULTIPLE <= dh <= MAX_HEAD_DIM \
+            or dh % TC_HEAD_MULTIPLE != 0:
+        raise ValueError(f"Dh={dh} is not a tensor-core head width")
+    return 64 if dh <= 64 else 128 if dh <= 128 else 256
 
 
 def _check(q, k, v):
@@ -78,24 +127,47 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True):
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
     """q (B, Tq, Hq, Dh); k, v (B, Tk, Hkv, Dh), contiguous, float32 or
     bfloat16, Hq a multiple of Hkv, Dh ≤ 256 → (B, Tq, Hq, Dh) in q's type,
-    float32 arithmetic.
+    float32 sums.
 
-    A CUDA tensor launches ``csrc/flash_attn.cu`` (counted in
-    ``FLASH_KERNEL.launches``); a CPU tensor computes
-    :func:`flash_attention_fwd_ref`.
+    A CUDA tensor launches the kernel :func:`route` names (counted in
+    ``FLASH_TC_KERNEL`` or ``FLASH_CORE_KERNEL``, both in
+    ``FLASH_KERNEL.launches``); the tensor-core route needs 16-byte-aligned
+    q, k and v. A CPU tensor computes :func:`flash_attention_fwd_ref`.
     """
-    _check(q, k, v)
     if q.device.type == "cpu":
+        _check(q, k, v)
         return flash_attention_fwd_ref(q, k, v, causal=causal)
+    return launch(route(q.dtype, q.shape[-1]), q, k, v, causal=causal)
+
+
+def launch(kernel: str, q, k, v, *, causal: bool = True):
+    """Launch K4's ``kernel`` (a :func:`route` name) on CUDA tensors,
+    checked as :func:`flash_attention_fwd` checks them. That function is
+    the entry point; this is also how a bf16 call is held on the CUDA-core
+    kernel to compare the two."""
+    if kernel not in ("tensor_cores", "cuda_cores"):
+        raise ValueError(f"unknown K4 kernel {kernel!r}")
+    _check(q, k, v)
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    if kernel == "tensor_cores" and route(q.dtype, dh) != kernel:
+        raise ValueError(f"{q.dtype} at Dh={dh} is not a tensor-core input")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous (B, T, H, Dh) tensors")
-    b, tq, hq, dh = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
+    if kernel == "tensor_cores" \
+            and (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("the tensor-core route needs 16-byte-aligned q, k "
+                         "and v")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    FLASH_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODE[q.dtype], b, tq, tk, hq, hkv, dh, dh ** -0.5,
-                 int(causal), stream)
+    if kernel == "tensor_cores":
+        FLASH_TC_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), b, tq, tk, hq, hkv, dh, dh ** -0.5,
+                        int(causal), stream)
+    else:
+        FLASH_CORE_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), _DTYPE_CODE[q.dtype], b, tq, tk,
+                          hq, hkv, dh, dh ** -0.5, int(causal), stream)
     return out

@@ -114,21 +114,67 @@ def test_resize_kernel_matches_plain_on_card(dtype, cuda_device, rng):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh, causal,
                                             dtype, cuda_device, rng):
-    """K4 against its plain version on unit normals: 2e-5 in float32 (sums
-    in another order), 3e-2 in bfloat16 (one rounding of outputs of order
-    1), the reference's tolerances."""
+    """K4 against its plain version on unit normals, through the route
+    ``flash_attention_fwd`` takes: float32 on the CUDA-core kernel within
+    2e-5 (sums in another order); bfloat16 (every Dh here is a multiple of
+    8) on the tensor-core kernel within rtol 2^-7, atol 3e-2 (P is rounded
+    to bf16 before the second product, which can move a rounded output of
+    magnitude >= 4 by one bf16 ulp, 0.031)."""
     from repro_torch.kernels.attn import attn as PA
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(cuda_device, dtype)
                for s in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh)))
     ref = PA.flash_attention_fwd_ref(q, k, v, causal=causal)
-    before = PA.FLASH_KERNEL.launches
+    routed = PA.FLASH_TC_KERNEL if dtype == torch.bfloat16 \
+        else PA.FLASH_CORE_KERNEL
+    before, routed_before = PA.FLASH_KERNEL.launches, routed.launches
     out = PA.flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert PA.FLASH_KERNEL.launches == before + 1
+    assert routed.launches == routed_before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    tol = 2e-5 if dtype == torch.float32 else 3e-2
-    assert torch.allclose(out.float(), ref.float(), rtol=0, atol=tol)
+    if dtype == torch.float32:
+        assert torch.allclose(out, ref, rtol=0, atol=2e-5)
+    else:
+        assert torch.allclose(out.float(), ref.float(), rtol=2 ** -7,
+                              atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,hq,hkv,dh", [(8, 16, 32, 2, 128),
+                                           (3, 5, 8, 1, 64),
+                                           (2, 16, 16, 8, 120)])
+def test_tc_kernel_packs_short_prompts_on_card(b, t, hq, hkv, dh,
+                                               cuda_device, rng):
+    """Short prompts pack a KV head's G query heads into one 64-row tile
+    (row r is head r // T at t = r % T): the tensor-core kernel against the
+    plain version and the CUDA-core kernel on the same bf16 inputs."""
+    from repro_torch.kernels.attn import attn as PA
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, torch.bfloat16)
+               for s in ((b, t, hq, dh), (b, t, hkv, dh), (b, t, hkv, dh)))
+    before = PA.FLASH_TC_KERNEL.launches
+    out = PA.launch("tensor_cores", q, k, v)
+    core = PA.launch("cuda_cores", q, k, v)
+    torch.cuda.synchronize()
+    assert PA.FLASH_TC_KERNEL.launches == before + 1
+    for want in (PA.flash_attention_fwd_ref(q, k, v), core):
+        assert torch.allclose(out.float(), want.float(), rtol=2 ** -7,
+                              atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_tc_kernel_refuses_unaligned_inputs_on_card(cuda_device):
+    """TMA reads from 16-byte-aligned bases: an unaligned bf16 view raises
+    instead of launching."""
+    from repro_torch.kernels.attn import attn as PA
+    flat = torch.zeros(1 + 2 * 4 * 2 * 16, device=cuda_device,
+                       dtype=torch.bfloat16)
+    q = flat[1:].view(2, 4, 2, 16)
+    before = PA.FLASH_KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        PA.flash_attention_fwd(q, q, q)
+    assert PA.FLASH_KERNEL.launches == before
 
 
 @pytest.mark.cuda
