@@ -14,13 +14,19 @@ version:
    all-infeasible instances) and on the metro day batch
    (``metro_diurnal_trace(256, n_domains=32)``, 6144 rows): V bitwise,
    tau and best_a equal;
-3. K2 (``kernels/pg/pg.py::masked_argmax``) against ``masked_argmax_ref``
-   at (T, A) = (50, 300), (200, 1280), (4096, 1280) and (77, 999), with
-   planted ties, all-masked rows, dead rows and an all-false ``cap_ok``:
-   g and idx bitwise;
-4. K3 (``kernels/resize/resize.py::resize_bilinear``) against its plain
-   version at 128×128×3, 640×640×3 and 1024×2048×3, batch 8,
-   z ∈ {0.04, 0.25, 0.5, 1}, float32, within 1e-5;
+3. K2, both entries of ``kernels/csrc/masked_argmax.cu``:
+   ``masked_argmax`` against ``masked_argmax_ref`` at (T, A) = (50, 300),
+   (200, 1280), (4096, 1280) and (77, 999), with planted ties, all-masked
+   rows, dead rows and an all-false ``cap_ok`` (g and idx bitwise); the
+   admission round (``kernels/pg/pg.py::bind_round``) against
+   ``admission_round_ref`` on every round of the T = 200, A = 1280
+   instance's solve in all four quadrants and on those (T, A) with planted
+   ties, flexible and MinRes: every state tensor bitwise after every round;
+4. K3 (``kernels/resize/resize.py::resize_bilinear``, taps derived in the
+   kernel) against its plain version at 128×128×3, 640×640×3 and
+   1024×2048×3, batch 8, z ∈ {0.04, 0.25, 0.5, 1}, float32, within 1e-5,
+   and bitwise against the same 4-tap gather on ``resize_taps`` (so the
+   in-kernel taps are those); bf16 within 3e-2;
 5. solves the metro day batch coupled with ``inner="kernel"`` and with
    ``inner="torch"`` (the plain bit-domain round): decisions equal, every
    solution valid, link budgets kept; prints rounds, host syncs, ms/solve;
@@ -36,13 +42,16 @@ version:
    T = 200, A = 1280 instance through ``run_algorithm(name, inst,
    backend="torch")`` for all six algorithms; Fig. 7's Colosseum periods
    through ``SESM(backend="torch").slice``; ``solve_greedy_many`` on the
-   mixed-grid ``multi_cell_trace(4, 8, seed=1, n_grids=2)``. A twin on
+   mixed-grid ``multi_cell_trace(4, 8, seed=1, n_grids=2)``. K2's round
+   kernel must launch exactly once per single-solve round run. A twin on
    ``inner="torch"`` must decide identically (admitted, alloc, z); against
    the numpy oracle the phase reports the satisfied counts and every
    instance that decides differently, and fails unless each difference
    starts at an f32 near-tie (a float64 replay of the oracle, picking in
    float32 from the same state each round, first disagrees where the two
-   picks' float64 values are within 1e-6 of each other);
+   picks' float64 values are within 1e-6 of each other). A profile of the
+   T = 200 SEM-O-RAN solve reports its launches, wall time and device
+   busy share;
 8. K4 (``kernels/attn/attn.py::flash_attention_fwd``) against its plain
    version at (B, T, Hq, Hkv, Dh) = (8, 16, 32, 2, 128) (the LM job),
    (2, 2048, 32, 2, 128), (1, 1000, 32, 2, 128), (2, 77, 32, 8, 120),
@@ -67,11 +76,13 @@ version:
    are printed;
 10. times each kernel (per call, and its own device time from
    ``torch.profiler`` as ``device_ms``), its plain version and the library
-   call (where one exists) at the shapes the main paths gave it — K4 on
-   both kernels at the LM job's shape and at (2, 2048), with the
-   tensor-core kernel's ptxas report and launch configuration — and prints
-   the ``{"kernels": [...]}`` line, the card's name and power limit, and
-   finally the ``{"ok": true, ...}`` line.
+   call (where one exists) at the shapes the main paths gave it — K3 and
+   both K2 entries beside ``F.interpolate`` and ``torch.max`` in
+   alternation (5 repetitions of 200 calls, medians), with a host-side
+   breakdown of each wrapper's steps; K4 on both kernels at the LM job's
+   shape and at (2, 2048), with the tensor-core kernel's ptxas report and
+   launch configuration — and prints the ``{"kernels": [...]}`` line, the
+   card's name and power limit, and finally the ``{"ok": true, ...}`` line.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -102,9 +113,11 @@ HORIZON = 8
 # first tick, so the 8-step closed loop never outgrows its device session
 STANDING = 33
 SHAPES = ((128, 128), (640, 640), (1024, 2048))
+K3_ZS = (0.04, 0.25, 0.5, 1.0)
 K2_SHAPES = ((50, 300), (200, 1280), (4096, 1280), (77, 999))
 FIG6_TASKS, FIG6_SEEDS = (10, 20, 30, 40, 50), (0, 1, 2)
 FIG7_FPS = (10.0, 7.0, 5.0, 3.0)
+QUADRANTS = ((True, True), (True, False), (False, True), (False, False))
 FIG7_ALGOS = {"sem-o-ran": dict(semantic=True, flexible=True),
               "minres-sem": dict(semantic=True, flexible=False),
               "flexres-n-sem": dict(semantic=False, flexible=True)}
@@ -295,6 +308,11 @@ def k2_inputs(rng, t, a, dev, cap_all_false=False):
 
 
 def phase_k2(dev):
+    """K2's two entries against their plain versions: ``masked_argmax`` on
+    ``K2_SHAPES``, and the admission round on every round of the T = 200
+    instance's solve in all four quadrants and on ``K2_SHAPES`` with
+    planted ties. Returns the max abs error (0 when bitwise) and the
+    rounds checked."""
     import numpy as np
     import torch
     from repro_torch.kernels.pg import pg as PK
@@ -319,12 +337,154 @@ def phase_k2(dev):
                 raise AssertionError(f"K2 {what}: a masked row was found")
             if not cap_all_false:
                 n_found = int(found.sum())
-        log(f"[K2] T={t} A={a}: g and idx bitwise equal; {n_found} of {t} "
-            "rows with a candidate, none with cap_ok all false")
-    return err
+        log(f"[K2] masked_argmax T={t} A={a}: g and idx bitwise equal; "
+            f"{n_found} of {t} rows with a candidate, none with cap_ok all "
+            "false")
+    big = t200_instance()
+    checked = 0
+    for semantic, flexible in QUADRANTS:
+        tables, alive0 = solve_tables(big, semantic, dev)
+        n = check_rounds(tables, alive0, flexible,
+                         f"T=200 A=1280 semantic={semantic} "
+                         f"flexible={flexible}")
+        checked += n
+    for t, a in K2_SHAPES:
+        for flexible in (True, False):
+            tables, alive0 = round_inputs(rng, t, a, 4 if a == 1280 else 2,
+                                          dev)
+            checked += check_rounds(tables, alive0, flexible,
+                                    f"planted ties T={t} A={a} "
+                                    f"flexible={flexible}", max_rounds=48)
+    return err, checked
+
+
+def t200_instance():
+    """The largest instance of ``benchmarks/solver_perf.py``: T = 200 tasks
+    on the m = 4 numerical pool (A = 1280)."""
+    from repro_torch.core import build_instance, scenarios
+    return build_instance(scenarios.numerical_pool(4),
+                          scenarios.numerical_tasks(200, "med", "high"))
+
+
+def solve_tables(inst, semantic, dev):
+    """The single solve's tables on ``dev`` and its first alive mask, as
+    ``solve_greedy_torch`` builds them."""
+    import torch
+    from repro_torch.core import greedy as G
+    from repro_torch.core.sfesp import _f32, lexicographic_cost
+    lat, z_idx = G._select_tables(inst, semantic)
+    lat_ok = lat <= inst.tasks.max_latency[:, None]
+    tables = (torch.from_numpy(lat_ok).to(dev), _f32(inst.grid, dev),
+              _f32(inst.pool.price, dev), _f32(inst.pool.capacity, dev),
+              _f32(lexicographic_cost(inst.grid), dev))
+    return tables, torch.from_numpy((z_idx >= 0) & lat_ok.any(axis=1)).to(dev)
+
+
+def round_state(alive0, m):
+    import torch
+    t, dev = alive0.shape[0], alive0.device
+    return (torch.zeros(t, dtype=torch.bool, device=dev),
+            torch.full((t,), -1, dtype=torch.int32, device=dev),
+            torch.zeros(m, dtype=torch.float32, device=dev), alive0.clone())
+
+
+def round_inputs(rng, t, a, m, dev):
+    """Round tables with planted ties: duplicated allocations (equal PG
+    and cost), duplicated task rows, rows with nothing feasible, tasks dead
+    from the start."""
+    import numpy as np
+    import torch
+    grid = rng.integers(1, 8, (a, m)).astype(np.float32)
+    grid[a // 2:a // 2 + 16] = grid[:16]
+    price = rng.uniform(0.05, 0.3, m).astype(np.float32)
+    cap = (rng.integers(10, 30, m) * max(1, t // 50)).astype(np.float32)
+    lat = rng.random((t, a)) < 0.3
+    lat[1::4] = lat[0::4][:len(lat[1::4])]
+    lat[2::9] = False
+    alive0 = lat.any(1)
+    alive0[3::11] = False
+    cost = (grid @ (1000.0 ** np.arange(m))).astype(np.float32)
+    tables = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                   for x in (lat, grid, price, cap, cost))
+    return tables, torch.from_numpy(alive0).to(dev)
+
+
+def check_rounds(tables, alive0, flexible, what, max_rounds=None) -> int:
+    """Step the round kernel and its plain version (``admission_round_ref``
+    on a copy of the state, on the card) from the same start, round by
+    round, to convergence and one no-op round past it (or ``max_rounds``):
+    every state tensor bitwise equal after every round. Returns the rounds
+    checked."""
+    import torch
+    from repro_torch.kernels.pg import pg as PK
+    state = round_state(alive0, tables[1].shape[1])
+    plain = tuple(x.clone() for x in state)
+    step = PK.bind_round(state, *tables, flexible=flexible)
+    rounds = admitted = 0
+    while True:
+        done = not bool(state[3].any())
+        step()
+        PK.admission_round_ref(plain, *tables, flexible)
+        torch.cuda.synchronize()
+        rounds += 1
+        for name, x, y in zip(("admitted", "alloc_idx", "occupied", "alive"),
+                              state, plain):
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if not torch.equal(x, y):
+                raise AssertionError(f"K2 round {what}: {name} differs from "
+                                     f"the plain version after round "
+                                     f"{rounds}")
+        admitted = int(state[0].sum())
+        if done or rounds == max_rounds:
+            break
+    log(f"[K2] admission round {what}: {rounds} rounds bitwise equal "
+        f"({admitted} admitted{'' if done else ', cut'})")
+    return rounds
 
 
 # --------------------------------------------------------------- phase 4
+
+def tap_gather(img, h, w):
+    """K3's arithmetic on ``resize_taps`` as plain torch ops (rows first,
+    every product and sum rounded to float32): bitwise what the kernel
+    computes if the taps it derives equal ``resize_taps``."""
+    import torch
+    from repro_torch.kernels.resize import resize as PR
+    (ih, wh), (iw, ww) = (
+        (torch.from_numpy(i).long().to(img.device),
+         torch.from_numpy(wt).to(img.device))
+        for i, wt in (PR.resize_taps(h, img.shape[1]),
+                      PR.resize_taps(w, img.shape[2])))
+    x = img.float()
+    a0, a1 = wh[0][None, :, None, None], wh[1][None, :, None, None]
+    b0, b1 = ww[0][None, None, :, None], ww[1][None, None, :, None]
+    r0, r1 = a0 * x[:, ih[0]], a1 * x[:, ih[1]]
+    t0 = r0[:, :, iw[0]] + r1[:, :, iw[0]]
+    t1 = r0[:, :, iw[1]] + r1[:, :, iw[1]]
+    return (b0 * t0 + b1 * t1).to(img.dtype)
+
+
+def check_k3(img, ho, wo, tol, what):
+    """K3 against its plain version within ``tol`` and bitwise against the
+    gather on ``resize_taps``. Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.resize import resize as PR
+    out = PR.resize_bilinear(img, ho, wo)
+    ref = PR.resize_bilinear_ref(img, ho, wo)
+    taps = tap_gather(img, ho, wo)
+    torch.cuda.synchronize()
+    e = (out.float() - ref.float()).abs().max().item()
+    if out.shape != ref.shape or out.dtype != img.dtype:
+        raise AssertionError(f"K3 {what}: output {out.dtype} "
+                             f"{tuple(out.shape)}")
+    if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"K3 {what}: max err {e} beyond {tol}")
+    if not torch.equal(out, taps):
+        raise AssertionError(f"K3 {what}: differs from the gather on "
+                             "resize_taps (the in-kernel taps)")
+    return e
+
 
 def phase_k3(dev):
     import numpy as np
@@ -335,28 +495,20 @@ def phase_k3(dev):
     for (h, w) in SHAPES:
         img = torch.from_numpy(rng.standard_normal((8, h, w, 3)).astype(
             np.float32)).to(dev)
-        for z in (0.04, 0.25, 0.5, 1.0):
+        for z in K3_ZS:
             ho, wo = PR.out_size_for_z(h, w, z)
-            taps = (PR.device_taps(ho, h, dev), PR.device_taps(wo, w, dev))
-            out = PR.resize_bilinear(img, *taps)
-            ref = PR.resize_bilinear_ref(img, *taps)
-            torch.cuda.synchronize()
-            e = (out - ref).abs().max().item()
-            if not torch.allclose(out, ref, rtol=1e-5, atol=1e-5):
-                raise AssertionError(f"K3 {h}x{w} z={z}: max err {e}")
-            if z == 1.0 and not torch.equal(out, img):
+            err = max(err, check_k3(img, ho, wo, 1e-5, f"{h}x{w} z={z}"))
+            if z == 1.0 and not torch.equal(PR.resize_bilinear(img, ho, wo),
+                                            img):
                 raise AssertionError(f"K3 {h}x{w}: z=1 is not the identity")
-            err = max(err, e)
-        log(f"[K3] 8x{h}x{w}x3 f32 z in (0.04, 0.25, 0.5, 1): "
-            f"within 1e-5 (max abs err so far {err:.3g})")
+        log(f"[K3] 8x{h}x{w}x3 f32 z in {K3_ZS}: within 1e-5 (max abs err "
+            f"so far {err:.3g}), bitwise the gather on resize_taps")
+        del img
     img = torch.from_numpy(rng.standard_normal((8, 128, 128, 3)).astype(
         np.float32)).to(dev, torch.bfloat16)
-    taps = (PR.device_taps(26, 128, dev), PR.device_taps(26, 128, dev))
-    out = PR.resize_bilinear(img, *taps).float()
-    ref = PR.resize_bilinear_ref(img, *taps).float()
-    if not torch.allclose(out, ref, rtol=3e-2, atol=3e-2):
-        raise AssertionError("K3 bf16 differs from the plain version")
-    log("[K3] 8x128x128x3 bf16 z=0.04: within 3e-2")
+    check_k3(img, 26, 26, 3e-2, "8x128x128x3 bf16 z=0.04")
+    log("[K3] 8x128x128x3 bf16 z=0.04: within 3e-2, bitwise the gather on "
+        "resize_taps")
     return err
 
 
@@ -494,8 +646,9 @@ def phase_serving(dev):
 def profile_call(fn, what: str):
     """Where one call of ``fn`` spends its time: wall time, device busy
     time (summed kernel time), launches and the top kernels, from a
-    ``torch.profiler`` trace of a warm call. Returns (wall us, device us
-    by kernel name)."""
+    ``torch.profiler`` trace of a warm call (launches: every device event,
+    kernels and copies). Returns (wall us, device us by kernel name,
+    launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -518,7 +671,7 @@ def profile_call(fn, what: str):
         f"kernel launches of {len(kern)} names")
     for name, us in top:
         log(f"[trace]   {us:9.1f} us  {name[:90]}")
-    return wall_us, kern
+    return wall_us, kern, count
 
 
 # --------------------------------------------------------------- phase 7
@@ -648,23 +801,41 @@ def phase_evaluation(dev):
     from repro_torch.core import ALGORITHMS
     from repro_torch.kernels.pg import pg as PK
     from repro_torch.kernels.resize import resize as PR
+    from repro_torch.core import greedy as G
     sweep = eval_instances()
-    kernels = {"pg_round": PK.ROUND_KERNEL, "masked_argmax": PK.ARGMAX_KERNEL,
-               "resize": PR.RESIZE_KERNEL}
-    for k in kernels.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    sols, fig7, many = run_evaluation(dev, sweep, "torch", None)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    kernels = {"pg_round": PK.ROUND_KERNEL,
+               "admission_round": PK.ADMIT_KERNEL,
+               "masked_argmax": PK.ARGMAX_KERNEL, "resize": PR.RESIZE_KERNEL}
+    run_rounds, rounds = G._run_rounds, {"single": 0, "batched": 0}
+
+    def counted_rounds(body, state, alive_at):
+        out = run_rounds(body, state, alive_at)
+        rounds["single" if state[alive_at].dim() == 1 else "batched"] \
+            += out[1]
+        return out
+    G._run_rounds = counted_rounds
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        sols, fig7, many = run_evaluation(dev, sweep, "torch", None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+    finally:
+        G._run_rounds = run_rounds
     n_inst = sum(len(v) for v in sweep.values())
     log(f"[eval] {n_inst} instances x {len(ALGORITHMS)} algorithms, "
         f"{len(FIG7_FPS)} Fig. 7 periods x {len(FIG7_ALGOS)} algorithms, "
-        f"{len(many)} mixed-grid cells in {wall:.1f} s; launches {launches}")
-    if launches["masked_argmax"] <= 0 or launches["pg_round"] <= 0:
-        raise AssertionError(f"the evaluation path did not run K2 and K1: "
-                             f"{launches}")
+        f"{len(many)} mixed-grid cells in {wall:.1f} s; launches {launches}; "
+        f"rounds run {rounds}")
+    if launches["admission_round"] <= 0 or launches["pg_round"] <= 0:
+        raise AssertionError(f"the evaluation path did not run K2's round "
+                             f"and K1: {launches}")
+    if launches["admission_round"] != rounds["single"]:
+        raise AssertionError(f"K2's round kernel launched "
+                             f"{launches['admission_round']} times for "
+                             f"{rounds['single']} single-solve rounds")
 
     t0 = time.perf_counter()
     tsols, tfig7, tmany = run_evaluation(dev, sweep, "torch", "torch")
@@ -732,8 +903,11 @@ def phase_evaluation(dev):
         f"MinRes-SEM admits Animals: {fig7['minres-sem'][0][1][0]}")
     from repro_torch.core import run_algorithm
     big = sweep["T=200 m=4"][0]
-    profile_call(lambda: run_algorithm("sem-o-ran", big, "torch", device=dev),
-                 "SEM-O-RAN single solve, T=200 A=1280")
+    wall_us, kern, count = profile_call(
+        lambda: run_algorithm("sem-o-ran", big, "torch", device=dev),
+        "SEM-O-RAN single solve, T=200 A=1280")
+    launches["t200_solve"] = dict(launches=count, wall_ms=wall_us / 1e3,
+                                  busy_ms=sum(kern.values()) / 1e3)
     return launches, big
 
 # --------------------------------------------------------------- phase 8
@@ -986,7 +1160,7 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T):
             f"{(ylogits - logits.float()).abs().max().item():.4g} to K4; "
             f"top-1 {ylogits.argmax(-1).tolist()} (K4 "
             f"{logits.argmax(-1).tolist()}, plain {pl.argmax(-1).tolist()})")
-    wall_us, kern = profile_call(run, f"{cfg.name} prefill B={b} T={t}")
+    wall_us, kern, _ = profile_call(run, f"{cfg.name} prefill B={b} T={t}")
     k4_us = sum(us for name, us in kern.items() if "flash_tc_kernel" in name)
     log(f"[trace] {cfg.name} prefill B={b} T={t}: K4 (flash_tc_kernel) "
         f"{k4_us / 1e3:.3f} ms of the device time, "
@@ -995,6 +1169,54 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T):
 
 
 # --------------------------------------------------------------- phase 10
+
+def alternating_ms(fns: dict, reps: int = 5, iters: int = 200) -> dict:
+    """Per-call ms of each of ``fns``: CUDA events around ``iters``
+    back-to-back calls, the functions taken in turn, ``reps`` times; the
+    median of each. Comparing within one alternation keeps a host that
+    drifts during the run from favouring either side."""
+    import statistics
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        cuda_ms(fn, iters=5, warmup=5)
+    for _ in range(reps):
+        for k, fn in fns.items():
+            times[k].append(cuda_ms(fn, iters=iters, warmup=1))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def host_us(steps: dict, iters: int = 2000, reps: int = 5) -> dict:
+    """Host time per call of each step of a wrapper, in µs: the median over
+    ``reps`` runs of ``iters`` calls timed with ``perf_counter_ns`` (the
+    device is synchronized between runs, so a launch step measures the
+    enqueue)."""
+    import statistics
+    import torch
+    out = {}
+    for name, fn in steps.items():
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(iters):
+                fn()
+            runs.append((time.perf_counter_ns() - t0) / iters / 1e3)
+        torch.cuda.synchronize()
+        out[name] = statistics.median(runs)
+    return out
+
+
+def fmt_steps(steps: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
+
+
+def bound_of(nbytes, ops):
+    """(bound ms, what bounds it) for ``nbytes`` moved and ``ops`` float32
+    operations on the H100's peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
 
 def k2_path_inputs(inst, dev):
     """K2's inputs on the first round of ``inst``'s SEM-O-RAN solve:
@@ -1015,53 +1237,137 @@ def k2_path_inputs(inst, dev):
 
 
 def time_k2(dev, big, launches, k2_err):
+    """K2 at the evaluation path's shape (T = 200, A = 1280, the first
+    round of the SEM-O-RAN solve): the admission round (the path's entry)
+    and the ``masked_argmax`` entry, each beside its plain version, the
+    masked entry beside ``torch.max`` over the materialized score, in
+    alternation; device times; a host breakdown of each wrapper."""
     import numpy as np
     import torch
+    from repro_torch.kernels._build import current_stream
     from repro_torch.kernels.pg import pg as PK
     ins = k2_path_inputs(big, dev)
     t, a = ins[1].shape
-    k2 = dict(name="masked_argmax", route="cuda",
-              source="src/repro_torch/kernels/csrc/masked_argmax.cu",
-              replaces="src/repro/kernels/pg/pg.py:73",
-              launches=launches["masked_argmax"], max_abs_err=k2_err)
-    k2["ms"] = cuda_ms(lambda: PK.masked_argmax(*ins), iters=200)
-    k2["plain_ms"] = cuda_ms(lambda: PK.masked_argmax_ref(*ins))
     neg = torch.tensor(float("-inf"), device=dev)
     score = torch.where(ins[1] & ins[2][None, :] & ins[3][:, None],
                         ins[0][None, :], neg)
-    # library yardstick: where + max, timed as the max over the
-    # materialized score alone
-    k2["library_ms"] = cuda_ms(lambda: torch.max(score, dim=1), iters=200)
+    g = ins[0].new_empty(t)
+    idx = ins[0].new_empty(t, dtype=torch.int32)
+    ptrs = [x.data_ptr() for x in ins]
+    am = alternating_ms({
+        "kernel": lambda: PK.masked_argmax(*ins),
+        "library": lambda: torch.max(score, dim=1),
+        "plain": lambda: PK.masked_argmax_ref(*ins)})
+    k2_dev = device_us(lambda: PK.masked_argmax(*ins), "masked_argmax")
     # each input read once (mask T*A, sel 4A, cap_ok A, alive T), each
     # output written once (g 4T, idx 4T); one compare per (task, lane)
-    k2_bytes = t * a + 5 * a + t + 8 * t
-    k2_ops = t * a
-    k2["bound_ms"] = max(k2_bytes / HBM_BYTES_PER_S,
-                         k2_ops / F32_FLOP_PER_S) * 1e3
-    k2["bound_by"] = "bytes" if k2_bytes / HBM_BYTES_PER_S \
-        >= k2_ops / F32_FLOP_PER_S else "operations"
-    k2_dev = device_us(lambda: PK.masked_argmax(*ins), "masked_argmax")
-    k2["device_ms"] = None if k2_dev is None else k2_dev / 1e3
-    log(f"[time] K2 T={t} A={a} (first round of the T=200 instance): "
-        f"kernel {k2['ms']*1e3:.1f} us per call (device {fmt_us(k2_dev)}), "
-        f"plain {k2['plain_ms']*1e3:.1f} us, torch.max over the score "
-        f"{k2['library_ms']*1e3:.1f} us, bound {k2['bound_ms']*1e3:.3f} us "
-        f"({k2['bound_by']})")
+    a_bound, a_by = bound_of(t * a + 5 * a + t + 8 * t, t * a)
+    a_host = host_us({
+        "checks": lambda: PK._check_argmax(*ins),
+        "outputs (new_empty, unbind, view)": lambda: (
+            lambda o: (o[0].view(torch.float32), o[1]))(
+                ins[0].new_empty((2, t), dtype=torch.int32).unbind(0)),
+        "stream": lambda: current_stream(0),
+        "ctypes call, T=0 (no launch)": lambda: PK.ARGMAX_KERNEL(
+            *ptrs, 0, a, g.data_ptr(), idx.data_ptr(), current_stream(0)),
+        "ctypes launch": lambda: PK.ARGMAX_KERNEL(
+            *ptrs, t, a, g.data_ptr(), idx.data_ptr(), current_stream(0)),
+        "whole call": lambda: PK.masked_argmax(*ins),
+        "torch.max": lambda: torch.max(score, dim=1)})
+    log(f"[time] K2 masked_argmax entry T={t} A={a} (first round of the "
+        f"T=200 instance), alternating medians: kernel {am['kernel']*1e3:.1f}"
+        f" us per call (device {fmt_us(k2_dev)}), torch.max over the score "
+        f"{am['library']*1e3:.1f} us, plain {am['plain']*1e3:.1f} us, bound "
+        f"{a_bound*1e3:.3f} us ({a_by}); host us per step: "
+        f"{fmt_steps(a_host)}")
     for t2, a2 in ((50, 300), (50, 1280), (4096, 1280)):
         ins2 = k2_inputs(np.random.default_rng(4), t2, a2, dev)
         ms = cuda_ms(lambda: PK.masked_argmax(*ins2), iters=200)
         dus = device_us(lambda: PK.masked_argmax(*ins2), "masked_argmax")
-        log(f"[time] K2 T={t2} A={a2}: kernel {ms*1e3:.1f} us per call "
-            f"(device {fmt_us(dus)}), bound "
+        log(f"[time] K2 masked_argmax entry T={t2} A={a2}: kernel "
+            f"{ms*1e3:.1f} us per call (device {fmt_us(dus)}), bound "
             f"{(t2 * a2 + 5 * a2 + 9 * t2) / HBM_BYTES_PER_S * 1e6:.3f} us")
-    return k2
+
+    # the admission round along the T = 200 SEM-O-RAN solve: the solve's
+    # rounds back to back from its first state (restored once per solve:
+    # the round writes the state), the restore alone timed in the same
+    # alternation and taken off; per round
+    tables, alive0 = solve_tables(big, True, dev)
+    m = tables[1].shape[1]
+    state0 = round_state(alive0, m)
+    state = tuple(x.clone() for x in state0)
+    step = PK.bind_round(state, *tables, flexible=True)
+
+    def restore():
+        for x, x0 in zip(state, state0):
+            x.copy_(x0)
+    restore()
+    n_rounds = 0
+    while bool(state[3].any()):
+        step()
+        n_rounds += 1
+    n_rounds += 1                      # and the no-op round that ends it
+
+    def solve_rounds():
+        restore()
+        for _ in range(n_rounds):
+            step()
+
+    def plain_rounds():
+        restore()
+        for _ in range(n_rounds):
+            PK.admission_round_ref(state, *tables, True)
+    rm = alternating_ms({"restore": restore, "kernel": solve_rounds},
+                        iters=20)
+    rm["plain"] = alternating_ms({"restore": restore, "plain": plain_rounds},
+                                 reps=3, iters=2)["plain"]
+    r_dev = device_us(solve_rounds, "admission_round", iters=20)
+    r_dev = None if r_dev is None else r_dev / n_rounds
+    # mask T*A bytes, grid 4*A*m, price and cap 8m, the state read (alive
+    # T, occupied 4m) and written (alive T, admitted 1, alloc_idx 4,
+    # occupied 4m); T*A compares and the gradient's A*(10m+8) flops
+    r_bound, r_by = bound_of(t * a + 4 * a * m + 8 * m + 2 * t + 8 * m + 5,
+                             t * a + a * (10 * m + 8))
+    r_host = host_us({
+        "restore": restore,
+        "ctypes launch": lambda: PK.ADMIT_KERNEL(step._ptr,
+                                                 current_stream(0)),
+        "whole call": step}, iters=500)
+    row = dict(name="masked_argmax", route="cuda",
+               source="src/repro_torch/kernels/csrc/masked_argmax.cu",
+               replaces="src/repro/kernels/pg/pg.py:73",
+               entry="admission_round",
+               launches=launches["admission_round"], max_abs_err=k2_err,
+               ms=(rm["kernel"] - rm["restore"]) / n_rounds,
+               plain_ms=(rm["plain"] - rm["restore"]) / n_rounds,
+               rounds_per_solve=n_rounds, bound_ms=r_bound,
+               bound_by=r_by, library_ms=None,
+               device_ms=None if r_dev is None else r_dev / 1e3,
+               restore_ms=rm["restore"],
+               argmax_launches=launches["masked_argmax"],
+               argmax_ms=am["kernel"], argmax_plain_ms=am["plain"],
+               argmax_library_ms=am["library"], argmax_bound_ms=a_bound,
+               argmax_bound_by=a_by,
+               argmax_device_ms=None if k2_dev is None else k2_dev / 1e3,
+               argmax_host_us=a_host, host_us=r_host,
+               t200_solve=launches["t200_solve"])
+    log(f"[time] K2 admission round T={t} A={a} m={m}, the {n_rounds} "
+        f"rounds of the T=200 SEM-O-RAN solve back to back, alternating "
+        f"medians less the state restore ({rm['restore']*1e3:.1f} us), per "
+        f"round: kernel "
+        f"{row['ms']*1e3:.1f} us per call (device {fmt_us(r_dev)}), plain "
+        f"{row['plain_ms']*1e3:.1f} us, bound {r_bound*1e3:.3f} us ({r_by});"
+        f" host us per step: {fmt_steps(r_host)}")
+    return row
 
 
 def time_kernels(dev, tmax, zs, launches, k1_err, k3_err):
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels._build import current_stream
     from repro_torch.kernels.pg import pg as PK
+    from repro_torch.kernels.resize import ops as PO
     from repro_torch.kernels.resize import resize as PR
     rng = np.random.default_rng(2)
     # K1 at the main path's shape: B = 256 cells, T = the session's bucket
@@ -1074,14 +1380,11 @@ def time_kernels(dev, tmax, zs, launches, k1_err, k3_err):
               launches=launches["pg_round"], max_abs_err=k1_err)
     k1["ms"] = cuda_ms(lambda: PK.batch_round(words, *rest), iters=200)
     k1["plain_ms"] = cuda_ms(lambda: PK.batch_round_ref(lat, *rest))
-    k1_bytes = b * t * w * 4 + b * t + a * m * 4 + 3 * b * m * 4 + b * 12
     # per lane: m subs, muls, 2 divs, 2 muls, 3 adds, 1 compare; + the
     # scan's compare per set bit (bounded by the lanes)
-    k1_ops = b * a * (10 * m + 8)
-    k1["bound_ms"] = max(k1_bytes / HBM_BYTES_PER_S,
-                         k1_ops / F32_FLOP_PER_S) * 1e3
-    k1["bound_by"] = "bytes" if k1_bytes / HBM_BYTES_PER_S \
-        >= k1_ops / F32_FLOP_PER_S else "operations"
+    k1["bound_ms"], k1["bound_by"] = bound_of(
+        b * t * w * 4 + b * t + a * m * 4 + 3 * b * m * 4 + b * 12,
+        b * a * (10 * m + 8))
     k1["library_ms"] = None
     k1_dev = device_us(lambda: PK.batch_round(words, *rest), "pg_round")
     k1["device_ms"] = None if k1_dev is None else k1_dev / 1e3
@@ -1091,56 +1394,78 @@ def time_kernels(dev, tmax, zs, launches, k1_err, k3_err):
         f"{k1['bound_ms']*1e3:.3f} us ({k1['bound_by']})")
 
     # K3 at the main path's shape: a job batch of 5 frames of 128x128x3 at
-    # the compression the engine admitted most often
+    # the compression the engine admitted most often, through the wrapper
+    # and the path's entry (compress_frames), beside F.interpolate, in
+    # alternation
     vals, counts = np.unique(np.round(zs, 6), return_counts=True)
     z = float(vals[counts.argmax()])
     img = torch.from_numpy(rng.standard_normal((5, 128, 128, 3)).astype(
         np.float32)).to(dev)
     ho, wo = PR.out_size_for_z(128, 128, z)
-    th, tw = PR.device_taps(ho, 128, dev), PR.device_taps(wo, 128, dev)
+    nchw = img.permute(0, 3, 1, 2)
+    out = PR.resize_bilinear(img, ho, wo)
     k3 = dict(name="resize", route="cuda",
               source="src/repro_torch/kernels/csrc/resize.cu",
               replaces="src/repro/kernels/resize/resize.py:40",
               launches=launches["resize"], max_abs_err=k3_err)
-    k3["ms"] = cuda_ms(lambda: PR.resize_bilinear(img, th, tw), iters=200)
-    k3["plain_ms"] = cuda_ms(lambda: PR.resize_bilinear_ref(img, th, tw))
-    nchw = img.permute(0, 3, 1, 2)
-    k3["library_ms"] = cuda_ms(lambda: F.interpolate(
-        nchw, size=(ho, wo), mode="bilinear", align_corners=False),
-        iters=200)
+    k3m = alternating_ms({
+        "kernel": lambda: PR.resize_bilinear(img, ho, wo),
+        "library": lambda: F.interpolate(nchw, size=(ho, wo),
+                                         mode="bilinear",
+                                         align_corners=False),
+        "compress_frames": lambda: PO.compress_frames(img, z),
+        "plain": lambda: PR.resize_bilinear_ref(img, ho, wo)})
+    k3.update(ms=k3m["kernel"], library_ms=k3m["library"],
+              plain_ms=k3m["plain"], compress_frames_ms=k3m["compress_frames"])
     # bytes: the input pixels the taps touch (rows x columns used), once
-    rows, cols = (len(np.unique(idx.cpu().numpy()[wt.cpu().numpy() > 0]))
-                  for idx, wt in (th, tw))
-    k3_bytes = 5 * rows * cols * 3 * 4 + 5 * ho * wo * 3 * 4 \
-        + 2 * (ho + wo) * 8
-    k3_ops = 5 * ho * wo * 3 * 6
-    k3["bound_ms"] = max(k3_bytes / HBM_BYTES_PER_S,
-                         k3_ops / F32_FLOP_PER_S) * 1e3
-    k3["bound_by"] = "bytes" if k3_bytes / HBM_BYTES_PER_S \
-        >= k3_ops / F32_FLOP_PER_S else "operations"
-    k3_dev = device_us(lambda: PR.resize_bilinear(img, th, tw), "resize")
+    rows, cols = (len(np.unique(i[wt > 0])) for i, wt in (
+        PR.resize_taps(ho, 128), PR.resize_taps(wo, 128)))
+    k3["bound_ms"], k3["bound_by"] = bound_of(
+        5 * rows * cols * 3 * 4 + 5 * ho * wo * 3 * 4, 5 * ho * wo * 3 * 6)
+    k3_dev = device_us(lambda: PR.resize_bilinear(img, ho, wo), "resize")
     k3["device_ms"] = None if k3_dev is None else k3_dev / 1e3
-    log(f"[time] K3 5x128x128x3 z={z:.4f} -> {ho}x{wo}: kernel "
-        f"{k3['ms']*1e3:.1f} us per call (device {fmt_us(k3_dev)}), "
-        f"plain {k3['plain_ms']*1e3:.1f} us, "
-        f"F.interpolate {k3['library_ms']*1e3:.1f} us, bound "
-        f"{k3['bound_ms']*1e3:.3f} us ({k3['bound_by']})")
+    k3["host_us"] = host_us({
+        "out_size_for_z": lambda: PR.out_size_for_z(128, 128, z),
+        "checks": lambda: PR._check(img, ho, wo),
+        "new_empty": lambda: img.new_empty((5, ho, wo, 3)),
+        "stream": lambda: current_stream(0),
+        "ctypes call, B=0 (no launch)": lambda: PR.RESIZE_KERNEL(
+            img.data_ptr(), 0, 0, 128, 128, 3, ho, wo, out.data_ptr(),
+            current_stream(0)),
+        "ctypes launch": lambda: PR.RESIZE_KERNEL(
+            img.data_ptr(), 0, 5, 128, 128, 3, ho, wo, out.data_ptr(),
+            current_stream(0)),
+        "whole call": lambda: PR.resize_bilinear(img, ho, wo),
+        "compress_frames": lambda: PO.compress_frames(img, z),
+        "F.interpolate": lambda: F.interpolate(
+            nchw, size=(ho, wo), mode="bilinear", align_corners=False)})
+    log(f"[time] K3 5x128x128x3 z={z:.4f} -> {ho}x{wo}, alternating "
+        f"medians: kernel {k3['ms']*1e3:.1f} us per call (device "
+        f"{fmt_us(k3_dev)}), compress_frames "
+        f"{k3m['compress_frames']*1e3:.1f} us, "
+        f"F.interpolate {k3['library_ms']*1e3:.1f} us, plain "
+        f"{k3['plain_ms']*1e3:.1f} us, bound {k3['bound_ms']*1e3:.3f} us "
+        f"({k3['bound_by']}); host us per step: {fmt_steps(k3['host_us'])}")
 
-    # the largest frames of phase 3, for the record
+    # the largest frames of phase 4, for the record
     big = torch.from_numpy(rng.standard_normal((8, 1024, 2048, 3)).astype(
         np.float32)).to(dev)
     bh, bw = PR.out_size_for_z(1024, 2048, 0.25)
-    bt = (PR.device_taps(bh, 1024, dev), PR.device_taps(bw, 2048, dev))
-    big_ms = cuda_ms(lambda: PR.resize_bilinear(big, *bt), iters=20)
-    big_dev = device_us(lambda: PR.resize_bilinear(big, *bt), "resize", 10)
-    lib_ms = cuda_ms(lambda: F.interpolate(
-        big.permute(0, 3, 1, 2), size=(bh, bw), mode="bilinear",
-        align_corners=False), iters=20)
+    bigm = alternating_ms({
+        "kernel": lambda: PR.resize_bilinear(big, bh, bw),
+        "library": lambda: F.interpolate(
+            big.permute(0, 3, 1, 2), size=(bh, bw), mode="bilinear",
+            align_corners=False)}, reps=3, iters=20)
+    big_dev = device_us(lambda: PR.resize_bilinear(big, bh, bw), "resize",
+                        10)
     big_bytes = (8 * 1024 * 2048 * 3 + 8 * bh * bw * 3) * 4
-    log(f"[time] K3 8x1024x2048x3 z=0.25: kernel {big_ms:.3f} ms "
-        f"(device {fmt_us(big_dev)}), "
-        f"F.interpolate {lib_ms:.3f} ms, full-input byte bound "
-        f"{big_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    k3.update(big_ms=bigm["kernel"],
+              big_device_ms=None if big_dev is None else big_dev / 1e3,
+              big_library_ms=bigm["library"],
+              big_bound_ms=big_bytes / HBM_BYTES_PER_S * 1e3)
+    log(f"[time] K3 8x1024x2048x3 z=0.25: kernel {bigm['kernel']:.3f} ms "
+        f"(device {fmt_us(big_dev)}), F.interpolate {bigm['library']:.3f} ms, full-input byte bound "
+        f"{k3['big_bound_ms']:.3f} ms")
     return [k1, k3]
 
 
@@ -1306,7 +1631,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     k1_err = phase_k1(dev, metro)
-    k2_err = phase_k2(dev)
+    k2_err, k2_rounds = phase_k2(dev)
     k3_err = phase_k3(dev)
     k4_err = phase_k4(dev)
     phase_metro_solve(dev, metro)
@@ -1320,7 +1645,9 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     k1, k3 = time_kernels(dev, tmax, zs, launches, k1_err, k3_err)
-    kernels = [k1, time_k2(dev, big, eval_launches, k2_err), k3,
+    k2 = time_k2(dev, big, eval_launches, k2_err)
+    k2["rounds_checked"] = k2_rounds
+    kernels = [k1, k2, k3,
                time_k4(dev, k4_shapes, lm_launches, cfg.n_layers, k4_err,
                        built.get("flash_attn_tc.cu", {}).get("log"))]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -20,8 +20,9 @@ runs the same step as plain torch ops (the counterpart of ``"jnp"``). In
 the batched solve the kernel is K1 (``kernels/pg/pg.py::batch_round``, the
 fused flexible round; the MinRes path stays the dense per-instance round, as
 in the reference, which has no kernel there); in the single-instance solve
-it is K2 (``kernels/pg/ops.py::pg_argmax`` over ``pg.py::masked_argmax``,
-every quadrant). ``inner=None`` follows the device, as the reference's
+it is K2's admission round (``kernels/pg/pg.py::bind_round``: the whole of
+:func:`_round` over the ``pg_argmax`` inner step in one launch, every
+quadrant). ``inner=None`` follows the device, as the reference's
 ``resolve_interpret`` follows the backend: CUDA gets the kernel, the CPU
 gets the torch step, and ``"kernel"`` on a CPU device raises. Both give the
 same decisions.
@@ -255,7 +256,7 @@ def _inner_torch(grid, price, cap, occupied, remaining, lat_ok, alive, cost,
     ``_inner_jnp``): per-task best allocation and gradient.
 
     Returns (G (T,), best_a (T,), has_feasible (T,)); the contract of
-    ``kernels/pg/ops.py::pg_argmax``, which serves it from K2.
+    ``kernels/pg/ops.py::pg_argmax``, the inner step of K2's round.
     """
     cap_ok = (grid <= remaining[None, :] + 1e-9).all(dim=1)         # (A,)
     pg = primal_gradient(grid, price, cap, occupied)                # (A,)
@@ -296,20 +297,17 @@ def solve_greedy_torch(inst: ProblemInstance, *, semantic: bool = True,
                        device="cuda") -> Solution:
     """Single-instance device solve of Alg. 1 (the reference's
     ``solve_greedy_jax``): float32 tables on ``device``, one host-driven
-    loop of :func:`_round`. ``inner="kernel"`` serves each round from K2,
-    ``"torch"`` from :func:`_inner_torch`; ``None`` follows the device.
-    Decisions equal :func:`solve_greedy` up to float32 argmax ties (both
-    take the first maximum)."""
+    loop of admission rounds. ``inner="kernel"`` runs each round as one
+    launch of K2's round kernel (``kernels/pg/pg.py::bind_round``, which
+    updates the state in place; its plain version on CPU tensors),
+    ``"torch"`` as :func:`_round` over :func:`_inner_torch`; ``None``
+    follows the device. Decisions equal :func:`solve_greedy` up to float32
+    argmax ties (both take the first maximum)."""
     dev = resolve_device(device)
     inner = resolve_inner(inner, dev)
     lat, z_idx = _select_tables(inst, semantic)
     lat_ok = lat <= inst.tasks.max_latency[:, None]
     alive0 = (z_idx >= 0) & lat_ok.any(axis=1)
-    if inner == "kernel":
-        from ..kernels.pg.ops import pg_argmax
-        inner_fn = functools.partial(pg_argmax, flexible=flexible)
-    else:
-        inner_fn = functools.partial(_inner_torch, flexible=flexible)
     lat_ok_t = torch.from_numpy(lat_ok).to(dev)
     grid = _f32(inst.grid, dev)
     price = _f32(inst.pool.price, dev)
@@ -320,9 +318,20 @@ def solve_greedy_torch(inst: ProblemInstance, *, semantic: bool = True,
             torch.full((T,), -1, dtype=torch.int32, device=dev),
             torch.zeros(inst.m, dtype=torch.float32, device=dev),
             torch.from_numpy(alive0).to(dev))
-    (admitted, alloc_idx, _, _), _, _ = _run_rounds(
-        lambda st: _round(st, lat_ok_t, grid, price, cap, cost, inner_fn),
-        init, 3)
+    if inner == "kernel":
+        from ..kernels.pg import pg as pg_kernel
+        step = pg_kernel.bind_round(init, lat_ok_t, grid, price, cap, cost,
+                                    flexible=flexible)
+
+        def body(state):
+            step()                                  # in place on ``init``
+            return state
+    else:
+        inner_fn = functools.partial(_inner_torch, flexible=flexible)
+
+        def body(state):
+            return _round(state, lat_ok_t, grid, price, cap, cost, inner_fn)
+    (admitted, alloc_idx, _, _), _, _ = _run_rounds(body, init, 3)
     return _pack_solution(inst, semantic, admitted.cpu().numpy(),
                           alloc_idx.cpu().numpy().astype(np.int64), z_idx)
 

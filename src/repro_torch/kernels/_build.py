@@ -24,7 +24,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CudaKernel", "build", "find_nvcc"]
+import torch
+
+__all__ = ["BUILD_DIR", "CudaKernel", "build", "current_stream",
+           "find_nvcc"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -87,13 +90,27 @@ def build(sources=None) -> dict[str, dict]:
     return report
 
 
+def current_stream(device_index: int) -> int:
+    """The caller's current CUDA stream on ``device_index`` as a raw handle:
+    ``torch.cuda.current_stream(device_index).cuda_stream``, read without
+    building a ``torch.cuda.Stream`` object (the lookup Triton's launcher
+    makes)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 class CudaKernel:
     """One exported C launcher of a ``csrc`` library, loaded at first use.
 
     ``launches`` counts the launches this wrapper made — incremented after
     the launcher enqueued the kernel and ``cudaGetLastError`` came back
     clean, nowhere else. The launcher returns that error code; a nonzero
-    code raises here, with CUDA's own message.
+    code raises here, with CUDA's own message. The ctypes function is
+    resolved once; a call is that function and the check of its code.
     """
 
     def __init__(self, source: str, symbol: str, argtypes):
@@ -123,7 +140,7 @@ class CudaKernel:
         return self._lib
 
     def __call__(self, *args) -> None:
-        code = self._load()(*args)
+        code = (self._fn or self._load())(*args)
         if code != 0:
             msg = self._lib.repro_cuda_error_string(code).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {code} ({msg})")

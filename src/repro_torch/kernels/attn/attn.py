@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from .._build import CudaKernel
+from .._build import CudaKernel, current_stream
 
 __all__ = ["FLASH_CORE_KERNEL", "FLASH_KERNEL", "FLASH_TC_KERNEL", "NEG",
            "flash_attention_fwd", "flash_attention_fwd_ref", "launch",
@@ -161,7 +161,7 @@ def launch(kernel: str, q, k, v, *, causal: bool = True):
         raise ValueError("the tensor-core route needs 16-byte-aligned q, k "
                          "and v")
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = current_stream(q.get_device())
     if kernel == "tensor_cores":
         FLASH_TC_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), b, tq, tk, hq, hkv, dh, dh ** -0.5,

@@ -21,12 +21,10 @@
 // first-max tie-break, made explicit. Lanes >= A are never read, so a padded
 // lane can never be selected whatever its bits say.
 //
-// Arithmetic. The library is built with --fmad=false and every operation is
-// the correctly rounded intrinsic, in the plain formula's order: each m-term
-// sum folds left to right from +0 (as the reference's eager reduce does) and
-// square roots round correctly, so PG is bit-identical to the plain PyTorch
-// version (repro_torch/core/greedy.py::_batch_pg). There is no FMA in that
-// formula.
+// Arithmetic. PG and cap_ok come from pg_grad.cuh, which K2's admission
+// round includes too: the plain formula's order in correctly rounded
+// intrinsics, bit-identical to the plain PyTorch version
+// (repro_torch/core/greedy.py::_batch_pg).
 //
 // Bound. One round moves the packed words, B*T*W*4 bytes (0.33 MB at
 // B = 256, T = 32, W = 10), plus O(B*m) pool state: 0.1 us of HBM time on an
@@ -38,11 +36,11 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "pg_grad.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxM = 8;
 
 __device__ __forceinline__ bool better(float v1, int t1, int a1, float v2,
                                        int t2, int a2) {
@@ -67,45 +65,10 @@ pg_round_kernel(const uint32_t* __restrict__ bits,
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
 
-  float p[kMaxM], c[kMaxM], lim[kMaxM], ratio[kMaxM];
-  bool any_occ = false;
-  float osum = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kMaxM; ++k) {
-    if (k < m) {
-      p[k] = price[b * m + k];
-      c[k] = cap[b * m + k];
-      const float o = occ[b * m + k];
-      lim[k] = __fadd_rn(__fsub_rn(c[k], o), 1e-9f);
-      ratio[k] = __fdiv_rn(o, c[k]);
-      any_occ = any_occ || (o > 0.0f);
-      const float sq = __fmul_rn(o, o);
-      osum = __fadd_rn(osum, sq);
-    }
-  }
-  const float o_norm = __fsqrt_rn(osum);
-  const float sqrt_m = __fsqrt_rn(static_cast<float>(m));
-
+  const PgPool pool = pg_pool(price + b * m, cap + b * m, occ + b * m, m);
   for (int a = tid; a < A; a += kThreads) {
-    const float* g = grid + static_cast<int64_t>(a) * m;
-    bool ok = true;
-    float value = 0.0f, norm_use = 0.0f, weighted = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kMaxM; ++k) {
-      if (k < m) {
-        const float gk = g[k];
-        ok = ok && (gk <= lim[k]);
-        const float d = __fmul_rn(p[k], __fsub_rn(c[k], gk));
-        const float u = __fdiv_rn(gk, c[k]);
-        const float wv = __fmul_rn(gk, ratio[k]);
-        value = __fadd_rn(value, d);
-        norm_use = __fadd_rn(norm_use, u);
-        weighted = __fadd_rn(weighted, wv);
-      }
-    }
-    const float pg = any_occ
-        ? __fdiv_rn(__fmul_rn(value, o_norm), fmaxf(weighted, 1e-9f))
-        : __fdiv_rn(__fmul_rn(value, sqrt_m), fmaxf(norm_use, 1e-9f));
+    bool ok;
+    const float pg = pg_lane(pool, grid + static_cast<int64_t>(a) * m, &ok);
     s_score[a] = ok ? pg : -INFINITY;
   }
   __syncthreads();

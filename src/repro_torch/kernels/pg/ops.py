@@ -1,10 +1,12 @@
-"""Port of ``src/repro/kernels/pg/ops.py``: one single-instance admission
-round served by K2.
+"""Port of ``src/repro/kernels/pg/ops.py``: the single-instance round's
+inner step over K2's ``masked_argmax``.
 
-The same contract as ``repro_torch.core.greedy._inner_torch``, so the
-single-instance solve can swap inner steps (``inner="kernel"``). The
-per-allocation gradient (A·m work) and the capacity mask stay plain torch
-ops; K2 fuses the (T × A) masked reduction.
+The same contract as ``repro_torch.core.greedy._inner_torch``: the
+per-allocation gradient (A·m work) and the capacity mask as plain torch
+ops, K2 for the (T × A) masked reduction. The port's single solve runs the
+whole round, this step included, in one launch of K2's round kernel
+(``pg.py::bind_round``); its plain version ``pg.py::admission_round_ref``
+follows this step.
 """
 
 from __future__ import annotations

@@ -10,8 +10,11 @@ Port of ``src/repro/kernels/pg/pg.py`` (the Pallas kernels) and
   words are ``int32`` tensors holding the reference's ``uint32`` bit pattern
   (bit k of word w is allocation 32·w + k — ``greedy._pack_bits``); the
   kernel reads them as ``uint32``.
-* K2, :func:`masked_argmax` — the per-task masked row max / first argmax of
-  the single-instance round (``csrc/masked_argmax.cu``, one warp per row).
+* K2, two entries of ``csrc/masked_argmax.cu`` over one row reduction (one
+  warp per task row): :func:`masked_argmax`, the Pallas kernel's contract
+  (sel given), and :func:`bind_round`, the single-instance solve's whole
+  admission round in one launch — gradient, capacity mask, per-row first
+  max, the pick of tau and the state update.
 
 Each wrapper launches its kernel for CUDA tensors and computes its plain
 version (``*_ref``) for CPU tensors, and counts its launches on its
@@ -21,13 +24,15 @@ version (``*_ref``) for CPU tensors, and counts its launches on its
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .._build import CudaKernel
+from .._build import CudaKernel, current_stream
 
-__all__ = ["ARGMAX_KERNEL", "ROUND_KERNEL", "batch_round", "batch_round_ref",
-           "masked_argmax", "masked_argmax_ref"]
+__all__ = ["ADMIT_KERNEL", "ARGMAX_KERNEL", "ROUND_KERNEL",
+           "admission_round_ref", "batch_round", "batch_round_ref",
+           "bind_round", "masked_argmax", "masked_argmax_ref"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,7 +42,9 @@ ROUND_KERNEL = CudaKernel(
 ARGMAX_KERNEL = CudaKernel(
     "masked_argmax.cu", "masked_argmax_launch",
     [_P, _P, _P, _P, _I, _I, _P, _P, _P])
-_MAX_M = 8                  # kMaxM in pg_round.cu
+ADMIT_KERNEL = CudaKernel(
+    "masked_argmax.cu", "admission_round_launch", [_P, _P])
+_MAX_M = 8                  # kPgMaxM in pg_grad.cuh
 _MAX_LANES = 48 * 1024 // 4  # (A,) f32 scores in default shared memory
 
 
@@ -115,20 +122,20 @@ def batch_round(lat_bits, alive, grid, price, cap, occupied):
     a, m = grid.shape
     bits, alive, grid, price, cap, occupied = (
         x.contiguous() for x in (lat_bits, alive, grid, price, cap, occupied))
-    v = torch.empty(b, dtype=torch.float32, device=bits.device)
-    tau = torch.empty(b, dtype=torch.int32, device=bits.device)
-    best_a = torch.empty(b, dtype=torch.int32, device=bits.device)
-    stream = torch.cuda.current_stream(bits.device).cuda_stream
+    v = price.new_empty(b)
+    tau = bits.new_empty(b)
+    best_a = bits.new_empty(b)
     ROUND_KERNEL(bits.data_ptr(), alive.data_ptr(), grid.data_ptr(),
                  price.data_ptr(), cap.data_ptr(), occupied.data_ptr(),
                  b, t, w, a, m, v.data_ptr(), tau.data_ptr(),
-                 best_a.data_ptr(), stream)
+                 best_a.data_ptr(), current_stream(bits.get_device()))
     return v, tau, best_a
 
 
 # ------------------------------------------------------------------- K2
 
 _MASKS = (torch.bool, torch.uint8, torch.int8)
+_NEG = float("-inf")
 
 
 def masked_argmax_ref(sel, lat_ok, cap_ok, alive):
@@ -139,7 +146,7 @@ def masked_argmax_ref(sel, lat_ok, cap_ok, alive):
     -inf, gets g = -inf and idx = 0. ``g`` is read at ``idx`` (not reduced
     separately), so it is the very value the kernel copies."""
     feas = (lat_ok != 0) & (cap_ok != 0)[None, :] & (alive != 0)[:, None]
-    neg = torch.tensor(float("-inf"), dtype=torch.float32, device=sel.device)
+    neg = torch.tensor(_NEG, dtype=torch.float32, device=sel.device)
     score = torch.where(feas, sel.to(torch.float32)[None, :], neg)
     idx = torch.argmax(score, dim=1)
     g = torch.take_along_dim(score, idx[:, None], dim=1)[:, 0]
@@ -147,23 +154,34 @@ def masked_argmax_ref(sel, lat_ok, cap_ok, alive):
 
 
 def _check_argmax(sel, lat_ok, cap_ok, alive):
+    """The guards against a misread, on cheap attributes: the common case
+    is one combined test; a failing input is explained on the slow path."""
     if lat_ok.dim() != 2:
         raise TypeError(f"lat_ok must be (T, A), got {tuple(lat_ok.shape)}")
     t, a = lat_ok.shape
+    if not (a >= 1 and sel.dtype == torch.float32 and sel.shape == (a,)
+            and lat_ok.dtype in _MASKS and cap_ok.dtype in _MASKS
+            and alive.dtype in _MASKS and cap_ok.shape == (a,)
+            and alive.shape == (t,)):
+        _explain_argmax(sel, lat_ok, cap_ok, alive)
+    if not (sel.get_device() == lat_ok.get_device() == cap_ok.get_device()
+            == alive.get_device()):
+        raise ValueError("masked_argmax inputs must share one device")
+
+
+def _explain_argmax(sel, lat_ok, cap_ok, alive):
+    t, a = lat_ok.shape
     if a < 1:
         raise ValueError("masked_argmax needs at least one allocation")
-    if sel.dtype != torch.float32 or tuple(sel.shape) != (a,):
+    if sel.dtype != torch.float32 or sel.shape != (a,):
         raise TypeError(f"sel must be float32 ({a},), got {sel.dtype} "
                         f"{tuple(sel.shape)}")
     for name, x, shape in (("lat_ok", lat_ok, (t, a)),
                            ("cap_ok", cap_ok, (a,)),
                            ("alive", alive, (t,))):
-        if x.dtype not in _MASKS or tuple(x.shape) != shape:
+        if x.dtype not in _MASKS or x.shape != shape:
             raise TypeError(f"{name} must be a bool/uint8/int8 mask {shape}, "
                             f"got {x.dtype} {tuple(x.shape)}")
-    for x in (lat_ok, cap_ok, alive):
-        if x.device != sel.device:
-            raise ValueError("masked_argmax inputs must share one device")
 
 
 def masked_argmax(sel, lat_ok, cap_ok, alive):
@@ -176,21 +194,136 @@ def masked_argmax(sel, lat_ok, cap_ok, alive):
       alive: (T,) bool/uint8/int8 — the round's candidate mask.
 
     Returns ``(g (T,) f32, idx (T,) i32)`` as :func:`masked_argmax_ref`.
-    A CUDA tensor launches ``csrc/masked_argmax.cu`` (counted in
-    ``ARGMAX_KERNEL.launches``); a CPU tensor computes the plain version.
+    A CUDA tensor launches ``csrc/masked_argmax.cu``'s ``masked_argmax``
+    entry (counted in ``ARGMAX_KERNEL.launches``); a CPU tensor computes
+    the plain version.
     """
     _check_argmax(sel, lat_ok, cap_ok, alive)
-    if sel.device.type == "cpu":
+    if not sel.is_cuda:
+        if sel.device.type != "cpu":
+            raise ValueError(f"unsupported device {sel.device}")
         return masked_argmax_ref(sel, lat_ok, cap_ok, alive)
-    if sel.device.type != "cuda":
-        raise ValueError(f"unsupported device {sel.device}")
+    if not (sel.is_contiguous() and lat_ok.is_contiguous()
+            and cap_ok.is_contiguous() and alive.is_contiguous()):
+        sel, lat_ok, cap_ok, alive = (
+            x.contiguous() for x in (sel, lat_ok, cap_ok, alive))
     t, a = lat_ok.shape
-    sel, lat_ok, cap_ok, alive = (
-        x.contiguous() for x in (sel, lat_ok, cap_ok, alive))
-    g = torch.empty(t, dtype=torch.float32, device=sel.device)
-    idx = torch.empty(t, dtype=torch.int32, device=sel.device)
-    stream = torch.cuda.current_stream(sel.device).cuda_stream
+    out = sel.new_empty((2, t), dtype=torch.int32)   # one allocation
+    g, idx = out.unbind(0)
+    g = g.view(torch.float32)
     ARGMAX_KERNEL(sel.data_ptr(), lat_ok.data_ptr(), cap_ok.data_ptr(),
                   alive.data_ptr(), t, a, g.data_ptr(), idx.data_ptr(),
-                  stream)
+                  current_stream(sel.get_device()))
     return g, idx
+
+
+# ---------------------------------------------- K2's single-instance round
+
+def admission_round_ref(state, lat_ok, grid, price, cap, cost, flexible):
+    """Plain version of the round kernel: one admission round of the
+    single-instance solve, written into ``state`` in place.
+
+    ``state`` is the solve's ``(admitted (T,) bool, alloc_idx (T,) int32,
+    occupied (m,) f32, alive (T,) bool)``; ``lat_ok`` (T, A) bool, ``grid``
+    (A, m), ``price``/``cap`` (m,) and ``cost`` (A,) float32. The inner step
+    is ``kernels/pg/ops.py::pg_argmax``'s on K2's plain version — the
+    gradient, the capacity mask, each row's first max of sel (PG, or -cost
+    in MinRes mode), ``has`` = any feasible column and G = PG at the pick —
+    and the update is ``core/greedy.py::_round``'s.
+    """
+    from ...core.greedy import _round, primal_gradient
+
+    def inner(grid, price, cap, occupied, remaining, lat_ok, alive, cost):
+        cap_ok = (grid <= remaining[None, :] + 1e-9).all(dim=1)      # (A,)
+        pg = primal_gradient(grid, price, cap, occupied)             # (A,)
+        _, best_a = masked_argmax_ref(pg if flexible else -cost, lat_ok,
+                                      cap_ok, alive)
+        best_a = best_a.long()
+        has = (lat_ok & cap_ok[None, :] & alive[:, None]).any(dim=1)
+        return torch.where(has, pg[best_a], _NEG), best_a, has
+
+    new = _round(state, lat_ok, grid, price, cap, cost, inner)
+    for old, value in zip(state, new):
+        if value is not old:
+            old.copy_(value)
+
+
+class _RoundArgs(ctypes.Structure):
+    """``RoundArgs`` of ``csrc/masked_argmax.cu``, field for field."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "lat_ok", "grid", "price", "cap", "cost", "admitted", "alloc_idx",
+        "occupied", "alive", "g", "best_a", "ticket")] + [
+        (name, ctypes.c_int) for name in ("T", "A", "m", "flexible")]
+
+
+class _BoundRound:
+    """One solve's round kernel: the tables, the state and a scratch (G,
+    best_a, the ticket) bound once; each call is one launch on the caller's
+    current stream, with no allocation."""
+
+    def __init__(self, state, lat_ok, grid, price, cap, cost, flexible):
+        t, a = lat_ok.shape
+        self._keep = (state, lat_ok, grid, price, cap, cost)
+        self._scratch = grid.new_zeros(2 * t + 1, dtype=torch.int32)
+        g, best_a, ticket = (self._scratch[:t], self._scratch[t:2 * t],
+                             self._scratch[2 * t:])
+        admitted, alloc_idx, occupied, alive = state
+        self._args = _RoundArgs(
+            *(x.data_ptr() for x in (lat_ok, grid, price, cap, cost,
+                                     admitted, alloc_idx, occupied, alive,
+                                     g, best_a, ticket)),
+            t, a, grid.shape[1], int(flexible))
+        self._ptr = ctypes.addressof(self._args)
+        self._device = grid.get_device()
+
+    def __call__(self) -> None:
+        ADMIT_KERNEL(self._ptr, current_stream(self._device))
+
+
+def _check_round(state, lat_ok, grid, price, cap, cost):
+    admitted, alloc_idx, occupied, alive = state
+    if lat_ok.dim() != 2 or grid.dim() != 2:
+        raise TypeError("lat_ok must be (T, A) and grid (A, m)")
+    t, a = lat_ok.shape
+    m = grid.shape[1]
+    if a < 1 or grid.shape[0] != a or not 1 <= m <= _MAX_M:
+        raise ValueError(f"grid {tuple(grid.shape)} does not fit A={a} or "
+                         f"m outside 1..{_MAX_M}")
+    for name, x, dtype, shape in (
+            ("lat_ok", lat_ok, torch.bool, (t, a)),
+            ("grid", grid, torch.float32, (a, m)),
+            ("price", price, torch.float32, (m,)),
+            ("cap", cap, torch.float32, (m,)),
+            ("cost", cost, torch.float32, (a,)),
+            ("admitted", admitted, torch.bool, (t,)),
+            ("alloc_idx", alloc_idx, torch.int32, (t,)),
+            ("occupied", occupied, torch.float32, (m,)),
+            ("alive", alive, torch.bool, (t,))):
+        if x.dtype != dtype or x.shape != shape:
+            raise TypeError(f"{name} must be {dtype} {shape}, got {x.dtype} "
+                            f"{tuple(x.shape)}")
+        if x.device != grid.device:
+            raise ValueError("the round's state and tables must share one "
+                             "device")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous: the round writes "
+                             "the state in place")
+
+
+def bind_round(state, lat_ok, grid, price, cap, cost, *, flexible: bool):
+    """Bind one single-instance solve's admission round; returns a callable
+    that runs one round, in place on ``state`` (arguments as
+    :func:`admission_round_ref`).
+
+    On CUDA tensors each call launches ``csrc/masked_argmax.cu``'s
+    ``admission_round`` entry once (counted in ``ADMIT_KERNEL.launches``);
+    the tables, the state and a scratch are bound here, once per solve. On
+    CPU tensors each call runs :func:`admission_round_ref`.
+    """
+    _check_round(state, lat_ok, grid, price, cap, cost)
+    if grid.is_cuda:
+        return _BoundRound(state, lat_ok, grid, price, cap, cost, flexible)
+    if grid.device.type != "cpu":
+        raise ValueError(f"unsupported device {grid.device}")
+    return functools.partial(admission_round_ref, state, lat_ok, grid, price,
+                             cap, cost, flexible)

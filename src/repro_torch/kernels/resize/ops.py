@@ -3,8 +3,7 @@ to a batch of frames."""
 
 from __future__ import annotations
 
-from .resize import (device_taps, out_size_for_z, resize_bilinear,
-                     resize_matrix, resize_ref)
+from .resize import out_size_for_z, resize_bilinear, resize_matrix, resize_ref
 
 __all__ = ["compress_frames"]
 
@@ -15,13 +14,13 @@ def compress_frames(img, z: float, *, use_kernel: bool = True):
 
     ``img`` is a tensor on the device the caller runs on (the serving engine
     uploads its frames to its own device). ``use_kernel=True`` resamples
-    through :func:`~repro_torch.kernels.resize.resize.resize_bilinear` — the
-    K3 kernel on a CUDA tensor, its plain version on a CPU tensor — over taps
-    uploaded once per shape; ``False`` evaluates the reference einsum.
+    through :func:`~repro_torch.kernels.resize.resize.resize_bilinear` — one
+    launch of the K3 kernel, which derives its taps from the sizes, on a
+    CUDA tensor; its plain version on a CPU tensor; ``False`` evaluates the
+    reference einsum.
     """
     _, h, w, _ = img.shape
-    ho, wo = out_size_for_z(h, w, float(z))
+    ho, wo = out_size_for_z(h, w, z)
     if use_kernel:
-        return resize_bilinear(img, device_taps(ho, h, img.device),
-                               device_taps(wo, w, img.device))
+        return resize_bilinear(img, ho, wo)
     return resize_ref(img, resize_matrix(ho, h), resize_matrix(wo, w))

@@ -90,19 +90,137 @@ def test_single_solve_kernel_matches_torch_round_on_card(cuda_device):
                 assert np.array_equal(a.alloc, b.alloc)
 
 
+def _round_on_card(inst, semantic, flexible, dev):
+    """Step the round kernel and its plain version (on copies of one state,
+    on the card) through a whole solve of ``inst``, comparing every state
+    tensor bitwise after every round. Returns the rounds run."""
+    from repro_torch.core.sfesp import _f32, lexicographic_cost
+    lat, z_idx = G._select_tables(inst, semantic)
+    lat_ok = lat <= inst.tasks.max_latency[:, None]
+    tables = (torch.from_numpy(lat_ok).to(dev), _f32(inst.grid, dev),
+              _f32(inst.pool.price, dev), _f32(inst.pool.capacity, dev),
+              _f32(lexicographic_cost(inst.grid), dev))
+    t = lat.shape[0]
+    state = (torch.zeros(t, dtype=torch.bool, device=dev),
+             torch.full((t,), -1, dtype=torch.int32, device=dev),
+             torch.zeros(inst.m, dtype=torch.float32, device=dev),
+             torch.from_numpy((z_idx >= 0) & lat_ok.any(axis=1)).to(dev))
+    plain = tuple(x.clone() for x in state)
+    step = PK.bind_round(state, *tables, flexible=flexible)
+    rounds = 0
+    while True:
+        done = not bool(state[3].any())
+        before = PK.ADMIT_KERNEL.launches
+        step()
+        PK.admission_round_ref(plain, *tables, flexible)
+        torch.cuda.synchronize()
+        assert PK.ADMIT_KERNEL.launches == before + 1
+        rounds += 1
+        for x, y in zip(state, plain):
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y), f"round {rounds}"
+        if done:
+            return rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semantic,flexible", [(True, True), (True, False),
+                                               (False, True),
+                                               (False, False)])
+def test_admission_round_kernel_matches_plain_on_card(semantic, flexible,
+                                                      cuda_device):
+    """The round kernel against its plain version on every round of one
+    T = 200, A = 1280 solve (the paper's largest instance)."""
+    from repro_torch.core import build_instance, scenarios
+    inst = build_instance(scenarios.numerical_pool(4),
+                          scenarios.numerical_tasks(200, "med", "high"))
+    assert _round_on_card(inst, semantic, flexible, cuda_device) > 2
+
+
+def _tap_gather(img, h, w):
+    """K3's arithmetic on ``resize_taps`` as plain torch ops (rows first,
+    every product and sum rounded to float32): bitwise what the kernel
+    computes if its in-kernel taps equal ``resize_taps``."""
+    (ih, wh), (iw, ww) = (
+        (torch.from_numpy(i).long().to(img.device),
+         torch.from_numpy(wt).to(img.device))
+        for i, wt in (PR.resize_taps(h, img.shape[1]),
+                      PR.resize_taps(w, img.shape[2])))
+    x = img.float()
+    a0, a1 = wh[0][None, :, None, None], wh[1][None, :, None, None]
+    b0, b1 = ww[0][None, None, :, None], ww[1][None, None, :, None]
+    rows = (a0 * x[:, ih[0]], a1 * x[:, ih[1]])
+    t0 = rows[0][:, :, iw[0]] + rows[1][:, :, iw[0]]
+    t1 = rows[0][:, :, iw[1]] + rows[1][:, :, iw[1]]
+    return (b0 * t0 + b1 * t1).to(img.dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_resize_kernel_matches_plain_on_card(dtype, cuda_device, rng):
+    """K3 with its taps derived in the kernel: within 1e-5 (float32) or
+    3e-2 (bfloat16) of the plain einsum, bitwise equal to the same gather
+    on ``resize_taps``."""
     img = torch.from_numpy(rng.standard_normal((3, 17, 31, 4)).astype(
         np.float32)).to(cuda_device, dtype)
     for z in (1.0, 0.5, 0.04):
         ho, wo = PR.out_size_for_z(17, 31, z)
-        taps = (PR.device_taps(ho, 17, cuda_device),
-                PR.device_taps(wo, 31, cuda_device))
-        out = PR.resize_bilinear(img, *taps)
-        ref = PR.resize_bilinear_ref(img, *taps)
+        before = PR.RESIZE_KERNEL.launches
+        out = PR.resize_bilinear(img, ho, wo)
+        ref = PR.resize_bilinear_ref(img, ho, wo)
+        torch.cuda.synchronize()
+        assert PR.RESIZE_KERNEL.launches == before + 1
         tol = 1e-5 if dtype == torch.float32 else 3e-2
         assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+        assert torch.equal(out, _tap_gather(img, ho, wo))
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_callers_stream_on_card(cuda_device, rng):
+    """A launch made while a side stream is current runs on that stream:
+    queued behind a sleep and a copy on the side stream, K3 and the round
+    kernel read the copied data (the legacy default stream would not wait
+    for them)."""
+    from repro_torch.core import build_instance, scenarios
+    src = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(
+        np.float32)).to(cuda_device)
+    img = torch.zeros_like(src)
+    side = torch.cuda.Stream(cuda_device)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        img.copy_(src)
+        out = PR.resize_bilinear(img, 13, 13)
+    side.synchronize()
+    assert torch.equal(out, PR.resize_bilinear(src, 13, 13))
+
+    inst = build_instance(scenarios.numerical_pool(2),
+                          scenarios.numerical_tasks(30, "med", "high"))
+    lat_ok = torch.from_numpy(inst.lat <= inst.tasks.max_latency[:, None])
+    alive0 = lat_ok.any(1) & torch.from_numpy(inst.z_star_idx >= 0)
+    tables = [x.to(cuda_device) for x in (
+        lat_ok, torch.from_numpy(inst.grid).float(),
+        torch.from_numpy(inst.pool.price).float(),
+        torch.from_numpy(inst.pool.capacity).float(),
+        torch.from_numpy(inst.grid @ np.ones(2)).float())]
+    state = (torch.zeros(30, dtype=torch.bool, device=cuda_device),
+             torch.full((30,), -1, dtype=torch.int32, device=cuda_device),
+             torch.zeros(2, device=cuda_device),
+             torch.zeros(30, dtype=torch.bool, device=cuda_device))
+    alive0 = alive0.to(cuda_device)
+    want = tuple(x.clone() for x in state[:3]) + (alive0.clone(),)
+    step = PK.bind_round(state, *tables, flexible=True)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        state[3].copy_(alive0)
+        step()
+    side.synchronize()
+    PK.admission_round_ref(want, *tables, True)
+    assert state[0].any()
+    for x, y in zip(state, want):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

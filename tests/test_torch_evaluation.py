@@ -6,7 +6,7 @@ algorithms of ``run_algorithm``, the coupled oracle ``solve_coupled_ref``,
 the mixed-grid dispatcher ``solve_greedy_many``, the exact solver,
 ``SESM.slice`` and the scenario library — are handed the same seeds in both
 packages and must produce equal instances and equal decisions (admitted,
-alloc, z, satisfied). K2 runs here through its plain version;
+alloc, z, satisfied). K2's round runs here through its plain version;
 ``tests/test_torch_cuda.py`` holds the CUDA kernel against it on a card.
 """
 
@@ -76,9 +76,10 @@ def _fig6(m, n_tasks=(10, 30), seeds=(0, 1)):
 
 @pytest.fixture
 def k2_route(monkeypatch):
-    """Route ``solve_greedy_torch`` through ``pg_argmax`` (K2's round) on
-    the CPU, where K2 takes its plain version: ``inner="kernel"`` needs a
-    card, so the test swaps the inner resolution itself."""
+    """Route ``solve_greedy_torch`` through K2's admission round
+    (``kernels/pg/pg.py::bind_round``) on the CPU, where the round takes its
+    plain version ``admission_round_ref``: ``inner="kernel"`` needs a card,
+    so the test swaps the inner resolution itself."""
     monkeypatch.setattr(greedy, "resolve_inner", lambda inner, dev: "kernel")
 
 

@@ -308,11 +308,77 @@ def test_resize_plain_version_matches_reference(b, h, w, c, z, dtype, rng):
 
 
 def test_resize_taps_rebuild_the_reference_matrices():
+    """``resize_taps`` — the taps K3 derives in its kernel — rebuild the
+    reference's interpolation matrices exactly (two taps per row, the high
+    one folded into the low at the clamped edge)."""
     for n_out, n_in in ((1, 1), (16, 8), (8, 8), (3, 17), (26, 128),
                         (205, 1024), (1, 640)):
         R = j_rref.resize_matrix(n_out, n_in)
         assert np.array_equal(PR.resize_matrix(n_out, n_in), R)
-        taps = PR.device_taps(n_out, n_in, "cpu")
-        assert np.array_equal(PR.matrix_from_taps(taps, n_in).numpy(), R)
+        idx, wt = PR.resize_taps(n_out, n_in)
+        rebuilt = np.zeros_like(R)
+        rows = np.arange(n_out)
+        np.add.at(rebuilt, (rows, idx[0]), wt[0])
+        np.add.at(rebuilt, (rows, idx[1]), wt[1])
+        assert np.array_equal(rebuilt, R)
     for h, w, z in ((128, 128, 0.04), (640, 640, 0.25), (1024, 2048, 0.5)):
         assert PR.out_size_for_z(h, w, z) == j_rref.out_size_for_z(h, w, z)
+
+
+def _kernel_taps(n_out, n_in):
+    """A float64 torch model of ``csrc/resize.cu::tap``, operation for
+    operation: scale, the half-pixel source clamped to [0, n_in - 1], floor,
+    the two weights rounded to float32, the clamped edge folded."""
+    f64 = torch.float64
+    scale = torch.tensor(float(n_in), dtype=f64) / torch.tensor(
+        float(n_out), dtype=f64)
+    src = (torch.arange(n_out, dtype=f64) + 0.5) * scale + (-0.5)
+    src = torch.minimum(torch.maximum(src, torch.tensor(0.0, dtype=f64)),
+                        torch.tensor(float(n_in - 1), dtype=f64))
+    lo = torch.floor(src)
+    frac = src + (-lo)
+    w_lo = (1.0 + (-frac)).to(torch.float32)
+    w_hi = frac.to(torch.float32)
+    lo = lo.to(torch.int32)
+    edge = lo + 1 >= n_in
+    hi = torch.where(edge, lo, lo + 1)
+    w_lo = torch.where(edge, w_lo + w_hi, w_lo)
+    w_hi = torch.where(edge, torch.zeros_like(w_hi), w_hi)
+    return torch.stack([lo, hi]).numpy(), torch.stack([w_lo, w_hi]).numpy()
+
+
+@pytest.mark.parametrize("n_in", [128, 1024, 2048])
+def test_kernel_tap_arithmetic_equals_resize_taps(n_in):
+    """K3 derives its taps in the kernel: that float64 arithmetic gives
+    ``resize_taps`` bit for bit at every compression of ``chip_smoke.py``'s
+    phase 4, a sweep of z, the serving range's sizes and upsampling."""
+    zs = [0.04, 0.25, 0.5, 1.0] + list(np.linspace(0.01, 1.0, 67)) \
+        + [0.02 * k for k in range(1, 8)]
+    sizes = {PR.out_size_for_z(n_in, n_in, z)[0] for z in zs}
+    sizes |= {1, 2, 3, n_in - 1, n_in + 1, 2 * n_in + 3}
+    for n_out in sorted(sizes):
+        idx, wt = PR.resize_taps(n_out, n_in)
+        kidx, kwt = _kernel_taps(n_out, n_in)
+        assert np.array_equal(kidx, idx), n_out
+        assert np.array_equal(kwt.view(np.int32), wt.view(np.int32)), n_out
+
+
+@pytest.mark.parametrize("b,h,w,c,ho,wo", [(2, 32, 48, 3, 7, 10),
+                                           (3, 17, 31, 4, 17, 31),
+                                           (1, 64, 64, 2, 13, 13),
+                                           (2, 20, 12, 3, 41, 5)])
+def test_resize_plain_version_with_sizes_matches_pallas(b, h, w, c, ho, wo,
+                                                        rng):
+    """K3's plain version, called with the output size, against the
+    Pallas kernel in interpret mode on the reference's ``resize_matrix``
+    inputs: within 1e-5 (sums in another order)."""
+    from repro.kernels.resize import resize as j_resize
+    x = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    pallas = np.asarray(j_resize.resize_bilinear(
+        jnp.asarray(x), jnp.asarray(j_rref.resize_matrix(ho, h)),
+        jnp.asarray(j_rref.resize_matrix(wo, w)), interpret=True))
+    out = PR.resize_bilinear(torch.from_numpy(x), ho, wo)
+    assert out.shape == (b, ho, wo, c) and out.dtype == torch.float32
+    assert np.allclose(out.numpy(), pallas, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, PR.resize_bilinear_ref(torch.from_numpy(x), ho,
+                                                   wo))
