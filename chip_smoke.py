@@ -9,33 +9,45 @@ version:
 
 1. prints the card (``nvidia-smi``) and builds every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
-2. K1 (``kernels/pg/pg.py::batch_round``) against ``batch_round_ref`` at the
-   serving shape (B = 256, T = 32, A = 300, m = 2, with planted ties and
-   all-infeasible instances) and on the metro day batch
-   (``metro_diurnal_trace(256, n_domains=32)``, 6144 rows): V bitwise,
-   tau and best_a equal;
+2. K1, both entries of ``kernels/csrc/pg_round.cu``: the one-round
+   contract (``kernels/pg/pg.py::batch_round``) against ``batch_round_ref``
+   at the serving shape (B = 256, T = 32, A = 300, m = 2, with planted ties
+   and all-infeasible instances), on the metro day batch
+   (``metro_diurnal_trace(256, n_domains=32)``, 6144 rows), at m = 9
+   (A = 2560) and at A = 19200 (m = 4): V bitwise, tau and best_a equal;
+   the whole solve in one launch (``batch_solve``) against its plain version
+   ``batch_solve_ref`` (the host loop over the torch round) on six batches —
+   the serving shape coupled (256 cells in 32 groups of 8, T = 64, planted
+   ties, cells with no candidate), the metro day batch, an uncoupled batch,
+   one group of 20 cells among singleton groups, m = 9 and A = 19200:
+   admitted, alloc_idx, occupied and the link budget used bit for bit, the
+   loop's round count the kernel's rounded up to the loop's period;
 3. K2, both entries of ``kernels/csrc/masked_argmax.cu``:
    ``masked_argmax`` against ``masked_argmax_ref`` at (T, A) = (50, 300),
    (200, 1280), (4096, 1280) and (77, 999), with planted ties, all-masked
    rows, dead rows and an all-false ``cap_ok`` (g and idx bitwise); the
    admission round (``kernels/pg/pg.py::bind_round``) against
    ``admission_round_ref`` on every round of the T = 200, A = 1280
-   instance's solve in all four quadrants and on those (T, A) with planted
-   ties, flexible and MinRes: every state tensor bitwise after every round;
+   instance's solve in all four quadrants, on those (T, A) with planted
+   ties and on a nine-resource pool (A = 2560), flexible and MinRes: every
+   state tensor bitwise after every round;
 4. K3 (``kernels/resize/resize.py::resize_bilinear``, taps derived in the
    kernel) against its plain version at 128×128×3, 640×640×3 and
    1024×2048×3, batch 8, z ∈ {0.04, 0.25, 0.5, 1}, float32, within 1e-5,
    and bitwise against the same 4-tap gather on ``resize_taps`` (so the
    in-kernel taps are those); bf16 within 3e-2;
-5. solves the metro day batch coupled with ``inner="kernel"`` and with
-   ``inner="torch"`` (the plain bit-domain round): decisions equal, every
-   solution valid, link budgets kept; prints rounds, host syncs, ms/solve;
+5. solves the metro day batch coupled with ``inner="kernel"`` (one
+   ``batch_solve`` launch a solve, one host sync, no one-round launch) and
+   with ``inner="torch"`` (the plain bit-domain round): decisions equal,
+   every solution valid, link budgets kept; prints rounds, host syncs,
+   ms/solve;
 6. SLICE 1'S MAIN PATH: a 256-cell ``MultiCellEngine`` (``multi_cell_pools(
    256, seed=1)``, 32 contiguous backhaul domains at 1.2 per cell) driven by
    ``drive_closed_loop(horizon=8, process=True)``, with the kernel launch
-   counts zeroed just before and read just after; a twin engine on the same
-   card with ``sesm.inner = "torch"`` runs the same traffic and must decide
-   identically at every step;
+   counts zeroed just before and read just after (every re-slice's solve
+   one ``batch_solve`` launch with one host sync, no one-round launch); a
+   twin engine on the same card with ``sesm.inner = "torch"`` runs the same
+   traffic and must decide identically at every step;
 7. SLICE 2'S MAIN PATH, the paper's evaluation at full width, counts zeroed
    just before and read just after: the Fig. 6 sweep (``fig6_sweep(m)`` for
    m = 2 (A = 300) and m = 4 (A = 1280), 90 instances each) and one
@@ -43,7 +55,8 @@ version:
    backend="torch")`` for all six algorithms; Fig. 7's Colosseum periods
    through ``SESM(backend="torch").slice``; ``solve_greedy_many`` on the
    mixed-grid ``multi_cell_trace(4, 8, seed=1, n_grids=2)``. K2's round
-   kernel must launch exactly once per single-solve round run. A twin on
+   kernel must launch exactly once per single-solve round run, and each
+   batched solve is one ``batch_solve`` launch with one host sync. A twin on
    ``inner="torch"`` must decide identically (admitted, alloc, z); against
    the numpy oracle the phase reports the satisfied counts and every
    instance that decides differently, and fails unless each difference
@@ -56,7 +69,9 @@ version:
    version at (B, T, Hq, Hkv, Dh) = (8, 16, 32, 2, 128) (the LM job),
    (2, 2048, 32, 2, 128), (1, 1000, 32, 2, 128), (2, 77, 32, 8, 120),
    (2, 333, 16, 8, 256) and (1, 1, 4, 4, 16), causal, and two non-causal
-   shapes with Tq != Tk, on unit normals, on both kernels: float32 on the
+   shapes with Tq != Tk, on unit normals, on both kernels (and Dh = 320,
+   which the route sends to the CUDA-core kernel in both types; Dh = 520
+   must raise): float32 on the
    CUDA-core kernel (``csrc/flash_attn.cu``, within 2e-5: sums in another
    order), bfloat16 on the tensor-core kernel (``csrc/flash_attn_tc.cu``,
    the route bf16 takes) and on the CUDA-core kernel (within rtol 2^-7,
@@ -76,7 +91,11 @@ version:
    are printed;
 10. times each kernel (per call, and its own device time from
    ``torch.profiler`` as ``device_ms``), its plain version and the library
-   call (where one exists) at the shapes the main paths gave it — K3 and
+   call (where one exists) at the shapes the main paths gave it — K1's
+   solve on the serving loop's own stack and on the metro day (device us
+   against its bound, rounds, us a round, registers and spills) beside the
+   previous route, the host loop over ``batch_round``, and the plain loop,
+   in alternation; K1's one-round entry; K3 and
    both K2 entries beside ``F.interpolate`` and ``torch.max`` in
    alternation (5 repetitions of 200 calls, medians), with a host-side
    breakdown of each wrapper's steps; K4 on both kernels at the LM job's
@@ -130,6 +149,9 @@ K4_SHAPES = ((8, 16, 16, 32, 2, 128, True), (2, 2048, 2048, 32, 2, 128, True),
              (1, 1000, 1000, 32, 2, 128, True), (2, 77, 77, 32, 8, 120, True),
              (2, 333, 333, 16, 8, 256, True), (1, 1, 1, 4, 4, 16, True),
              (2, 16, 333, 32, 2, 128, False), (1, 1000, 77, 16, 8, 256, False))
+# K4 heads wider than the tensor-core tiles (route: the CUDA-core kernel's
+# Dh <= 512 tile, in both types)
+K4_WIDE_SHAPES = ((2, 77, 77, 8, 4, 320, True), (1, 40, 100, 4, 2, 320, False))
 # K4 tolerances (rtol, atol) by dtype: f32 sums in another order; bf16
 # rounds P to bf16 before the second product, which can move a rounded
 # output of magnitude >= 4 by one bf16 ulp (0.031)
@@ -285,7 +307,121 @@ def phase_k1(dev, metro_stacked):
         err = max(err, check_round(lat, _pack_bits(lat),
                                    [alive, grid, price, cap, occ],
                                    f"metro day batch occupancy<={frac}"))
+    for b, t, a, m in ((64, 32, 2560, 9), (16, 16, 19200, 4)):
+        lat, words, rest = k1_inputs(rng, b, t, a, m, dev)
+        err = max(err, check_round(lat, words, rest, f"m={m} A={a}"))
     return err
+
+
+def solve_stack(rng, b, t, a, m, dev, group=8, coupled=True):
+    """A random DeviceStack for K1's solve with planted ties (duplicated
+    lanes, all-zero prices, duplicated task rows) and cells with nothing
+    feasible or nothing alive. Coupled: contiguous groups of ``group``
+    cells on one link each plus a second link per half group, budgets
+    that bind; ``group`` = 0: one group of 20 cells on one link, the rest
+    singleton groups."""
+    import numpy as np
+    import torch
+    from repro_torch.core import CouplingSpec
+    from repro_torch.core.sfesp import (DeviceStack, group_csr,
+                                        lexicographic_cost)
+    grid = rng.integers(1, 16, (a, m)).astype(np.float32)
+    grid[a // 2:a // 2 + 8] = grid[:8]              # duplicate lanes: ties
+    price = rng.uniform(0.02, 0.2, (b, m)).astype(np.float32)
+    price[::7] = 0.0                                # all-zero PG: full tie
+    cap = rng.integers(8, 30, (b, m)).astype(np.float32)
+    lat = rng.random((b, t, a)) < 0.2
+    lat[1::5, 1::2] = lat[1::5, 0::2][:, :t // 2]   # identical task rows
+    lat[3::11] = False                              # nothing feasible
+    alive0 = lat.any(2) & (rng.random((b, t)) < 0.9)
+    alive0[5::13] = False                           # nothing alive
+    load = rng.uniform(0.05, 0.5, (b, t)).astype(np.float32)
+    link = dict(link_cap=None, incidence=None, group=None, group_csr=None)
+    if coupled:
+        if group:
+            n = b // group
+            inc = np.zeros((b, 3 * n), bool)
+            inc[np.arange(b), np.arange(b) // group] = True
+            inc[np.arange(b), n + np.arange(b) // max(1, group // 2)] = True
+        else:
+            inc = np.zeros((b, 1), bool)
+            inc[:20, 0] = True
+        budgets = rng.uniform(0.5, 2.0, inc.shape[1]) * inc.sum(0)
+        groups = CouplingSpec(budgets, inc).groups()
+        link = dict(link_cap=torch.tensor(budgets, dtype=torch.float32,
+                                          device=dev),
+                    incidence=torch.from_numpy(inc).to(dev),
+                    group=torch.from_numpy(groups).to(dev),
+                    group_csr=group_csr(inc, groups, dev))
+
+    def f32(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev,
+                                                            torch.float32)
+    return DeviceStack(grid=f32(grid), cost=f32(lexicographic_cost(grid)),
+                       price=f32(price), capacity=f32(cap),
+                       lat_ok=torch.from_numpy(lat).to(dev),
+                       alive0=torch.from_numpy(alive0).to(dev),
+                       link_load=f32(load), semantic=True, batch_size=b,
+                       **link)
+
+
+def check_solve(stack, what: str) -> None:
+    """K1's one-launch solve against its plain version (the host loop over
+    the torch round) on ``stack``: admitted, alloc_idx, occupied and used
+    bitwise; the loop's rounds are the kernel's largest group count rounded
+    up to the loop's convergence period."""
+    import torch
+    from repro_torch.core.greedy import _SYNC_EVERY
+    from repro_torch.kernels.pg import pg as PK
+    before = PK.SOLVE_KERNEL.launches
+    out = PK.batch_solve(stack)
+    ref = PK.batch_solve_ref(stack)
+    torch.cuda.synchronize()
+    if PK.SOLVE_KERNEL.launches != before + 1:
+        raise AssertionError(f"K1 solve {what}: not one launch")
+    for name, x, y in zip(("admitted", "alloc_idx", "occupied", "used"),
+                          out[:4], ref[:4]):
+        if (x is None) != (y is None):
+            raise AssertionError(f"K1 solve {what}: {name} missing")
+        if y is None:
+            continue
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"K1 solve {what}: {name} differs from the "
+                                 "plain version")
+    rounds = out[4]
+    kernel_rounds = int(rounds.max())
+    want = _SYNC_EVERY * -(-kernel_rounds // _SYNC_EVERY)
+    if int(rounds.min()) < 0 or int(ref[4][0]) != want:
+        raise AssertionError(f"K1 solve {what}: rounds {kernel_rounds} "
+                             f"(min {int(rounds.min())}) against the loop's "
+                             f"{int(ref[4][0])}")
+    info = PK.solve_info()
+    rows, t, a = stack.lat_ok.shape
+    log(f"[K1] solve {what}: B={rows} T={t} A={a} m={stack.grid.shape[1]}, "
+        f"{rounds.numel()} groups, cluster {info['cluster']}, "
+        f"{info['cells_per_cta']} cell(s) a CTA, {info['smem_bytes']} B "
+        f"shared (place {info['place']}): bitwise equal; "
+        f"{int(out[0].sum())} admitted in {kernel_rounds} rounds (loop "
+        f"{int(ref[4][0])})")
+
+
+def phase_k1_solve(dev, metro_stacked):
+    """``batch_solve`` against ``batch_solve_ref`` on the six batches."""
+    import numpy as np
+    from repro_torch.core import device_stack
+    rng = np.random.default_rng(8)
+    check_solve(solve_stack(rng, 256, 64, 300, 2, dev),
+                "serving shape, 32 groups of 8")
+    check_solve(device_stack(metro_stacked, device=dev), "metro day batch")
+    check_solve(solve_stack(rng, 256, 32, 300, 2, dev, coupled=False),
+                "uncoupled")
+    check_solve(solve_stack(rng, 64, 32, 300, 2, dev, group=0),
+                "one group of 20 among singletons")
+    check_solve(solve_stack(rng, 64, 32, 2560, 9, dev, group=4), "m=9")
+    check_solve(solve_stack(rng, 16, 16, 19200, 4, dev, group=4),
+                "A=19200")
 
 
 # --------------------------------------------------------------- phase 3
@@ -355,7 +491,28 @@ def phase_k2(dev):
             checked += check_rounds(tables, alive0, flexible,
                                     f"planted ties T={t} A={a} "
                                     f"flexible={flexible}", max_rounds=48)
+    m9 = m9_instance()
+    for flexible in (True, False):
+        tables, alive0 = solve_tables(m9, True, dev)
+        checked += check_rounds(tables, alive0, flexible,
+                                f"m=9 A=2560 flexible={flexible}")
     return err, checked
+
+
+def m9_instance():
+    """Nine resources: the m = 4 numerical pool plus five unit resources
+    of capacity 12 (one with two levels), A = 2560, 30 tasks (seed 3)."""
+    import numpy as np
+    from repro_torch.core import ResourcePool, build_instance, scenarios
+    p4 = scenarios.numerical_pool(4)
+    pool = ResourcePool(
+        names=p4.names + tuple(f"unit{i}" for i in range(5)),
+        capacity=np.concatenate([p4.capacity, np.full(5, 12.0)]),
+        price=np.concatenate([p4.price, np.full(5, 1 / 12)]),
+        levels=tuple(p4.levels) + (np.array([1.0]),) * 4
+        + (np.array([1.0, 2.0]),))
+    return build_instance(pool, scenarios.numerical_tasks(30, "med", "high",
+                                                          seed=3))
 
 
 def t200_instance():
@@ -514,28 +671,76 @@ def phase_k3(dev):
 
 # --------------------------------------------------------------- phase 5
 
+class SolveLog:
+    """Records (rounds, syncs) of every batched solve read back while
+    active, through ``greedy.unpack_device_batch`` wherever a caller bound
+    it (the serving layer imports it by name), and the K1 launches made:
+    ``solve`` (the one-launch solve) and ``round`` (the one-round entry)."""
+
+    def __enter__(self):
+        from repro_torch.core import greedy as G
+        from repro_torch.kernels.pg import pg as PK
+        from repro_torch.serving import admission as AD
+        self.results = []
+        unpack = self._unpack = G.unpack_device_batch
+
+        def recorded(dispatched):
+            res = unpack(dispatched)
+            self.results.append((res["rounds"], res["syncs"]))
+            return res
+        G.unpack_device_batch = AD.unpack_device_batch = recorded
+        self._k = (PK.SOLVE_KERNEL, PK.ROUND_KERNEL)
+        self._start = [k.launches for k in self._k]
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import greedy as G
+        from repro_torch.serving import admission as AD
+        G.unpack_device_batch = AD.unpack_device_batch = self._unpack
+        self.solve, self.round = (k.launches - n
+                                  for k, n in zip(self._k, self._start))
+
+    def check_one_launch_each(self, what: str) -> None:
+        """Every solve was one ``batch_solve`` launch with one host sync,
+        and the one-round entry never launched."""
+        syncs = sorted({s for _, s in self.results})
+        if not self.results or self.solve != len(self.results) \
+                or syncs != [1] or self.round != 0:
+            raise AssertionError(
+                f"{what}: {len(self.results)} batched solves with host syncs "
+                f"{syncs}, {self.solve} batch_solve launches and "
+                f"{self.round} one-round launches (one launch and one sync "
+                "a solve, no one-round launch expected)")
+
+
 def phase_metro_solve(dev, stacked):
     import numpy as np
     import torch
     from repro_torch.core import check_solution, device_stack
-    from repro_torch.core.greedy import (_pack_batch_solutions,
+    from repro_torch.core.greedy import (_SYNC_EVERY, _pack_batch_solutions,
                                          solve_device_batch)
     dstack = device_stack(stacked, device=dev)
     results = {}
     for inner in ("kernel", "torch"):
-        res = solve_device_batch(dstack, inner=inner)        # warm
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = solve_device_batch(dstack, inner=inner)
-            times.append((time.perf_counter() - t0) * 1e3)
+        with SolveLog() as solves:
+            res = solve_device_batch(dstack, inner=inner)        # warm
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solve_device_batch(dstack, inner=inner)
+                times.append((time.perf_counter() - t0) * 1e3)
+        if inner == "kernel":
+            solves.check_one_launch_each("metro solve")
         results[inner] = res
         log(f"[metro] inner={inner}: {stacked.batch_size} rows, "
             f"{int(res['admitted'].sum())} admitted, rounds={res['rounds']} "
             f"host syncs={res['syncs']} ms/solve={np.median(times):.2f} "
-            f"(min {min(times):.2f})")
+            f"(min {min(times):.2f}); batch_solve launches {solves.solve}")
     k, t = results["kernel"], results["torch"]
+    if t["rounds"] != _SYNC_EVERY * -(-k["rounds"] // _SYNC_EVERY):
+        raise AssertionError(f"metro solve: the kernel's {k['rounds']} "
+                             f"rounds against the loop's {t['rounds']}")
     if not np.array_equal(k["admitted"], t["admitted"]):
         raise AssertionError("metro solve: kernel and torch rounds admit "
                              "differently")
@@ -550,9 +755,12 @@ def phase_metro_solve(dev, stacked):
     cap = stacked.coupling.link_capacity
     if not (k["link_used"] <= cap + 1e-4).all():
         raise AssertionError("metro solve: a link budget is exceeded")
-    log(f"[metro] decisions equal across rounds; all {len(sols)} solutions "
-        "valid; link budgets kept")
-    return k
+    if not np.array_equal(k["link_used"], t["link_used"]) \
+            or not np.array_equal(k["residual"], t["residual"]):
+        raise AssertionError("metro solve: link use or residuals differ")
+    log(f"[metro] decisions, residuals and link use equal across routes; "
+        f"all {len(sols)} solutions valid; link budgets kept")
+    return dstack
 
 
 # --------------------------------------------------------------- phase 6
@@ -606,16 +814,22 @@ def phase_serving(dev):
     from repro_torch.kernels.pg import pg as PK
     from repro_torch.kernels.resize import resize as PR
     eng = make_engine(dev, None)                     # inner follows the card
+    PK.SOLVE_KERNEL.launches = 0
     PK.ROUND_KERNEL.launches = 0
     PR.RESIZE_KERNEL.launches = 0
-    recs, dec, ticks, wall = drive(eng)
-    launches = {"pg_round": PK.ROUND_KERNEL.launches,
+    with SolveLog() as solves:
+        recs, dec, ticks, wall = drive(eng)
+    launches = {"pg_solve": PK.SOLVE_KERNEL.launches,
+                "pg_round": PK.ROUND_KERNEL.launches,
                 "resize": PR.RESIZE_KERNEL.launches}
     sesm = eng.sesm
     log(f"[serve] {N_CELLS} cells, {HORIZON} steps: "
         f"{sum(r['admitted'] for r in recs)} admissions, "
         f"{sum(r['handovers'] for r in recs)} handovers; K1 launches "
-        f"{launches['pg_round']}, K3 launches {launches['resize']}")
+        f"{launches['pg_solve']} (one-round entry {launches['pg_round']}), "
+        f"K3 launches {launches['resize']}; solves (rounds, host syncs) "
+        f"{solves.results}")
+    solves.check_one_launch_each("serving loop")
     log(f"[serve] re-slice ms/tick: median {np.median(ticks):.1f}, "
         f"all {[round(t, 1) for t in ticks]}; loop wall ms/step "
         f"{wall / HORIZON:.1f}")
@@ -623,7 +837,7 @@ def phase_serving(dev):
         f"session_rebuilds={sesm.session_rebuilds} "
         f"delta_rows={sesm.delta_rows} "
         f"Tmax={sesm._serve_session.max_tasks}")
-    if launches["pg_round"] <= 0 or launches["resize"] <= 0:
+    if launches["pg_solve"] <= 0 or launches["resize"] <= 0:
         raise AssertionError(f"main path did not run both kernels: "
                              f"{launches}")
     if sesm.fresh_stacks != 1 or sesm.session_rebuilds != 0:
@@ -639,8 +853,13 @@ def phase_serving(dev):
         f"{len(dec)} steps; its re-slice ms/tick median "
         f"{np.median(tticks):.1f}")
     zs = [d[2] for step in dec for cell in step for d in cell if d[1]]
-    profile_call(eng.reslice, "steady re-slice tick")
-    return launches, sesm._serve_session.max_tasks, zs
+    wall_us, kern, count = profile_call(eng.reslice, "steady re-slice tick")
+    launches["tick"] = dict(launches=count, wall_ms=wall_us / 1e3,
+                            busy_ms=sum(kern.values()) / 1e3,
+                            solve_device_us=sum(
+                                us for name, us in kern.items()
+                                if "pg_solve_kernel" in name))
+    return launches, sesm._serve_session.dev, zs
 
 
 def profile_call(fn, what: str):
@@ -803,7 +1022,7 @@ def phase_evaluation(dev):
     from repro_torch.kernels.resize import resize as PR
     from repro_torch.core import greedy as G
     sweep = eval_instances()
-    kernels = {"pg_round": PK.ROUND_KERNEL,
+    kernels = {"pg_solve": PK.SOLVE_KERNEL, "pg_round": PK.ROUND_KERNEL,
                "admission_round": PK.ADMIT_KERNEL,
                "masked_argmax": PK.ARGMAX_KERNEL, "resize": PR.RESIZE_KERNEL}
     run_rounds, rounds = G._run_rounds, {"single": 0, "batched": 0}
@@ -818,7 +1037,8 @@ def phase_evaluation(dev):
         for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()
-        sols, fig7, many = run_evaluation(dev, sweep, "torch", None)
+        with SolveLog() as solves:
+            sols, fig7, many = run_evaluation(dev, sweep, "torch", None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: k.launches for name, k in kernels.items()}
@@ -828,10 +1048,12 @@ def phase_evaluation(dev):
     log(f"[eval] {n_inst} instances x {len(ALGORITHMS)} algorithms, "
         f"{len(FIG7_FPS)} Fig. 7 periods x {len(FIG7_ALGOS)} algorithms, "
         f"{len(many)} mixed-grid cells in {wall:.1f} s; launches {launches}; "
-        f"rounds run {rounds}")
-    if launches["admission_round"] <= 0 or launches["pg_round"] <= 0:
+        f"host-loop rounds run {rounds}; batched solves (rounds, host "
+        f"syncs) {solves.results}")
+    if launches["admission_round"] <= 0 or launches["pg_solve"] <= 0:
         raise AssertionError(f"the evaluation path did not run K2's round "
                              f"and K1: {launches}")
+    solves.check_one_launch_each("solve_greedy_many")
     if launches["admission_round"] != rounds["single"]:
         raise AssertionError(f"K2's round kernel launched "
                              f"{launches['admission_round']} times for "
@@ -964,6 +1186,41 @@ def phase_k4(dev, shapes=K4_SHAPES):
         log(f"[K4] {kernel} {dtype}: {len(shapes)} shapes (B, Tq, Tk, Hq, "
             f"Hkv, Dh, causal) within rtol {rtol:.3g}, atol {atol}; max abs "
             f"err {err[kernel, dtype]:.3g}")
+    for dtype in ("float32", "bfloat16"):
+        rtol, atol = K4_TOL[dtype]
+        for shape in K4_WIDE_SHAPES:
+            q, k, v = k4_inputs(rng, shape, dev, dtype)
+            if PA.route(q.dtype, q.shape[3]) != "cuda_cores":
+                raise AssertionError(f"K4 {shape} {dtype}: not routed to the "
+                                     "CUDA-core kernel")
+            before = PA.FLASH_CORE_KERNEL.launches
+            out = PA.flash_attention_fwd(q, k, v, causal=shape[-1])
+            again = PA.flash_attention_fwd(q, k, v, causal=shape[-1])
+            ref = PA.flash_attention_fwd_ref(q, k, v, causal=shape[-1])
+            torch.cuda.synchronize()
+            if PA.FLASH_CORE_KERNEL.launches != before + 2:
+                raise AssertionError(f"K4 {shape} {dtype}: the CUDA-core "
+                                     "kernel did not launch")
+            if not torch.equal(out, again):
+                raise AssertionError(f"K4 {shape} {dtype}: two launches on "
+                                     "the same inputs differ")
+            e = (out.float() - ref.float()).abs().max().item()
+            if not torch.allclose(out.float(), ref.float(), rtol=rtol,
+                                  atol=atol):
+                raise AssertionError(f"K4 {shape} {dtype}: max err {e} "
+                                     f"beyond rtol {rtol}, atol {atol}")
+            key = ("cuda_cores", f"{dtype} Dh=320")
+            err[key] = max(err.get(key, 0.0), e)
+        log(f"[K4] Dh=320 {dtype} on the CUDA-core kernel (the route): "
+            f"{len(K4_WIDE_SHAPES)} shapes within rtol {rtol:.3g}, atol "
+            f"{atol}; max abs err {err[key]:.3g}")
+    wide = torch.zeros(1, 4, 2, 520, device=dev)
+    try:
+        PA.flash_attention_fwd(wide, wide, wide)
+    except ValueError as e:
+        log(f"[K4] Dh=520 raises: {e}")
+    else:
+        raise AssertionError("K4 took Dh=520, which no kernel has a tile for")
     return err
 
 
@@ -1018,8 +1275,8 @@ def phase_lm_serving(dev, cfg, params, ticks=LM_TICKS):
         shapes.add((tuple(q.shape), tuple(k.shape), str(q.dtype), causal))
         return flash(q, k, v, causal=causal)
     cell._run_lm_job, PA.flash_attention_fwd = counted_job, seen_flash
-    kernels = {"pg_round": PK.ROUND_KERNEL, "resize": PR.RESIZE_KERNEL,
-               "flash_attn": PA.FLASH_KERNEL,
+    kernels = {"pg_solve": PK.SOLVE_KERNEL, "pg_round": PK.ROUND_KERNEL,
+               "resize": PR.RESIZE_KERNEL, "flash_attn": PA.FLASH_KERNEL,
                "flash_attn_tc": PA.FLASH_TC_KERNEL,
                "flash_attn_core": PA.FLASH_CORE_KERNEL}
     try:
@@ -1361,37 +1618,164 @@ def time_k2(dev, big, launches, k2_err):
     return row
 
 
-def time_kernels(dev, tmax, zs, launches, k1_err, k3_err):
+def host_loop_over_batch_round(stack):
+    """The previous route of the flexible batched solve: the host loop
+    (a convergence sync every few rounds, the latency table re-packed per
+    solve) with each round one launch of K1's one-round entry — the plain
+    loop with ``greedy._flex_round_fn`` pointed at ``batch_round``."""
+    from repro_torch.core import greedy as G
+    from repro_torch.kernels.pg import pg as PK
+    flex = G._flex_round_fn
+
+    def kernel_round(lat_bits, grid, price, cap, a):
+        return lambda occupied, alive: PK.batch_round(
+            lat_bits, alive, grid, price, cap, occupied)
+    G._flex_round_fn = kernel_round
+    try:
+        return PK.batch_solve_ref(stack)
+    finally:
+        G._flex_round_fn = flex
+
+
+def solve_work(stack, out):
+    """(bytes, flops) the solve must move and do on this run's data: each
+    input read once (the bool mask, alive0, load, the grid, the pool state,
+    the link budgets and the group rows), each output written once; the
+    gradient of every lane once per cell and once more per admission."""
+    rows, t, a = stack.lat_ok.shape
+    m = stack.grid.shape[1]
+    links = 0 if stack.link_cap is None else stack.link_cap.numel()
+    csr = stack.group_csr
+    groups = out[4].numel()
+    ints = 0 if csr is None else sum(x.numel() for x in (
+        csr.rows, csr.offsets, csr.links, csr.link_offsets, csr.cell_links,
+        csr.cell_link_offsets))
+    nbytes = (rows * t * a + rows * t + (4 * rows * t if links else 0)
+              + 4 * a * m + 8 * rows * m + 4 * links + 4 * ints
+              + rows * t + 4 * rows * t + 4 * rows * m + 4 * links
+              + 4 * groups)
+    flops = (rows + int(out[0].sum())) * a * (10 * m + 8)
+    return nbytes, flops
+
+
+def solve_breakdown(stack, rounds: int = 64) -> dict:
+    """CTA 0's time in one solve of ``stack`` (``batch_solve``'s trace:
+    ``%globaltimer`` stamps), the medians over its rounds in us: its
+    candidates (with the rescore after an admission), its round pick, the
+    wait at the cluster barrier with the read of the group's pick (the
+    slowest CTA of the group sets it), and the admission."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.pg import pg as PK
+    trace = torch.zeros(2 + PK.TRACE_POINTS * rounds, dtype=torch.int64,
+                        device=stack.grid.device)
+    out = PK.batch_solve(stack, trace=trace)
+    torch.cuda.synchronize()
+    t = trace.cpu().numpy()
+    n = min(int(out[4][0]), rounds) - 1     # the last round stops early
+    steps = np.diff(t[2:2 + PK.TRACE_POINTS * n].reshape(
+        n, PK.TRACE_POINTS), axis=1) / 1e3
+    med = np.median(steps, axis=0) if n > 0 else np.zeros(4)
+    out = dict(prologue=(t[1] - t[0]) / 1e3, candidates=med[0],
+               pick=med[1], cluster_barrier=med[2], admission=med[3],
+               rounds_of_group0=n + 1)
+    log("[time] K1 serving solve, CTA 0's rounds (median us): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def time_k1(dev, serve_stack, metro_stack, launches, k1_err):
+    """K1 on the path: ``batch_solve`` on the serving loop's own stack and
+    on the metro day, beside the previous route (the host loop over
+    ``batch_round``) and the plain loop, in alternation; its device time
+    against its bound, rounds, device us a round, and the kernel's
+    registers and spills. Then the one-round entry at the serving shape."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.pg import pg as PK
+    row = dict(name="pg_round", route="cuda",
+               source="src/repro_torch/kernels/csrc/pg_round.cu",
+               replaces="src/repro/kernels/pg/pg.py:182",
+               entry="batch_solve", launches=launches["pg_solve"],
+               launches_round_entry=launches["pg_round"],
+               max_abs_err=k1_err, library_ms=None)
+    for what, st in (("serving", serve_stack), ("metro", metro_stack)):
+        out = PK.batch_solve(st)
+        prev = host_loop_over_batch_round(st)
+        torch.cuda.synchronize()
+        info = PK.solve_info()
+        for x, y in zip(out[:4], prev[:4]):
+            if y is not None and not torch.equal(x, y):
+                raise AssertionError(f"K1 {what}: the host loop over "
+                                     "batch_round decides otherwise")
+        rounds = int(out[4].max())
+        am = alternating_ms({
+            "kernel": lambda: PK.batch_solve(st),
+            "host_loop": lambda: host_loop_over_batch_round(st),
+            "plain": lambda: PK.batch_solve_ref(st)}, reps=3, iters=5)
+        dus = device_us(lambda: PK.batch_solve(st), "pg_solve_kernel",
+                        iters=20)
+        nbytes, flops = solve_work(st, out)
+        bound, by = bound_of(nbytes, flops)
+        rows, t, a = st.lat_ok.shape
+        pre = "" if what == "serving" else "metro_"
+        row.update({f"{pre}ms": am["kernel"], f"{pre}plain_ms": am["plain"],
+                    f"{pre}host_loop_ms": am["host_loop"],
+                    f"{pre}device_ms": None if dus is None else dus / 1e3,
+                    f"{pre}bound_ms": bound, f"{pre}bound_by": by,
+                    f"{pre}rounds": rounds,
+                    f"{pre}device_us_per_round":
+                        None if dus is None else dus / max(rounds, 1),
+                    f"{pre}shape": [rows, t, a, st.grid.shape[1],
+                                    out[4].numel()],
+                    f"{pre}plan": info})
+        log(f"[time] K1 batch_solve {what} B={rows} T={t} A={a} "
+            f"m={st.grid.shape[1]} ({out[4].numel()} groups, cluster "
+            f"{info['cluster']}, {info['smem_bytes']} B shared, "
+            f"{info['registers']} registers, {info['local_bytes']} B local "
+            f"(spills)): {am['kernel'] * 1e3:.1f} us per call (device "
+            f"{fmt_us(dus)}) for {rounds} rounds ("
+            + ("not measured" if dus is None else f"{dus / max(rounds, 1):.2f}")
+            + f" us a round); the previous route (host loop over "
+            f"batch_round) {am['host_loop']:.3f} ms, plain loop "
+            f"{am['plain']:.3f} ms; bound {bound * 1e3:.3f} us ({by}, "
+            f"{nbytes / 1e6:.2f} MB)")
+
+    # where a round of the serving solve goes: CTA 0's phase stamps
+    row["round_breakdown_us"] = solve_breakdown(serve_stack)
+
+    # the one-round entry (the Pallas contract) at the serving shape
+    rng = np.random.default_rng(2)
+    tmax = serve_stack.max_tasks
+    lat, words, rest = k1_inputs(rng, N_CELLS, tmax, 300, 2, dev)
+    b, t, w = words.shape
+    a, m = rest[1].shape
+    rm = alternating_ms({
+        "kernel": lambda: PK.batch_round(words, *rest),
+        "plain": lambda: PK.batch_round_ref(lat, *rest)}, reps=3, iters=50)
+    # per lane: m subs, muls, 2 divs, 2 muls, 3 adds, 1 compare
+    r_bound, r_by = bound_of(
+        b * t * w * 4 + b * t + a * m * 4 + 3 * b * m * 4 + b * 12,
+        b * a * (10 * m + 8))
+    r_dev = device_us(lambda: PK.batch_round(words, *rest), "pg_round")
+    row.update(round_ms=rm["kernel"], round_plain_ms=rm["plain"],
+               round_bound_ms=r_bound, round_bound_by=r_by,
+               round_device_ms=None if r_dev is None else r_dev / 1e3)
+    log(f"[time] K1 batch_round (one round, on no path) B={b} T={t} W={w} "
+        f"A={a}: {rm['kernel'] * 1e3:.1f} us per call (device "
+        f"{fmt_us(r_dev)}), plain {rm['plain'] * 1e3:.1f} us, bound "
+        f"{r_bound * 1e3:.3f} us ({r_by})")
+    return row
+
+
+def time_kernels(dev, zs, launches, k3_err):
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels._build import current_stream
-    from repro_torch.kernels.pg import pg as PK
     from repro_torch.kernels.resize import ops as PO
     from repro_torch.kernels.resize import resize as PR
     rng = np.random.default_rng(2)
-    # K1 at the main path's shape: B = 256 cells, T = the session's bucket
-    lat, words, rest = k1_inputs(rng, N_CELLS, tmax, 300, 2, dev)
-    b, t, w = words.shape
-    a, m = rest[1].shape
-    k1 = dict(name="pg_round", route="cuda",
-              source="src/repro_torch/kernels/csrc/pg_round.cu",
-              replaces="src/repro/kernels/pg/pg.py:182",
-              launches=launches["pg_round"], max_abs_err=k1_err)
-    k1["ms"] = cuda_ms(lambda: PK.batch_round(words, *rest), iters=200)
-    k1["plain_ms"] = cuda_ms(lambda: PK.batch_round_ref(lat, *rest))
-    # per lane: m subs, muls, 2 divs, 2 muls, 3 adds, 1 compare; + the
-    # scan's compare per set bit (bounded by the lanes)
-    k1["bound_ms"], k1["bound_by"] = bound_of(
-        b * t * w * 4 + b * t + a * m * 4 + 3 * b * m * 4 + b * 12,
-        b * a * (10 * m + 8))
-    k1["library_ms"] = None
-    k1_dev = device_us(lambda: PK.batch_round(words, *rest), "pg_round")
-    k1["device_ms"] = None if k1_dev is None else k1_dev / 1e3
-    log(f"[time] K1 B={b} T={t} W={w} A={a}: kernel {k1['ms']*1e3:.1f} us "
-        f"per call (device {fmt_us(k1_dev)}), plain "
-        f"{k1['plain_ms']*1e3:.1f} us, bound "
-        f"{k1['bound_ms']*1e3:.3f} us ({k1['bound_by']})")
 
     # K3 at the main path's shape: a job batch of 5 frames of 128x128x3 at
     # the compression the engine admitted most often, through the wrapper
@@ -1466,7 +1850,7 @@ def time_kernels(dev, tmax, zs, launches, k1_err, k3_err):
     log(f"[time] K3 8x1024x2048x3 z=0.25: kernel {bigm['kernel']:.3f} ms "
         f"(device {fmt_us(big_dev)}), F.interpolate {bigm['library']:.3f} ms, full-input byte bound "
         f"{k3['big_bound_ms']:.3f} ms")
-    return [k1, k3]
+    return k3
 
 
 def k4_work(shape, esize):
@@ -1631,11 +2015,12 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     k1_err = phase_k1(dev, metro)
+    phase_k1_solve(dev, metro)
     k2_err, k2_rounds = phase_k2(dev)
     k3_err = phase_k3(dev)
     k4_err = phase_k4(dev)
-    phase_metro_solve(dev, metro)
-    launches, tmax, zs = phase_serving(dev)
+    metro_stack = phase_metro_solve(dev, metro)
+    launches, serve_stack, zs = phase_serving(dev)
     eval_launches, big = phase_evaluation(dev)
     from repro_torch.configs import get_config
     cfg = get_config(LM_ARCH)
@@ -1644,7 +2029,10 @@ def main() -> int:
     phase_lm_prefill(dev, cfg, params)
     del params
     torch.cuda.empty_cache()
-    k1, k3 = time_kernels(dev, tmax, zs, launches, k1_err, k3_err)
+    k1 = time_k1(dev, serve_stack, metro_stack, launches, k1_err)
+    k1["launches_eval"] = eval_launches["pg_solve"]
+    k1["tick"] = launches["tick"]
+    k3 = time_kernels(dev, zs, launches, k3_err)
     k2 = time_k2(dev, big, eval_launches, k2_err)
     k2["rounds_checked"] = k2_rounds
     kernels = [k1, k2, k3,

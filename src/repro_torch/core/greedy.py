@@ -17,9 +17,10 @@ Each device solve has two interchangeable inner steps, named as in the
 serving tick: ``inner="kernel"`` launches a hand-written CUDA kernel (the
 counterpart of the reference's ``inner="pallas"``) and ``inner="torch"``
 runs the same step as plain torch ops (the counterpart of ``"jnp"``). In
-the batched solve the kernel is K1 (``kernels/pg/pg.py::batch_round``, the
-fused flexible round; the MinRes path stays the dense per-instance round, as
-in the reference, which has no kernel there); in the single-instance solve
+the batched flexible solve the kernel is K1's solve entry
+(``kernels/pg/pg.py::batch_solve``): every round of the batch, coupled or
+not, in ONE launch; the MinRes path stays the dense per-instance round, as
+in the reference, which has no kernel there. In the single-instance solve
 it is K2's admission round (``kernels/pg/pg.py::bind_round``: the whole of
 :func:`_round` over the ``pg_argmax`` inner step in one launch, every
 quadrant). ``inner=None`` follows the device, as the reference's
@@ -27,12 +28,16 @@ quadrant). ``inner=None`` follows the device, as the reference's
 gets the torch step, and ``"kernel"`` on a CPU device raises. Both give the
 same decisions.
 
-The reference runs each admission loop as one ``lax.while_loop``; the port
-drives it from the host, one device round at a time. Rounds after
-convergence are no-ops (every update is masked), so the loop tests
-``alive.any()`` — a host sync — only once every ``_SYNC_EVERY`` rounds
-without changing a decision. The batched result dicts report ``rounds`` run
-and ``syncs`` (device waits, including the decision read-back).
+The reference runs each admission loop as one ``lax.while_loop``. So does
+the batched kernel route, inside its one launch: it returns without
+waiting on the device, and the decision read-back is its only host sync.
+The torch rounds (and the single solve, one launch a round) are driven
+from the host; rounds after convergence are no-ops (every update is
+masked), so that loop tests ``alive.any()`` — a host sync — only once every
+``_SYNC_EVERY`` rounds without changing a decision. The batched result
+dicts report ``rounds`` run (on the kernel route the largest coupling
+group's real count; on the host loop a multiple of ``_SYNC_EVERY``) and
+``syncs`` (device waits, including the decision read-back).
 
 Two facts about the reference, so nobody chases a phantom mismatch:
 
@@ -376,23 +381,16 @@ def _or_tasks(words):
     return words[:, 0]
 
 
-def _flex_round_fn(inner: str, lat_bits, grid, price, cap, A):
-    """The flexible-mode batched round: (occupied, alive) → (V, tau, s*).
-
-    ``"kernel"`` is K1; ``"torch"`` is the reference's bit-domain jnp round:
-    V = max PG over cap-feasible columns feasible for an alive task, tau =
-    first alive task whose row intersects {PG == V}, s* = tau's first-max
-    allocation. The coupled solve folds its link feasibility into ``alive``,
-    so neither round knows about coupling.
+def _flex_round_fn(lat_bits, grid, price, cap, A):
+    """The flexible-mode batched round as torch ops: (occupied, alive) →
+    (V, tau, s*), the reference's bit-domain jnp round: V = max PG over
+    cap-feasible columns feasible for an alive task, tau = first alive task
+    whose row intersects {PG == V}, s* = tau's first-max allocation. The
+    coupled solve folds its link feasibility into ``alive``, so the round
+    knows nothing of coupling. K1 (``kernels/pg/pg.py``) runs this
+    algorithm word-parallel on the card, one round (``batch_round``) or
+    all of them (``batch_solve``).
     """
-    if inner == "kernel":
-        from ..kernels.pg import pg as pg_kernel
-
-        def round_fn(occupied, alive):
-            return pg_kernel.batch_round(lat_bits, alive, grid, price, cap,
-                                         occupied)
-        return round_fn
-
     def round_fn(occupied, alive):
         remaining = cap - occupied
         cap_ok = (grid[None] <= remaining[:, None, :] + 1e-9).all(-1)
@@ -450,12 +448,12 @@ def _init_state(alive0, m, dtype):
             alive0.clone())
 
 
-def _batch_solve(lat_ok, grid, price, cap, alive0, cost, flexible: bool,
-                 inner: str):
-    """Uncoupled batched solve: (admitted, alloc_idx, occupied, rounds,
-    syncs). ``lat_ok`` (B, Tmax, A), ``price``/``cap`` (B, m), ``alive0``
-    (B, Tmax); ``grid``/``cost`` shared (A, m)/(A,). Finished instances run
-    masked no-op rounds until the whole batch converges."""
+def _batch_solve(lat_ok, grid, price, cap, alive0, cost, flexible: bool):
+    """Uncoupled batched solve on the torch rounds, driven from the host:
+    (admitted, alloc_idx, occupied, rounds, syncs). ``lat_ok`` (B, Tmax,
+    A), ``price``/``cap`` (B, m), ``alive0`` (B, Tmax); ``grid``/``cost``
+    shared (A, m)/(A,). Finished instances run masked no-op rounds until
+    the whole batch converges."""
     B, tmax, A = lat_ok.shape
     m = grid.shape[1]
     bidx = torch.arange(B, device=lat_ok.device)
@@ -479,8 +477,7 @@ def _batch_solve(lat_ok, grid, price, cap, alive0, cost, flexible: bool,
             alive[bidx, tau] = False
             return admitted, alloc_idx, occupied, alive
     else:
-        round_fn = _flex_round_fn(inner, _pack_bits(lat_ok), grid, price,
-                                  cap, A)
+        round_fn = _flex_round_fn(_pack_bits(lat_ok), grid, price, cap, A)
 
         def body(state):
             admitted, alloc_idx, occupied, alive = state
@@ -504,9 +501,9 @@ def _batch_solve(lat_ok, grid, price, cap, alive0, cost, flexible: bool,
 
 
 def _batch_solve_coupled(lat_ok, grid, price, cap, alive0, cost, load,
-                         link_cap, incidence, group, flexible: bool,
-                         inner: str):
-    """Coupled batched solve: cells sharing backhaul links admit JOINTLY.
+                         link_cap, incidence, group, flexible: bool):
+    """Coupled batched solve on the torch rounds, driven from the host:
+    cells sharing backhaul links admit JOINTLY.
 
     Each round: (1) a task is a candidate only if its load fits the
     remaining budget of every link its cell traverses (folded into
@@ -528,8 +525,7 @@ def _batch_solve_coupled(lat_ok, grid, price, cap, alive0, cost, load,
     big_b = torch.full((B,), B, dtype=torch.int64, device=dev)
 
     if flexible:
-        round_fn = _flex_round_fn(inner, _pack_bits(lat_ok), grid, price,
-                                  cap, A)
+        round_fn = _flex_round_fn(_pack_bits(lat_ok), grid, price, cap, A)
     else:
         def round_fn(occupied, alive):
             G, best_a, _ = _minres_dense(lat_ok, grid, price, cap, cost,
@@ -583,25 +579,33 @@ def dispatch_device_batch(dev: DeviceStack, *, flexible: bool = True,
     """Run the device solve of a :class:`DeviceStack` up to its packed
     decisions, without reading them back.
 
-    The admission rounds are driven from the host (the loop waits on the
-    device every ``_SYNC_EVERY`` rounds to test convergence); the packed
-    decision buffers stay on the device until :func:`unpack_device_batch`.
-    Returns a handle that captures the batch shape at dispatch, so the
-    unpack does not depend on the (mutable) stack. Reads the bindings of
-    ``DeviceStack.inputs()``; see its docstring for why later in-place
-    scatters cannot reach this solve.
+    With ``inner="kernel"`` (CUDA's default) the flexible solve, coupled or
+    not, is ONE launch of K1's solve entry (``kernels/pg/pg.py::
+    batch_solve``), enqueued without a host sync; otherwise (MinRes,
+    ``inner="torch"``) the torch rounds are driven from the host, which
+    waits on the device every ``_SYNC_EVERY`` rounds to test convergence.
+    The packed decision buffers stay on the device until
+    :func:`unpack_device_batch`. Returns a handle that captures the batch
+    shape at dispatch, so the unpack does not depend on the (mutable) stack.
+    Reads the bindings of ``DeviceStack.inputs()``; see its docstring for
+    why later in-place scatters cannot reach this solve.
     """
     inner = resolve_inner(inner, dev.device)
     (lat_ok, grid, price, cap, alive0, cost,
      link_load, link_cap, incidence, group) = dev.inputs()
-    if dev.coupled:
+    if flexible and inner == "kernel":
+        from ..kernels.pg import pg as pg_kernel
+        admitted, alloc_idx, occupied, used, rounds = \
+            pg_kernel.batch_solve(dev)
+        syncs = 0
+    elif dev.coupled:
         admitted, alloc_idx, occupied, used, rounds, syncs = \
             _batch_solve_coupled(lat_ok, grid, price, cap, alive0, cost,
                                  link_load, link_cap, incidence, group,
-                                 flexible, inner)
+                                 flexible)
     else:
         admitted, alloc_idx, occupied, rounds, syncs = _batch_solve(
-            lat_ok, grid, price, cap, alive0, cost, flexible, inner)
+            lat_ok, grid, price, cap, alive0, cost, flexible)
         used = None
     packed, residual = _extract_packed(admitted, alloc_idx, occupied, cap)
     return (packed, residual, used, dev.batch_size, dev.max_tasks,
@@ -613,9 +617,11 @@ def unpack_device_batch(dispatched: tuple) -> dict:
     last sync) and unpack it: ``admitted`` (B, Tmax) bool, ``alloc_idx``
     (B, Tmax) int (-1 where never admitted; only ``admitted`` rows are
     meaningful), ``residual`` (B, m), ``link_used`` (L,) (empty when
-    uncoupled), and the loop's ``rounds`` and ``syncs``."""
+    uncoupled), and the solve's ``rounds`` and ``syncs``."""
     packed, residual, used, B, tmax, rounds, syncs = dispatched
     packed = packed.cpu().numpy()[:B]    # drop inert pad_batch_to rows
+    if isinstance(rounds, torch.Tensor):  # per coupling group, on the device
+        rounds = int(rounds.cpu().numpy().max(initial=0))
     wt = -(-tmax // 32)
     bits = packed[:, :wt].astype(np.uint32)
     idx = np.arange(tmax)

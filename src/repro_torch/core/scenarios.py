@@ -695,8 +695,8 @@ def closed_loop_trace(n_cells: int, horizon: int, *, m: int = 2,
     backhaul link with that budget (see :func:`multi_cell_trace`); the
     per-step batch then solves through the coupled sweep engine.
 
-    Every step solves on ``device`` (the batched solve's rounds run K1 on
-    CUDA).
+    Every step solves on ``device`` (on CUDA the batched solve is one K1
+    launch).
 
     Returns one record per (step, cell):
     ``{"step", "cell", "offered", "admitted", "objective", "restacked",

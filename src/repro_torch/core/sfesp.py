@@ -32,7 +32,8 @@ __all__ = ["build_instance", "check_solution", "objective_value",
            "default_z_grid", "stack_instances", "restack", "next_pow2",
            "task_link_load", "merge_coupling", "lexicographic_cost",
            "TaskRows", "task_feasibility_rows",
-           "DeviceStack", "device_stack", "empty_device_stack"]
+           "DeviceStack", "GroupCSR", "group_csr", "device_stack",
+           "empty_device_stack"]
 
 
 def next_pow2(n: int) -> int:
@@ -348,6 +349,65 @@ def restack(stacked: StackedInstances,
 #   raises and the caller rebuilds at a larger bucket.
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class GroupCSR:
+    """A coupled stack's coupling groups as compressed rows, for the
+    one-launch solve (``kernels/pg/pg.py::batch_solve``): one thread-block
+    cluster walks one group.
+
+    ``rows[offsets[g]:offsets[g + 1]]`` are group g's batch rows in
+    ascending order (the coupled solve's first-cell tie-break); groups come
+    in the order of their smallest row, as ``CouplingSpec.groups`` names
+    them. ``links[link_offsets[g]:link_offsets[g + 1]]`` are the links group
+    g's cells traverse, ascending; ``cell_links[cell_link_offsets[b]:
+    cell_link_offsets[b + 1]]`` are row b's links as indices into its
+    group's span. All int32, views of one device tensor. The topology is
+    invariant for a stack's life (``update_link_budgets`` moves budgets
+    only), so this is built once, beside ``DeviceStack.group``.
+    """
+
+    rows: torch.Tensor
+    offsets: torch.Tensor
+    links: torch.Tensor
+    link_offsets: torch.Tensor
+    cell_links: torch.Tensor
+    cell_link_offsets: torch.Tensor
+    num_groups: int
+    max_members: int
+    max_links: int
+    max_cell_links: int
+
+
+def group_csr(incidence, group, device) -> GroupCSR:
+    """The :class:`GroupCSR` of a (B', L) bool ``incidence`` and its (B',)
+    group ids (``CouplingSpec.groups``), on ``device``."""
+    incidence = np.asarray(incidence, bool)
+    group = np.asarray(group, np.int64)
+    order = np.argsort(group, kind="stable")
+    ids, gidx, counts = np.unique(group, return_inverse=True,
+                                  return_counts=True)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    g_links = np.zeros((len(ids), incidence.shape[1]), bool)
+    np.logical_or.at(g_links, gidx, incidence)
+    gi, links = np.nonzero(g_links)
+    n_links = g_links.sum(axis=1)
+    link_offsets = np.concatenate([[0], np.cumsum(n_links)])
+    local = np.zeros(incidence.shape[1], np.int64)
+    local[links] = np.arange(len(links)) - link_offsets[gi]
+    _, cell_links = np.nonzero(incidence)
+    cell_link_offsets = np.concatenate([[0],
+                                        np.cumsum(incidence.sum(axis=1))])
+    parts = (order, offsets, links, link_offsets, local[cell_links],
+             cell_link_offsets)
+    flat = torch.as_tensor(np.concatenate(parts).astype(np.int32),
+                           device=device)
+    views = flat.split([len(p) for p in parts])
+    return GroupCSR(*views, num_groups=len(ids),
+                    max_members=int(counts.max(initial=0)),
+                    max_links=int(n_links.max(initial=0)),
+                    max_cell_links=int(incidence.sum(axis=1).max(initial=0)))
+
+
 def _f32(x, device) -> torch.Tensor:
     """Host float64 → device float32 (round to nearest, as ``jnp.asarray``
     does with x64 off)."""
@@ -381,6 +441,7 @@ class DeviceStack:
     group: torch.Tensor | None        # (B',) int64
     semantic: bool
     batch_size: int                   # real B (B' may include inert padding)
+    group_csr: GroupCSR | None = None  # the groups as rows (coupled)
     scatter_calls: int = 0
     rows_scattered: int = 0
     budget_updates: int = 0
@@ -406,13 +467,15 @@ class DeviceStack:
         dispatched earlier keeps the old arrays. Here the scatters of
         :meth:`update_rows` / :meth:`update_link_budgets` write these same
         tensors IN PLACE, and a dispatched solve still reads tick N's rows
-        because of STREAM ORDER: ``greedy.dispatch_device_batch`` drives its
-        admission rounds from the host on the tensors' one stream and returns
-        only after the last round has been enqueued (it waits on the device
-        between rounds to test convergence), so every read of these tensors
-        by the solve precedes, in stream order, any scatter the serving loop
-        enqueues afterwards for tick N+1. The pending handle holds only the
-        solve's own output tensors.
+        because of STREAM ORDER: on the card the flexible solve is ONE
+        launch (``kernels/pg/pg.py::batch_solve``) that
+        ``greedy.dispatch_device_batch`` enqueues on the tensors' one stream
+        before it returns, and the torch rounds (the CPU, MinRes,
+        ``inner="torch"``) are all enqueued before it returns too. So every
+        read of these tensors by the solve precedes, in stream order, any
+        scatter the serving loop enqueues afterwards for tick N+1, although
+        the kernel route returns without waiting on the device. The pending
+        handle holds only the solve's own output tensors.
         """
         return (self.lat_ok, self.grid, self.price, self.capacity,
                 self.alive0, self.cost, self.link_load, self.link_cap,
@@ -516,11 +579,12 @@ def _solver_tables(stacked: StackedInstances, semantic: bool):
 
 def _link_tensors(coupling: CouplingSpec | None, incidence, device):
     if coupling is None:
-        return None, None, None
+        return None, None, None, None
     group = CouplingSpec(coupling.link_capacity, incidence).groups()
     return (_f32(coupling.link_capacity, device),
             torch.as_tensor(np.asarray(incidence, bool), device=device),
-            torch.as_tensor(group, dtype=torch.int64, device=device))
+            torch.as_tensor(group, dtype=torch.int64, device=device),
+            group_csr(incidence, group, device))
 
 
 def device_stack(stacked: StackedInstances, *, semantic: bool = True,
@@ -573,7 +637,7 @@ def device_stack(stacked: StackedInstances, *, semantic: bool = True,
         alive0=torch.as_tensor(alive0, device=dev),
         link_load=_f32(load, dev),
         link_cap=link[0], incidence=link[1], group=link[2],
-        semantic=bool(semantic), batch_size=B,
+        semantic=bool(semantic), batch_size=B, group_csr=link[3],
     )
     cache[key] = out
     return out
@@ -609,7 +673,7 @@ def empty_device_stack(grid: np.ndarray, price: np.ndarray,
         alive0=torch.zeros((B, tmax), dtype=torch.bool, device=dev),
         link_load=torch.zeros((B, tmax), dtype=torch.float32, device=dev),
         link_cap=link[0], incidence=link[1], group=link[2],
-        semantic=bool(semantic), batch_size=B,
+        semantic=bool(semantic), batch_size=B, group_csr=link[3],
     )
 
 

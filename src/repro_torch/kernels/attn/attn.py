@@ -5,14 +5,17 @@ kernel with its epilogue); its plain version is the counterpart of
 ``src/repro/kernels/attn/ref.py``. Two hand-written CUDA kernels compute it,
 chosen by :func:`route`:
 
-- ``"tensor_cores"`` (``csrc/flash_attn_tc.cu``): bf16 with ``Dh % 8 == 0``.
-  ``wgmma`` products with K/V tiles loaded by TMA; P is rounded to bf16
-  before the second product, as in every bf16 flash attention.
-- ``"cuda_cores"`` (``csrc/flash_attn.cu``): float32, and bf16 of any other
-  head width. f32 FMAs on the CUDA cores, the reference's arithmetic.
+- ``"tensor_cores"`` (``csrc/flash_attn_tc.cu``): bf16 with ``Dh % 8 == 0``
+  and ``Dh <= 256``. ``wgmma`` products with K/V tiles loaded by TMA; P is
+  rounded to bf16 before the second product, as in every bf16 flash
+  attention.
+- ``"cuda_cores"`` (``csrc/flash_attn.cu``): float32, bf16 of any other
+  head width, and every ``Dh > 256`` up to 512. f32 FMAs on the CUDA cores,
+  the reference's arithmetic.
 
 :func:`flash_attention_fwd` launches the routed kernel for CUDA tensors and
-computes :func:`flash_attention_fwd_ref` for CPU tensors.
+computes :func:`flash_attention_fwd_ref` for CPU tensors, at any head
+width. On the card ``Dh > 512`` raises: no kernel has a tile for it.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 
 from .._build import CudaKernel, current_stream
 
-__all__ = ["FLASH_CORE_KERNEL", "FLASH_KERNEL", "FLASH_TC_KERNEL", "NEG",
+__all__ = ["FLASH_CORE_KERNEL", "FLASH_KERNEL", "FLASH_TC_KERNEL",
+           "MAX_HEAD_DIM", "NEG", "TC_MAX_HEAD_DIM",
            "flash_attention_fwd", "flash_attention_fwd_ref", "launch",
            "route", "tc_head_width"]
 
@@ -38,7 +42,11 @@ FLASH_TC_KERNEL = CudaKernel(
     "flash_attn_tc.cu", "flash_attn_tc_launch",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 256
+# the widest head each kernel has a tile for: the CUDA-core kernel's widest
+# instantiation is Dh 512 (32 x 16, 135 KB of the 227 KB a block may use);
+# the tensor-core kernel pads Dh to 64, 128 or 256
+MAX_HEAD_DIM = 512
+TC_MAX_HEAD_DIM = 256
 # TMA takes 16-byte-aligned bases and row strides: Dh % 8 bf16
 TC_HEAD_MULTIPLE = 8
 
@@ -65,9 +73,14 @@ FLASH_KERNEL = _K4Launches()
 
 
 def route(dtype: torch.dtype, dh: int) -> str:
-    """Which kernel computes K4 for ``dtype`` at head width ``dh``:
-    ``"tensor_cores"`` for bf16 with ``dh % 8 == 0``, else ``"cuda_cores"``."""
-    if dtype == torch.bfloat16 and dh % TC_HEAD_MULTIPLE == 0:
+    """Which kernel computes K4 for ``dtype`` at head width ``dh``, chosen
+    by shape alone: ``"tensor_cores"`` for bf16 with ``dh % 8 == 0`` and
+    ``dh <= 256``; ``"cuda_cores"`` for float32, for other bf16 widths and
+    for every ``dh > 256`` (its Dh ≤ 512 tile; the tensor-core kernel's
+    tiles stop at 256). Not a fallback: no route is taken because another
+    failed."""
+    if dtype == torch.bfloat16 and dh % TC_HEAD_MULTIPLE == 0 \
+            and dh <= TC_MAX_HEAD_DIM:
         return "tensor_cores"
     return "cuda_cores"
 
@@ -75,7 +88,7 @@ def route(dtype: torch.dtype, dh: int) -> str:
 def tc_head_width(dh: int) -> int:
     """The head width the tensor-core kernel computes at: ``dh`` padded to
     64, 128 or 256 (whole 64-column TMA boxes; the padding reads as zeros)."""
-    if not TC_HEAD_MULTIPLE <= dh <= MAX_HEAD_DIM \
+    if not TC_HEAD_MULTIPLE <= dh <= TC_MAX_HEAD_DIM \
             or dh % TC_HEAD_MULTIPLE != 0:
         raise ValueError(f"Dh={dh} is not a tensor-core head width")
     return 64 if dh <= 64 else 128 if dh <= 128 else 256
@@ -91,8 +104,8 @@ def _check(q, k, v):
     hkv = k.shape[2]
     if hkv < 1 or hq % hkv != 0:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"Dh={dh} is outside 1..{MAX_HEAD_DIM}")
+    if dh < 1:
+        raise ValueError(f"Dh={dh} is not a head width")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
@@ -126,8 +139,8 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True):
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
     """q (B, Tq, Hq, Dh); k, v (B, Tk, Hkv, Dh), contiguous, float32 or
-    bfloat16, Hq a multiple of Hkv, Dh ≤ 256 → (B, Tq, Hq, Dh) in q's type,
-    float32 sums.
+    bfloat16, Hq a multiple of Hkv → (B, Tq, Hq, Dh) in q's type, float32
+    sums. Any Dh on the CPU; Dh ≤ 512 on the card.
 
     A CUDA tensor launches the kernel :func:`route` names (counted in
     ``FLASH_TC_KERNEL`` or ``FLASH_CORE_KERNEL``, both in
@@ -152,6 +165,12 @@ def launch(kernel: str, q, k, v, *, causal: bool = True):
     tk, hkv = k.shape[1], k.shape[2]
     if kernel == "tensor_cores" and route(q.dtype, dh) != kernel:
         raise ValueError(f"{q.dtype} at Dh={dh} is not a tensor-core input")
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(
+            f"Dh={dh} > {MAX_HEAD_DIM}: K4 has no tile for it (the CUDA-core "
+            f"kernel's widest instantiation is Dh {MAX_HEAD_DIM}, the "
+            f"tensor-core kernel's {TC_MAX_HEAD_DIM}); no model of the "
+            "repository has a head wider than 256")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

@@ -40,7 +40,9 @@
 // Shared memory by head width (tiles BQ x BK, dynamic, above the 48 KB
 // default, so the launcher raises the limit first):
 //   Dh <=  64: 64 x 64, 69 KB;  Dh <= 128: 64 x 32, 77 KB;
-//   Dh <= 256: 32 x 32, 104 KB.
+//   Dh <= 256: 32 x 32, 104 KB; Dh <= 512: 32 x 16, 135 KB.
+// Dh > 512 has no instantiation, and no model of the repository comes near
+// it (the 32 x 16 tile would fit the 227 KB a block may use up to Dh 893).
 
 #include <cuda_bf16.h>
 
@@ -299,19 +301,22 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
   if (dh <= 128)
     return launch<T, 128, 64, 32>(q, k, v, o, B, Tq, Tk, Hq, Hkv, dh, scale,
                                   causal, stream);
-  return launch<T, 256, 32, 32>(q, k, v, o, B, Tq, Tk, Hq, Hkv, dh, scale,
+  if (dh <= 256)
+    return launch<T, 256, 32, 32>(q, k, v, o, B, Tq, Tk, Hq, Hkv, dh, scale,
+                                  causal, stream);
+  return launch<T, 512, 32, 16>(q, k, v, o, B, Tq, Tk, Hq, Hkv, dh, scale,
                                 causal, stream);
 }
 
 }  // namespace
 
 // q (B, Tq, Hq, dh), k and v (B, Tk, Hkv, dh), o like q, all contiguous.
-// dtype: 0 = float32, 1 = bfloat16. 1 <= dh <= 256, Hq % Hkv == 0.
+// dtype: 0 = float32, 1 = bfloat16. 1 <= dh <= 512, Hq % Hkv == 0.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int dtype, int B, int Tq, int Tk,
                                  int Hq, int Hkv, int dh, float scale,
                                  int causal, void* stream) {
-  if (dh < 1 || dh > 256 || Hkv < 1 || Hq % Hkv != 0)
+  if (dh < 1 || dh > 512 || Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Tq == 0 || Hq == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);

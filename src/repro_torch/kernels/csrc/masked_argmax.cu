@@ -100,6 +100,9 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 2048;             // staged columns: 8 KB of shared
 constexpr int kSMs = 132;                // H100 SXM
+// dynamic shared memory the round's pool terms may take without raising
+// the kernel's limit: the default 48 KB less the row reduction's 25 KB
+constexpr size_t kTermsDefault = 16 * 1024;
 
 struct RowBest {
   float v;
@@ -234,10 +237,15 @@ admission_round_kernel(const RoundArgs a) {
   __shared__ int s_t[kWarps];
   __shared__ int s_tau;
 
+  extern __shared__ float s_terms[];  // pg_terms_floats(m): the pool's terms
+
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * (kWarps / kTeam) + warp / kTeam;
   const bool live = row < a.T && a.alive[row] != 0;
-  const PgPool pool = pg_pool(a.price, a.cap, a.occupied, a.m);
+  pg_pool_fill(s_terms, a.price, a.cap, a.occupied, a.m, threadIdx.x,
+               kThreads);
+  __syncthreads();
+  const PgPool pool = pg_pool_view(s_terms, a.occupied, a.m);
   const float* grid = a.grid;
   const float* cost = a.cost;
   const int m = a.m;
@@ -364,8 +372,15 @@ int launch_argmax(const void* sel, const void* lat_ok, const void* cap_ok,
 template <int kTeam>
 int launch_round(const RoundArgs* args, cudaStream_t stream) {
   constexpr int rows = kWarps / kTeam;
-  admission_round_kernel<kTeam><<<(args->T + rows - 1) / rows, kThreads, 0,
-                                  stream>>>(*args);
+  const size_t smem = sizeof(float) * pg_terms_floats(args->m);
+  if (smem > kTermsDefault) {  // a pool beyond ~1000 resources
+    const cudaError_t err = cudaFuncSetAttribute(
+        admission_round_kernel<kTeam>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  admission_round_kernel<kTeam><<<(args->T + rows - 1) / rows, kThreads,
+                                  smem, stream>>>(*args);
   return repro_last_error();
 }
 

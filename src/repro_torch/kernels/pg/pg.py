@@ -4,12 +4,22 @@ versions.
 Port of ``src/repro/kernels/pg/pg.py`` (the Pallas kernels) and
 ``src/repro/kernels/pg/ref.py`` (their oracles):
 
-* K1, :func:`batch_round` — one fused flexible round of the batched solve
-  (``csrc/pg_round.cu``; its design note explains the one-block-per-instance
-  layout that replaces the TPU's sequential T-block carry). Packed latency
-  words are ``int32`` tensors holding the reference's ``uint32`` bit pattern
-  (bit k of word w is allocation 32·w + k — ``greedy._pack_bits``); the
-  kernel reads them as ``uint32``.
+* K1, two entries of ``csrc/pg_round.cu`` over one word-parallel round
+  (its design note explains the layout that replaces the TPU's sequential
+  T-block carry):
+
+  - :func:`batch_solve` — the path's: ALL flexible rounds of a
+    :class:`~repro_torch.core.sfesp.DeviceStack`, coupled or not, to
+    convergence, in one launch (one thread-block cluster per coupling
+    group), counted in ``SOLVE_KERNEL``; its plain version
+    :func:`batch_solve_ref` is ``core/greedy.py``'s host loop over the
+    torch round.
+  - :func:`batch_round` — the Pallas kernel's contract, one round, counted
+    in ``ROUND_KERNEL``; on no path. Packed latency words are ``int32``
+    tensors holding the reference's ``uint32`` bit pattern (bit k of word w
+    is allocation 32·w + k — ``greedy._pack_bits``); the kernel reads them
+    as ``uint32``.
+
 * K2, two entries of ``csrc/masked_argmax.cu`` over one row reduction (one
   warp per task row): :func:`masked_argmax`, the Pallas kernel's contract
   (sel given), and :func:`bind_round`, the single-instance solve's whole
@@ -18,7 +28,9 @@ Port of ``src/repro/kernels/pg/pg.py`` (the Pallas kernels) and
 
 Each wrapper launches its kernel for CUDA tensors and computes its plain
 version (``*_ref``) for CPU tensors, and counts its launches on its
-:class:`~repro_torch.kernels._build.CudaKernel`.
+:class:`~repro_torch.kernels._build.CudaKernel`. No shape limit: any m
+(the gradient's pool terms sit in shared memory sized by m) and any A
+(what does not fit shared memory goes to a scratch read through L2).
 """
 
 from __future__ import annotations
@@ -30,22 +42,25 @@ import torch
 
 from .._build import CudaKernel, current_stream
 
-__all__ = ["ADMIT_KERNEL", "ARGMAX_KERNEL", "ROUND_KERNEL",
+__all__ = ["ADMIT_KERNEL", "ARGMAX_KERNEL", "ROUND_KERNEL", "SOLVE_KERNEL",
            "admission_round_ref", "batch_round", "batch_round_ref",
-           "bind_round", "masked_argmax", "masked_argmax_ref"]
+           "batch_solve", "batch_solve_ref", "bind_round", "masked_argmax",
+           "masked_argmax_ref", "solve_info"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 ROUND_KERNEL = CudaKernel(
     "pg_round.cu", "pg_round_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P])
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P])
+SOLVE_KERNEL = CudaKernel("pg_round.cu", "pg_solve_launch", [_P, _P])
 ARGMAX_KERNEL = CudaKernel(
     "masked_argmax.cu", "masked_argmax_launch",
     [_P, _P, _P, _P, _I, _I, _P, _P, _P])
 ADMIT_KERNEL = CudaKernel(
     "masked_argmax.cu", "admission_round_launch", [_P, _P])
-_MAX_M = 8                  # kPgMaxM in pg_grad.cuh
-_MAX_LANES = 48 * 1024 // 4  # (A,) f32 scores in default shared memory
+# a coupling group's cluster: min(the largest group, the portable size)
+CLUSTER_MAX = 8
+TRACE_POINTS = 5   # kTracePoints in csrc/pg_round.cu: stamps a traced round
 
 
 def batch_round_ref(lat_ok, alive, grid, price, cap, occupied):
@@ -88,14 +103,20 @@ def _check(lat_bits, alive, grid, price, cap, occupied):
         if x.dtype != torch.float32 or tuple(x.shape) != shape:
             raise TypeError(f"{name} must be float32 {shape}, got "
                             f"{x.dtype} {tuple(x.shape)}")
-    if not 1 <= m <= _MAX_M:
-        raise ValueError(f"m={m} outside the kernel's 1..{_MAX_M}")
-    if a > w * 32 or a > _MAX_LANES:
-        raise ValueError(f"A={a} does not fit W={w} words or shared memory")
+    if m < 1 or not 1 <= a <= w * 32:
+        raise ValueError(f"grid ({a}, {m}) does not fit W={w} words")
     dev = lat_bits.device
     for x in (alive, grid, price, cap, occupied):
         if x.device != dev:
             raise ValueError("batch_round inputs must share one device")
+
+
+@functools.lru_cache(maxsize=64)
+def _round_needs_scratch(t: int, w: int, a: int, m: int) -> bool:
+    fn = ROUND_KERNEL.library().pg_round_needs_scratch
+    fn.argtypes = [_I, _I, _I, _I]
+    fn.restype = _I
+    return bool(fn(t, w, a, m))
 
 
 def batch_round(lat_bits, alive, grid, price, cap, occupied):
@@ -108,8 +129,10 @@ def batch_round(lat_bits, alive, grid, price, cap, occupied):
       price, cap, occupied: (B, m) float32 — per-instance pool state.
 
     Returns ``(v (B,) f32, tau (B,) i32, best_a (B,) i32)``. A CUDA tensor
-    launches ``csrc/pg_round.cu`` (counted in ``ROUND_KERNEL.launches``); a
-    CPU tensor computes :func:`batch_round_ref` on the unpacked bits.
+    launches ``csrc/pg_round.cu``'s one-round entry (counted in
+    ``ROUND_KERNEL.launches``; where the (A,) scores do not fit shared
+    memory they go to a (B, A) scratch); a CPU tensor computes
+    :func:`batch_round_ref` on the unpacked bits.
     """
     _check(lat_bits, alive, grid, price, cap, occupied)
     if lat_bits.device.type == "cpu":
@@ -125,11 +148,185 @@ def batch_round(lat_bits, alive, grid, price, cap, occupied):
     v = price.new_empty(b)
     tau = bits.new_empty(b)
     best_a = bits.new_empty(b)
+    scratch = price.new_empty((b, a)) if _round_needs_scratch(t, w, a, m) \
+        else None
     ROUND_KERNEL(bits.data_ptr(), alive.data_ptr(), grid.data_ptr(),
                  price.data_ptr(), cap.data_ptr(), occupied.data_ptr(),
                  b, t, w, a, m, v.data_ptr(), tau.data_ptr(),
-                 best_a.data_ptr(), current_stream(bits.get_device()))
+                 best_a.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
+                 current_stream(bits.get_device()))
     return v, tau, best_a
+
+
+# ------------------------------------------------- K1's whole batched solve
+
+def batch_solve_ref(stack):
+    """Plain version of :func:`batch_solve`: ``core/greedy.py``'s host loop
+    over the torch round (``_batch_solve`` / ``_batch_solve_coupled``,
+    ``flexible=True``) on the stack's tensors. Returns ``(admitted (B', T)
+    bool, alloc_idx (B', T) int32, occupied (B', m) f32, used (L,) f32 or
+    None, rounds)``, ``rounds`` a one-element int32 tensor: the loop's
+    rounds, a multiple of its convergence test's period."""
+    from ...core import greedy
+
+    (lat_ok, grid, price, cap, alive0, cost,
+     load, link_cap, incidence, group) = stack.inputs()
+    if stack.coupled:
+        admitted, alloc_idx, occupied, used, rounds, _ = \
+            greedy._batch_solve_coupled(lat_ok, grid, price, cap, alive0,
+                                        cost, load, link_cap, incidence,
+                                        group, flexible=True)
+    else:
+        admitted, alloc_idx, occupied, rounds, _ = greedy._batch_solve(
+            lat_ok, grid, price, cap, alive0, cost, flexible=True)
+        used = None
+    return (admitted, alloc_idx, occupied, used,
+            torch.tensor([rounds], dtype=torch.int32, device=grid.device))
+
+
+class _SolveArgs(ctypes.Structure):
+    """``SolveArgs`` of ``csrc/pg_round.cu``, field for field."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "lat_ok", "alive0", "load", "grid", "price", "cap", "link_cap",
+        "grp_rows", "grp_off", "lnk_ids", "lnk_off", "cell_lnk",
+        "cell_lnk_off", "admitted", "alloc_idx", "occupied", "used",
+        "rounds", "score_scratch", "word_scratch", "info", "trace")] + [
+        (name, ctypes.c_int) for name in (
+            "B", "T", "A", "m", "W", "G", "coupled", "cluster",
+            "max_members", "max_links", "max_cell_links", "trace_rounds")]
+
+
+_INFO = ("smem_bytes", "cluster", "cells_per_cta", "place",
+         "max_active_clusters", "blocks", "registers", "local_bytes",
+         "static_smem_bytes", "smem_budget")
+_info = (ctypes.c_longlong * 12)()
+
+
+def solve_info() -> dict:
+    """The plan of the last :func:`batch_solve` launch (or plan), as the
+    launcher wrote it: dynamic shared memory, cluster size, cells a CTA,
+    what sits in shared memory (``place``: 1 scores, 2 words, 4 grid), the
+    clusters that fit at once, blocks, and the kernel's registers, local
+    (spill) bytes and static shared memory."""
+    return {k: int(v) for k, v in zip(_INFO, _info)}
+
+
+def _solve_args(stack):
+    (lat_ok, grid, price, cap, alive0, _, load, link_cap,
+     _, _) = stack.inputs()
+    rows, t, a = lat_ok.shape
+    m = grid.shape[1]
+    csr = stack.group_csr
+    if stack.coupled and csr is None:
+        raise ValueError("a coupled stack needs its group_csr")
+    for name, x, dtype in (("lat_ok", lat_ok, torch.bool),
+                           ("alive0", alive0, torch.bool),
+                           ("load", load, torch.float32),
+                           ("grid", grid, torch.float32),
+                           ("price", price, torch.float32),
+                           ("capacity", cap, torch.float32)):
+        if x.dtype != dtype or not x.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous {dtype} tensor")
+    args = _SolveArgs()
+    ptrs = dict(lat_ok=lat_ok, alive0=alive0, load=load, grid=grid,
+                price=price, cap=cap)
+    if stack.coupled:
+        ptrs.update(link_cap=link_cap, grp_rows=csr.rows,
+                    grp_off=csr.offsets, lnk_ids=csr.links,
+                    lnk_off=csr.link_offsets, cell_lnk=csr.cell_links,
+                    cell_lnk_off=csr.cell_link_offsets)
+    for name, x in ptrs.items():
+        setattr(args, name, x.data_ptr())
+    args.info = ctypes.addressof(_info)
+    args.B, args.T, args.A, args.m, args.W = rows, t, a, m, -(-a // 32)
+    args.coupled = int(stack.coupled)
+    args.G = csr.num_groups if stack.coupled else rows
+    args.max_members = csr.max_members if stack.coupled else 1
+    args.max_links = csr.max_links if stack.coupled else 0
+    args.max_cell_links = csr.max_cell_links if stack.coupled else 0
+    args.cluster = min(CLUSTER_MAX, args.max_members) if stack.coupled else 1
+    return args
+
+
+@functools.lru_cache(maxsize=64)
+def _solve_place(key) -> int:
+    """Placement bits of the solve's plan for a shape (``pg_solve_plan``):
+    what the launch keeps in shared memory, hence which scratch it needs."""
+    (rows, t, a, m, coupled, cluster, max_members, max_links,
+     max_cell_links) = key
+    args = _SolveArgs(info=ctypes.addressof(_info), B=rows, T=t, A=a, m=m,
+                      W=-(-a // 32), G=1, coupled=coupled, cluster=cluster,
+                      max_members=max_members, max_links=max_links,
+                      max_cell_links=max_cell_links)
+    fn = SOLVE_KERNEL.library().pg_solve_plan
+    fn.argtypes = [_P]
+    fn.restype = _I
+    code = fn(ctypes.addressof(args))
+    if code != 0:
+        raise RuntimeError(f"pg_solve_plan: CUDA error {code}")
+    return int(_info[3])
+
+
+def batch_solve(stack, *, trace=None):
+    """All flexible admission rounds of a stacked batch, to convergence.
+
+    ``stack`` is a :class:`~repro_torch.core.sfesp.DeviceStack`, coupled or
+    not. Returns ``(admitted (B', T) bool, alloc_idx (B', T) int32,
+    occupied (B', m) f32, used (L,) f32 or None, rounds)``: the final state
+    of ``greedy._batch_solve`` / ``_batch_solve_coupled`` with
+    ``flexible=True``, bit for bit. On CUDA tensors it is one launch of
+    ``csrc/pg_round.cu``'s solve entry (counted in
+    ``SOLVE_KERNEL.launches``), a cluster of min(``CLUSTER_MAX``, the
+    largest group) CTAs per coupling group, and ``rounds`` is each group's
+    round count (G,) int32; nothing waits on the device. On CPU tensors it is
+    :func:`batch_solve_ref`. A launch the card refuses (a cluster whose
+    shared memory does not fit) raises with the launch plan; there is no
+    other route.
+
+    ``trace`` (a diagnostic, CUDA only): an int64 tensor of 2 + 5·R
+    elements on the card that receives CTA 0's ``%globaltimer`` (ns) at
+    entry, after the prologue, and in each of its first R rounds at its
+    start, after the candidates' barrier, before and after the group's
+    pick (cluster barrier and reduction) and after the admission.
+    """
+    lat_ok = stack.lat_ok
+    if lat_ok.device.type == "cpu":
+        return batch_solve_ref(stack)
+    if lat_ok.device.type != "cuda":
+        raise ValueError(f"unsupported device {lat_ok.device}")
+    args = _solve_args(stack)
+    rows, t, a, m = args.B, args.T, args.A, args.m
+    place = _solve_place((rows, t, a, m, args.coupled, args.cluster,
+                          args.max_members, args.max_links,
+                          args.max_cell_links))
+    grid = stack.grid
+    admitted = torch.empty((rows, t), dtype=torch.bool, device=grid.device)
+    alloc_idx = torch.empty((rows, t), dtype=torch.int32, device=grid.device)
+    occupied = grid.new_empty((rows, m))
+    rounds = alloc_idx.new_empty(args.G)
+    used = torch.zeros_like(stack.link_cap) if stack.coupled else None
+    outs = dict(admitted=admitted, alloc_idx=alloc_idx, occupied=occupied,
+                rounds=rounds)
+    if used is not None:
+        outs["used"] = used
+    if not place & 1:
+        outs["score_scratch"] = grid.new_empty((rows, 3 * a))
+    if not place & 2:
+        outs["word_scratch"] = alloc_idx.new_empty((rows, t, args.W))
+    if trace is not None:
+        if trace.dtype != torch.int64 or trace.device != grid.device \
+                or trace.numel() < 2:
+            raise TypeError("trace must be an int64 tensor on the card")
+        outs["trace"] = trace
+        args.trace_rounds = (trace.numel() - 2) // TRACE_POINTS
+    for name, x in outs.items():
+        setattr(args, name, x.data_ptr())
+    try:
+        SOLVE_KERNEL(ctypes.addressof(args), current_stream(grid.get_device()))
+    except RuntimeError as e:
+        raise RuntimeError(f"{e}; launch plan {solve_info()}") from None
+    return admitted, alloc_idx, occupied, used, rounds
 
 
 # ------------------------------------------------------------------- K2
@@ -286,9 +483,9 @@ def _check_round(state, lat_ok, grid, price, cap, cost):
         raise TypeError("lat_ok must be (T, A) and grid (A, m)")
     t, a = lat_ok.shape
     m = grid.shape[1]
-    if a < 1 or grid.shape[0] != a or not 1 <= m <= _MAX_M:
-        raise ValueError(f"grid {tuple(grid.shape)} does not fit A={a} or "
-                         f"m outside 1..{_MAX_M}")
+    if a < 1 or grid.shape[0] != a or m < 1:
+        raise ValueError(f"grid {tuple(grid.shape)} does not fit A={a} "
+                         "(or has no resource)")
     for name, x, dtype, shape in (
             ("lat_ok", lat_ok, torch.bool, (t, a)),
             ("grid", grid, torch.float32, (a, m)),

@@ -1,8 +1,8 @@
 """Port of ``src/repro/serving/admission.py``: the Semantic Edge Slicing
 Module (SESM) — the Near-real-time RIC xApp.
 
-Runs the SF-ESP greedy (core.greedy; on a CUDA device the batched solve's
-flexible rounds run K1 and the single-cell solve's rounds run K2) over the
+Runs the SF-ESP greedy (core.greedy; on a CUDA device a batched flexible
+solve is one K1 launch and the single-cell solve's rounds run K2) over the
 current request set + edge status and emits the three-fold output of
 paper Section III-B: (i) admitted tasks, (ii) per-task compression level,
 (iii) per-task resource slices. Re-slicing is full (new and running tasks are
@@ -37,9 +37,10 @@ class PendingSolve:
     Returned by ``SESM.solve_slots(..., wait=False)``: the device program is
     launched and the host mirrors it unpacks against are snapshotted (the
     back buffer), so the serving loop can keep mutating its slot tables —
-    ingesting tick N+1's events — while tick N solves. :meth:`wait` blocks
-    on the device result exactly once and returns the per-cell decisions;
-    repeat calls return the same list.
+    ingesting tick N+1's events — while tick N solves (on the card the
+    flexible solve is one kernel launch, so it really runs meanwhile).
+    :meth:`wait` blocks on the device result exactly once and returns the
+    per-cell decisions; repeat calls return the same list.
     """
 
     def __init__(self, resolve):
@@ -299,9 +300,13 @@ class SESM:
         ``DeviceStack.update_semantics``). Swapping in a DIFFERENT coupling
         or model object is a rebuild.
 
-        The admission rounds run as the solve is dispatched (see
-        ``core.greedy.dispatch_device_batch``); ``wait=False`` defers the
-        read-back and the unpack of the decisions.
+        On the card the flexible solve is dispatched as one launch of K1's
+        solve (``core.greedy.dispatch_device_batch``), with no host sync,
+        so with ``wait=False`` the device solves tick N while the host goes
+        on (ingesting tick N+1's events); only the read-back and the unpack
+        wait. The host loop of the torch rounds (MinRes, ``inner="torch"``,
+        the CPU) runs to convergence before the dispatch returns, and then
+        ``wait=False`` defers only the read-back and the unpack.
 
         ``wait=False`` returns a :class:`PendingSolve` instead of decisions:
         the dirty rows are consumed, the device program launches, and the

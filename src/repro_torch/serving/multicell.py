@@ -45,8 +45,8 @@ Cache lifecycle (what persists across ticks, and what invalidates it):
   / pools identity / SDLA latency scale changes.
 
 The engine runs on one ``device`` (``"cuda"`` by default): the serve
-session's tables live there, the re-slice's admission rounds run there (K1
-on a card) and so do the cells' vision jobs (K3). The reference's METRO mode
+session's tables live there, the re-slice's admission solve runs there (one
+K1 launch on a card) and so do the cells' vision jobs (K3). The reference's METRO mode
 (a mesh-resident sharded session) is not ported yet.
 
 FAULT PLANE. The engine degrades gracefully instead of assuming healthy

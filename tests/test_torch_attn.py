@@ -113,8 +113,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     if bad == "gqa":
         args, err = (q, k, k), ValueError
     elif bad == "dh":
-        big = torch.zeros(1, 4, 2, 264)
-        args, err = (big, big, big), ValueError
+        # the plain version takes any width; the kernels stop at Dh 512
+        wide = torch.zeros(1, 4, 2, 520)
+        with pytest.raises(ValueError, match="520"):
+            PA.launch("cuda_cores", wide, wide, wide)
+        empty = torch.zeros(1, 4, 2, 0)
+        args, err = (empty, empty, empty), ValueError
     elif bad == "dtype":
         h = torch.zeros(1, 4, 2, 8, dtype=torch.float16)
         args, err = (h, h, h), TypeError

@@ -42,7 +42,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,a,m", [(1, 1, 1, 2), (5, 37, 97, 2),
-                                     (4, 26, 129, 4), (64, 32, 300, 2)])
+                                     (4, 26, 129, 4), (64, 32, 300, 2),
+                                     (3, 7, 2560, 9), (2, 5, 19200, 4)])
 def test_round_kernel_matches_plain_on_card(b, t, a, m, cuda_device, rng):
     ins = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
            for x in _random_round(rng, b, t, a, m)]
@@ -177,6 +178,120 @@ def test_resize_kernel_matches_plain_on_card(dtype, cuda_device, rng):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("flexible", [True, False])
+def test_admission_round_kernel_at_m9_on_card(flexible, cuda_device):
+    """K2's round at nine resources (the m = 4 numerical pool plus five unit
+    resources, A = 2560): every round bitwise its plain version."""
+    from repro_torch.core import ResourcePool, build_instance, scenarios
+    p4 = scenarios.numerical_pool(4)
+    pool = ResourcePool(
+        names=p4.names + tuple(f"unit{i}" for i in range(5)),
+        capacity=np.concatenate([p4.capacity, np.full(5, 12.0)]),
+        price=np.concatenate([p4.price, np.full(5, 1 / 12)]),
+        levels=tuple(p4.levels) + (np.array([1.0]),) * 4
+        + (np.array([1.0, 2.0]),))
+    inst = build_instance(pool, scenarios.numerical_tasks(30, "med", "high",
+                                                          seed=3))
+    assert inst.grid.shape == (2560, 9)
+    assert _round_on_card(inst, True, flexible, cuda_device) > 2
+
+
+def _solve_stack(rng, b, t, a, m, dev, group=8, coupled=True):
+    """A random DeviceStack for K1's solve with planted ties (duplicated
+    lanes, all-zero prices, duplicated task rows), cells with nothing
+    feasible or nothing alive; coupled: contiguous groups of ``group`` cells
+    on one link each, and a second link per half group (``group`` = 0: one
+    group of 20 cells, the rest uncoupled singletons)."""
+    from repro_torch.core import CouplingSpec
+    from repro_torch.core.sfesp import (DeviceStack, group_csr,
+                                        lexicographic_cost)
+    grid = rng.integers(1, 16, (a, m)).astype(np.float32)
+    grid[a // 2:a // 2 + 8] = grid[:8]
+    price = rng.uniform(0.02, 0.2, (b, m)).astype(np.float32)
+    price[::7] = 0.0
+    cap = rng.integers(8, 30, (b, m)).astype(np.float32)
+    lat = rng.random((b, t, a)) < 0.2
+    lat[1::5, 1::2] = lat[1::5, 0::2][:, :t // 2]
+    lat[3::11] = False
+    alive0 = lat.any(2) & (rng.random((b, t)) < 0.9)
+    alive0[5::13] = False
+    load = rng.uniform(0.05, 0.5, (b, t)).astype(np.float32)
+    link = dict(link_cap=None, incidence=None, group=None, group_csr=None)
+    if coupled:
+        if group:
+            n = b // group
+            inc = np.zeros((b, n + 2 * n), bool)
+            inc[np.arange(b), np.arange(b) // group] = True
+            inc[np.arange(b), n + np.arange(b) // max(1, group // 2)] = True
+        else:
+            inc = np.zeros((b, 1), bool)
+            inc[:20, 0] = True
+        budgets = rng.uniform(0.5, 2.0, inc.shape[1]) * inc.sum(0)
+        groups = CouplingSpec(budgets, inc).groups()
+        link = dict(link_cap=torch.tensor(budgets, dtype=torch.float32,
+                                          device=dev),
+                    incidence=torch.from_numpy(inc).to(dev),
+                    group=torch.from_numpy(groups).to(dev),
+                    group_csr=group_csr(inc, groups, dev))
+    f32 = (lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(
+        dev, torch.float32))
+    return DeviceStack(grid=f32(grid), cost=f32(lexicographic_cost(grid)),
+                       price=f32(price), capacity=f32(cap),
+                       lat_ok=torch.from_numpy(lat).to(dev),
+                       alive0=torch.from_numpy(alive0).to(dev),
+                       link_load=f32(load), semantic=True, batch_size=b,
+                       **link)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what,b,t,a,m,group,coupled", [
+    ("groups of 8", 64, 32, 300, 2, 8, True),
+    ("group of 20 + singletons", 40, 16, 300, 2, 0, True),
+    ("uncoupled", 24, 32, 300, 2, 8, False),
+    ("m = 9", 16, 16, 2560, 9, 4, True),
+    ("A = 19200", 8, 8, 19200, 4, 4, True)])
+def test_batch_solve_matches_plain_on_card(what, b, t, a, m, group, coupled,
+                                           cuda_device, rng):
+    """K1's whole solve in one launch against its plain version (the host
+    loop over the torch round) on the card: admitted, alloc_idx, occupied
+    and the link budget used bit for bit; the loop's round count is the
+    kernel's largest group count rounded up to the loop's period."""
+    dev = _solve_stack(rng, b, t, a, m, cuda_device, group, coupled)
+    before = PK.SOLVE_KERNEL.launches
+    out = PK.batch_solve(dev)
+    ref = PK.batch_solve_ref(dev)
+    torch.cuda.synchronize()
+    assert PK.SOLVE_KERNEL.launches == before + 1
+    for name, x, y in zip(("admitted", "alloc_idx", "occupied", "used"),
+                          out[:4], ref[:4]):
+        if y is None:
+            assert x is None
+            continue
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), f"{what}: {name}"
+    period = G._SYNC_EVERY
+    assert int(ref[4][0]) == period * -(-int(out[4].max()) // period)
+    assert out[0].any()
+
+
+@pytest.mark.cuda
+def test_flexible_dispatch_is_one_solve_launch_on_card(cuda_device, rng):
+    """On the card a flexible batched solve is one ``batch_solve`` launch,
+    no one-round launch, one host sync (the read-back), and decides as the
+    ``inner="torch"`` twin."""
+    dev = _solve_stack(rng, 64, 32, 300, 2, cuda_device)
+    solve, rnd = PK.SOLVE_KERNEL.launches, PK.ROUND_KERNEL.launches
+    got = G.solve_device_batch(dev)
+    assert PK.SOLVE_KERNEL.launches == solve + 1
+    assert PK.ROUND_KERNEL.launches == rnd
+    assert got["syncs"] == 1
+    want = G.solve_device_batch(dev, inner="torch")
+    for key in ("admitted", "alloc_idx", "residual", "link_used"):
+        assert np.array_equal(got[key], want[key]), key
+
+
+@pytest.mark.cuda
 def test_kernels_launch_on_the_callers_stream_on_card(cuda_device, rng):
     """A launch made while a side stream is current runs on that stream:
     queued behind a sleep and a copy on the side stream, K3 and the round
@@ -256,6 +371,29 @@ def test_flash_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh, causal,
     else:
         assert torch.allclose(out.float(), ref.float(), rtol=2 ** -7,
                               atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_wide_heads_on_card(dtype, cuda_device, rng):
+    """Dh = 320 goes to the CUDA-core kernel's Dh <= 512 tile in both
+    types (the tensor-core tiles stop at 256), within 2e-5 (f32) and rtol
+    2^-7, atol 3e-2 (bf16 in and out); Dh = 520 raises."""
+    from repro_torch.kernels.attn import attn as PA
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, dtype)
+               for s in ((2, 77, 8, 320), (2, 77, 4, 320), (2, 77, 4, 320)))
+    ref = PA.flash_attention_fwd_ref(q, k, v)
+    before = PA.FLASH_CORE_KERNEL.launches
+    out = PA.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert PA.FLASH_CORE_KERNEL.launches == before + 1
+    tol = (0, 2e-5) if dtype == torch.float32 else (2 ** -7, 3e-2)
+    assert torch.allclose(out.float(), ref.float(), rtol=tol[0],
+                          atol=tol[1])
+    wide = torch.zeros(1, 4, 2, 520, device=cuda_device, dtype=dtype)
+    with pytest.raises(ValueError, match="520"):
+        PA.flash_attention_fwd(wide, wide, wide)
 
 
 @pytest.mark.cuda

@@ -94,7 +94,7 @@ def _check_round(lat, alive, grid, price, cap, occ):
                                    j[4], a))
     jv, jt, ja = (np.asarray(x) for x in jr(j[5], j[1]))
     tv, tt, ta = (x.numpy() for x in G._flex_round_fn(
-        "torch", words, p[2], p[3], p[4], a)(p[5], p[1]))
+        words, p[2], p[3], p[4], a)(p[5], p[1]))
     assert (_bits(tv) == _bits(v0)).all()
     assert (tt == jt).all() and (ta == ja).all()
 

@@ -186,11 +186,14 @@ def test_bind_round_checks_its_inputs():
     with pytest.raises(TypeError, match="alive"):
         PK.bind_round(state[:3] + (state[3].to(torch.uint8),), *tables,
                       flexible=True)
-    with pytest.raises(ValueError, match="m outside"):
-        wide = torch.zeros(20, 9)
-        PK.bind_round(state[:2] + (torch.zeros(9),) + state[3:], tables[0],
-                      wide, torch.zeros(9), torch.zeros(9), tables[4],
+    with pytest.raises(ValueError, match="does not fit"):
+        PK.bind_round(state, tables[0], tables[1][:-1], *tables[2:],
                       flexible=True)
+    # any m: nine resources bind (the kernel's pool terms are sized by m)
+    wide = torch.ones(20, 9)
+    PK.bind_round(state[:2] + (torch.zeros(9),) + state[3:], tables[0],
+                  wide, torch.ones(9), torch.full((9,), 4.0), tables[4],
+                  flexible=True)()
     before = PK.ADMIT_KERNEL.launches
     PK.bind_round(state, *tables, flexible=True)()
     assert PK.ADMIT_KERNEL.launches == before      # the CPU runs no kernel
