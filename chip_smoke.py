@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch port on one NVIDIA card: ``python3 chip_smoke.py``.
 
 Drives the port (``src/repro_torch``, never the JAX package) through its
-three slices on the card — the multi-cell serving tick, the paper's
-single-instance evaluation and the serving engine's LM-service jobs — and
+slices on the card — the multi-cell serving tick, the paper's
+single-instance evaluation, the serving engine's LM-service jobs and the
+metro-scale sharded solve with its mesh-resident serving session — and
 holds every hand-written kernel of those paths against its plain PyTorch
 version:
 
@@ -101,7 +102,29 @@ version:
    breakdown of each wrapper's steps; K4 on both kernels at the LM job's
    shape and at (2, 2048), with the tensor-core kernel's ptxas report and
    launch configuration — and prints the ``{"kernels": [...]}`` line, the
-   card's name and power limit, and finally the ``{"ok": true, ...}`` line.
+   card's name and power limit, and finally the ``{"ok": true, ...}`` line;
+11. SLICE 7'S MAIN PATH, the sharded metro solve (run after phase 7): the
+   1024-cell day (``metro_diurnal_trace(1024, n_domains=64)``, 24576
+   coupled rows in 1536 groups of 16, stacked group-major at Tmax 32)
+   through ``solve_greedy_sharded`` over ``make_cells_mesh(n,
+   devices=[card])`` for n = 1, 3, 7 and 8 (7 shards pad the plan with
+   inert rows, 1, 3 and 8 do not), counts zeroed before each n and
+   read after: one ``batch_solve`` launch and one host sync a solve, no
+   one-round launch; decisions bit for bit those of the meshless
+   ``solve_greedy_batch`` and of its ``inner="torch"`` twin, four sampled
+   (hour, domain) groups against ``solve_coupled_ref``; ms a solve, K1's
+   device time, bound and cluster count for each n, and K1 against its
+   plain version on the 8-shard stack;
+12. SLICE 7'S MAIN PATH, the metro serving engine: phase 6's 256-cell
+   layout with 4 standing requests a cell on ``make_cells_mesh(8,
+   devices=[card])`` beside a meshless twin on the card, through
+   ``drive_closed_loop(horizon=8, process=True)``, an outage and recovery,
+   ``set_link_budgets(scale=0.6)`` and ``shift_semantics(scale=0.8)``,
+   counts zeroed before and read after (one ``batch_solve`` launch a
+   re-slice, K3 on the vision jobs): decisions equal at every tick,
+   ``shard_replans == fresh_stacks``, the twin's session counters, a
+   steady tick with no dirty row, replan or second launch; re-slice ms a
+   tick for both and one steady metro tick under ``torch.profiler``.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -144,6 +167,11 @@ FIG7_ALGOS = {"sem-o-ran": dict(semantic=True, flexible=True),
 TIE_RTOL = 1e-6
 MIX = [("coco_bags", 0.35, 8.0), ("coco_animals", 0.50, 6.0),
        ("cityscapes_flat", 0.35, 5.0), ("coco_person", 0.20, 5.0)]
+# slice 7: the metro day solved over 1, 3 and 8 shards of one card (and 7,
+# whose uneven split pads shards with inert rows), and the metro serving
+# engine's standing requests a cell
+METRO_CELLS, METRO_DOMAINS, METRO_SHARDS = 1024, 64, (1, 3, 7, 8)
+METRO_STANDING = 4
 # K4 checks: (B, Tq, Tk, Hq, Hkv, Dh, causal)
 K4_SHAPES = ((8, 16, 16, 32, 2, 128, True), (2, 2048, 2048, 32, 2, 128, True),
              (1, 1000, 1000, 32, 2, 128, True), (2, 77, 77, 32, 8, 120, True),
@@ -765,7 +793,10 @@ def phase_metro_solve(dev, stacked):
 
 # --------------------------------------------------------------- phase 6
 
-def make_engine(dev, inner):
+def make_engine(dev, inner, mesh=None, standing=STANDING):
+    """The 256-cell engine of ``benchmarks/sweep_perf.py:262`` with
+    ``standing`` requests a cell from MIX; ``mesh`` puts it in metro mode
+    (a mesh-resident session, the solve split over the mesh's shards)."""
     import numpy as np
     from repro_torch.core import CouplingSpec, scenarios
     from repro_torch.serving import MultiCellEngine, SliceRequest
@@ -775,10 +806,10 @@ def make_engine(dev, inner):
     inc[np.arange(N_CELLS), domain] = True
     budgets = np.bincount(domain, minlength=N_DOMAINS) * BACKHAUL_PER_CELL
     eng = MultiCellEngine(pools, coupling=CouplingSpec(budgets, inc),
-                          max_retries=3, device=dev)
+                          max_retries=3, device=dev, mesh=mesh)
     eng.sesm.inner = inner
     for c in range(N_CELLS):
-        for i in range(STANDING):
+        for i in range(standing):
             app, acc, fps = MIX[i % len(MIX)]
             eng.submit(SliceRequest("object-recognition", "yolox", app,
                                     max_latency_s=0.7, min_accuracy=acc,
@@ -1425,6 +1456,307 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T):
         f"{100 * k4_us / wall_us:.1f} % of the wall time")
 
 
+# --------------------------------------------------------------- phase 11
+
+def metro_day(cells, domains):
+    """The metro day (``metro_diurnal_trace(cells, n_domains=domains)``,
+    24 hours) stacked group-major at a pow2 Tmax, as
+    ``solve_greedy_sharded`` stacks it."""
+    from repro_torch.core import next_pow2, scenarios, stack_instances
+    t0 = time.perf_counter()
+    insts, meta = scenarios.metro_diurnal_trace(cells, n_domains=domains)
+    natural = max(i.num_tasks for i in insts)
+    stacked = stack_instances(insts, group_major=True,
+                              tmax=next_pow2(natural))
+    log(f"[sharded] metro day {cells} cells x 24 h: {stacked.batch_size} "
+        f"rows, {stacked.num_groups} coupling groups, "
+        f"{int(stacked.task_mask.sum())} tasks, Tmax {natural} -> "
+        f"{stacked.max_tasks}, built in {time.perf_counter() - t0:.1f} s")
+    return insts, meta, stacked
+
+
+def same_solutions(want, got, what: str) -> None:
+    import numpy as np
+    for i, (a, b) in enumerate(zip(want, got)):
+        if not (np.array_equal(a.admitted, b.admitted)
+                and np.array_equal(a.alloc, b.alloc)
+                and np.array_equal(a.z, b.z)):
+            raise AssertionError(f"{what}: instance {i} decides otherwise")
+    if len(want) != len(got):
+        raise AssertionError(f"{what}: {len(got)} solutions, not "
+                             f"{len(want)}")
+
+
+def phase_sharded_solve(dev, cells=METRO_CELLS, domains=METRO_DOMAINS,
+                        shards=METRO_SHARDS, reps=3):
+    """SLICE 7'S MAIN PATH, the sharded metro solve: ``solve_greedy_sharded``
+    over ``make_cells_mesh(n, devices=[card])`` for each n, decisions bit
+    for bit those of the meshless ``solve_greedy_batch`` (K1) and of its
+    ``inner="torch"`` twin, sampled coupling groups against
+    ``solve_coupled_ref``; one ``batch_solve`` launch and one host sync a
+    solve, no one-round launch (counts zeroed before each n, read after).
+    Returns {n: ms a solve, K1 device us, clusters, launches}."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (device_stack, device_stack_sharded,
+                                  solve_coupled_ref, solve_greedy_batch,
+                                  solve_greedy_sharded)
+    from repro_torch.core.greedy import _to_input_order
+    from repro_torch.kernels.pg import pg as PK
+    from repro_torch.launch.mesh import make_cells_mesh
+    insts, meta, stacked = metro_day(cells, domains)
+    t0 = time.perf_counter()
+    want = _to_input_order(stacked, solve_greedy_batch(
+        stacked, inner="kernel", device=dev))
+    meshless_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    twin = _to_input_order(stacked, solve_greedy_batch(
+        stacked, inner="torch", device=dev))
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    same_solutions(want, twin, "meshless solve, kernel vs torch round")
+    admitted = sum(int(s.admitted.sum()) for s in want)
+    log(f"[sharded] meshless: {admitted} admitted; first solve "
+        f"{meshless_ms:.1f} ms (upload included), torch twin "
+        f"{twin_ms:.1f} ms; equal")
+    rng = np.random.default_rng(5)
+    steps = sorted({m["step"] for m in meta})
+    for step, domain in zip(rng.choice(steps, 4, replace=False),
+                            rng.choice(domains, 4, replace=False)):
+        idxs = [i for i, m in enumerate(meta)
+                if m["step"] == step and m["domain"] == domain]
+        for i, ref in zip(idxs, solve_coupled_ref([insts[i]
+                                                   for i in idxs])):
+            if not np.array_equal(want[i].admitted, ref.admitted):
+                raise AssertionError(f"sharded: cell {i} (hour {step}, "
+                                     f"domain {domain}) against "
+                                     "solve_coupled_ref")
+        log(f"[sharded] hour {step} domain {domain}: {len(idxs)} cells "
+            "equal to solve_coupled_ref")
+    out = {}
+    for n in shards:
+        mesh = make_cells_mesh(n, devices=[dev])
+        PK.SOLVE_KERNEL.launches = 0
+        PK.ROUND_KERNEL.launches = 0
+        with SolveLog() as solves:
+            t0 = time.perf_counter()
+            got = solve_greedy_sharded(stacked, mesh=mesh)      # + upload
+            first = (time.perf_counter() - t0) * 1e3
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = solve_greedy_sharded(stacked, mesh=mesh)
+                times.append((time.perf_counter() - t0) * 1e3)
+        solves.check_one_launch_each(f"sharded solve, {n} shards")
+        if solves.solve != reps + 1 or PK.SOLVE_KERNEL.launches != reps + 1:
+            raise AssertionError(f"sharded solve, {n} shards: "
+                                 f"{solves.solve} launches for {reps + 1} "
+                                 "solves")
+        same_solutions(want, got, f"sharded solve, {n} shards")
+        stack = device_stack(stacked, device=dev) if n == 1 \
+            else device_stack_sharded(stacked, mesh).stacks[0]
+        dus = device_us(lambda: PK.batch_solve(stack), "pg_solve_kernel",
+                        iters=5)
+        info = PK.solve_info()
+        clusters = stack.group_csr.num_groups
+        bound, by = bound_of(*solve_work(stack, PK.batch_solve(stack)))
+        out[n] = dict(ms=float(np.median(times)), first_ms=first,
+                      device_ms=None if dus is None else dus / 1e3,
+                      bound_ms=bound, bound_by=by,
+                      clusters=clusters, rows=int(stack.lat_ok.shape[0]),
+                      cluster=info["cluster"], launches=solves.solve,
+                      rounds=solves.results[-1][0])
+        log(f"[sharded] {n} shard(s) on one card: {stack.lat_ok.shape[0]} "
+            f"rows ({stack.lat_ok.shape[0] - stacked.batch_size} inert), "
+            f"{clusters} clusters of {info['cluster']} CTAs, K1 bound "
+            f"{bound * 1e3:.1f} us ({by}); "
+            f"ms/solve median {np.median(times):.2f} (all "
+            f"{[round(t, 2) for t in times]}; first {first:.1f} with the "
+            f"upload); K1 device {fmt_us(dus)}; rounds "
+            f"{solves.results[-1][0]}; {solves.solve} batch_solve launches "
+            f"for {len(solves.results)} solves; decisions equal")
+        if n == max(shards):
+            check_solve(stack, f"metro {cells}-cell day, {n} shards")
+    del stacked, insts
+    return out
+
+
+# --------------------------------------------------------------- phase 12
+
+def fault_ticks(eng):
+    """Outage, recovery, budget drift and semantic drift, each followed by
+    a re-slice; returns each re-slice's (admitted, z) per cell."""
+    def decided(out):
+        return [[(d.admitted, d.z) for d in ds] for ds in out]
+    cell = N_CELLS // 3
+    steps = []
+    eng.fail_cell(cell)
+    steps.append(decided(eng.reslice()))
+    eng.recover_cell(cell)
+    steps.append(decided(eng.reslice()))
+    eng.set_link_budgets(scale=0.6)
+    steps.append(decided(eng.reslice()))
+    eng.shift_semantics(scale=0.8)
+    steps.append(decided(eng.reslice()))
+    return steps
+
+
+def session_counters(sesm):
+    return dict(fresh_stacks=sesm.fresh_stacks,
+                session_rebuilds=sesm.session_rebuilds,
+                delta_rows=sesm.delta_rows, link_updates=sesm.link_updates,
+                semantic_updates=sesm.semantic_updates,
+                shard_replans=sesm.shard_replans)
+
+
+def phase_metro_serving(dev, shards=8, standing=METRO_STANDING):
+    """SLICE 7'S MAIN PATH, the metro serving engine: the 256-cell engine
+    of ``benchmarks/sweep_perf.py:262-275`` (``standing`` requests a cell)
+    on ``make_cells_mesh(shards, devices=[card])`` beside a meshless twin
+    on the same card, through ``drive_closed_loop(horizon=8,
+    process=True)``, an outage and recovery, budget and semantic drift;
+    decisions equal at every tick, the counters as the twin's, one
+    ``batch_solve`` launch and one host sync a re-slice (counts zeroed
+    before, read after)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sfesp import ShardedStack
+    from repro_torch.kernels.pg import pg as PK
+    from repro_torch.kernels.resize import resize as PR
+    from repro_torch.launch.mesh import make_cells_mesh
+    metro = make_engine(dev, None, mesh=make_cells_mesh(shards,
+                                                        devices=[dev]),
+                        standing=standing)
+    twin = make_engine(dev, None, standing=standing)
+    PK.SOLVE_KERNEL.launches = 0
+    PK.ROUND_KERNEL.launches = 0
+    PR.RESIZE_KERNEL.launches = 0
+    with SolveLog() as solves:
+        recs, dec, ticks, wall = drive(metro)
+        # the wrapped reslice goes on logging; keep the loop's own steps
+        dec, ticks = list(dec), list(ticks)
+        faults = fault_ticks(metro)
+    launches = {"pg_solve": PK.SOLVE_KERNEL.launches,
+                "pg_round": PK.ROUND_KERNEL.launches,
+                "resize": PR.RESIZE_KERNEL.launches}
+    sesm = metro.sesm
+    sess = sesm._serve_session
+    log(f"[metro-serve] {N_CELLS} cells on {shards} shards of one card, "
+        f"{HORIZON} steps + 4 fault ticks: "
+        f"{sum(r['admitted'] for r in recs)} admissions; K1 launches "
+        f"{launches['pg_solve']} (one-round entry {launches['pg_round']}), "
+        f"K3 launches {launches['resize']}; solves (rounds, host syncs) "
+        f"{solves.results}")
+    solves.check_one_launch_each("metro serving loop")
+    if launches["pg_solve"] <= 0 or launches["resize"] <= 0:
+        raise AssertionError(f"metro path did not run both kernels: "
+                             f"{launches}")
+    if not isinstance(sess.dev, ShardedStack) \
+            or sess.dev.num_shards != shards:
+        raise AssertionError("the metro session is not mesh-resident")
+    trecs, tdec, tticks, twall = drive(twin)
+    tdec, tticks = list(tdec), list(tticks)
+    tfaults = fault_ticks(twin)
+    if trecs != recs:
+        raise AssertionError("metro vs meshless: loop records differ")
+    if len(dec) != len(tdec) or dec != tdec:
+        raise AssertionError("metro vs meshless: decisions differ in the "
+                             "closed loop")
+    if faults != tfaults:
+        raise AssertionError("metro vs meshless: decisions differ in the "
+                             "fault ticks")
+    mc, tc = session_counters(sesm), session_counters(twin.sesm)
+    log(f"[metro-serve] counters metro {mc}; meshless {tc}")
+    if mc["shard_replans"] != mc["fresh_stacks"] or tc["shard_replans"]:
+        raise AssertionError("shard_replans != fresh_stacks")
+    for key in ("fresh_stacks", "session_rebuilds", "delta_rows",
+                "link_updates", "semantic_updates"):
+        if mc[key] != tc[key]:
+            raise AssertionError(f"metro vs meshless: {key} differs")
+    if mc["link_updates"] < 1 or mc["semantic_updates"] < 1:
+        raise AssertionError("drift did not ride the in-place scatters")
+    # steady ticks: with no event, a tick's rejected requests use up their
+    # retries and drop (dirty rows) until the cells settle; from then on a
+    # tick scatters nothing and replans nothing, with one solve launch.
+    # Both engines tick in lockstep and must still decide alike.
+    def decided(out):
+        return [[(d.admitted, d.z) for d in ds] for ds in out]
+    settle = 0
+    while True:
+        before = session_counters(sesm)
+        solves_before = PK.SOLVE_KERNEL.launches
+        got = decided(metro.reslice())
+        after = session_counters(sesm)
+        if PK.SOLVE_KERNEL.launches != solves_before + 1:
+            raise AssertionError("a steady metro tick was not one launch")
+        if got != decided(twin.reslice()):
+            raise AssertionError("metro vs meshless: a settling tick "
+                                 "decides otherwise")
+        if after == before:
+            break
+        settle += 1
+        if settle > 2 * 3 + 2:                  # max_retries is 3
+            raise AssertionError(f"the metro session never settled: "
+                                 f"{before} -> {after}")
+    check_solve(sess.dev.stacks[0], f"metro serving session, {shards} shards")
+    log(f"[metro-serve] metro and meshless decided identically at all "
+        f"{len(dec)} loop steps, 4 fault ticks and {settle + 1} steady "
+        f"ticks; after {settle} settling tick(s) a steady tick scattered "
+        f"0 dirty rows, made 0 replans and 1 batch_solve launch")
+    log(f"[metro-serve] re-slice ms/tick in the loop (vision jobs between "
+        f"ticks): metro median {np.median(ticks):.1f} (all "
+        f"{[round(t, 1) for t in ticks]}), meshless median "
+        f"{np.median(tticks):.1f} (all {[round(t, 1) for t in tticks]}); "
+        f"loop wall ms/step metro {wall / HORIZON:.1f}, meshless "
+        f"{twall / HORIZON:.1f}")
+    # steady ticks in alternation, so order and warm-up fall on both
+    steady = {"metro": [], "meshless": []}
+    for r in range(6):
+        pair = (("metro", metro), ("meshless", twin))
+        for name, eng in pair if r % 2 == 0 else pair[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.reslice()
+            torch.cuda.synchronize()
+            steady[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"[metro-serve] steady re-slice ms, alternating: metro median "
+        f"{np.median(steady['metro']):.2f} (all "
+        f"{[round(t, 2) for t in steady['metro']]}), meshless median "
+        f"{np.median(steady['meshless']):.2f} (all "
+        f"{[round(t, 2) for t in steady['meshless']]})")
+    stack = sess.dev.stacks[0]
+    k1_us = device_us(lambda: PK.batch_solve(stack), "pg_solve_kernel",
+                      iters=20)
+    log(f"[metro-serve] K1 on the session stack ({stack.lat_ok.shape[0]} "
+        f"rows, {stack.group_csr.num_groups} clusters): device "
+        f"{fmt_us(k1_us)}")
+    # a trace of this tick has come back without its first kernels (no
+    # pg_solve_kernel, 11 of 20 launches) although K1 launched: profile
+    # again, and say so, rather than report a busy time without the solve
+    for attempt in range(3):
+        solves_before = PK.SOLVE_KERNEL.launches
+        wall_us, kern, count = profile_call(metro.reslice,
+                                            "steady metro tick")
+        solve_us = sum(us for name, us in kern.items()
+                       if "pg_solve_kernel" in name)
+        if solve_us > 0:
+            break
+        log(f"[trace] that trace holds no pg_solve_kernel, though K1 "
+            f"launched {PK.SOLVE_KERNEL.launches - solves_before} times "
+            f"(warm and profiled call); trace {attempt + 1} of 3")
+    launches.update(
+        reslice_ms_median=float(np.median(ticks)),
+        meshless_reslice_ms_median=float(np.median(tticks)),
+        steady_ms_median=float(np.median(steady["metro"])),
+        meshless_steady_ms_median=float(np.median(steady["meshless"])),
+        session_solve_device_ms=None if k1_us is None else k1_us / 1e3,
+        tick=dict(launches=count, wall_ms=wall_us / 1e3,
+                  busy_ms=sum(kern.values()) / 1e3,
+                  solve_device_us=solve_us if solve_us > 0 else None,
+                  traces=attempt + 1))
+    return launches
+
+
 # --------------------------------------------------------------- phase 10
 
 def alternating_ms(fns: dict, reps: int = 5, iters: int = 200) -> dict:
@@ -2022,6 +2354,9 @@ def main() -> int:
     metro_stack = phase_metro_solve(dev, metro)
     launches, serve_stack, zs = phase_serving(dev)
     eval_launches, big = phase_evaluation(dev)
+    sharded = phase_sharded_solve(dev)
+    metro_launches = phase_metro_serving(dev)
+    torch.cuda.empty_cache()
     from repro_torch.configs import get_config
     cfg = get_config(LM_ARCH)
     params = lm_model(dev, cfg)
@@ -2032,7 +2367,16 @@ def main() -> int:
     k1 = time_k1(dev, serve_stack, metro_stack, launches, k1_err)
     k1["launches_eval"] = eval_launches["pg_solve"]
     k1["tick"] = launches["tick"]
+    k1["launches_sharded_solve"] = {n: r["launches"]
+                                    for n, r in sharded.items()}
+    k1["sharded_solve"] = sharded
+    k1["launches_metro_serving"] = metro_launches["pg_solve"]
+    k1["metro_serving"] = {k: metro_launches[k] for k in (
+        "reslice_ms_median", "meshless_reslice_ms_median",
+        "steady_ms_median", "meshless_steady_ms_median",
+        "session_solve_device_ms", "tick")}
     k3 = time_kernels(dev, zs, launches, k3_err)
+    k3["launches_metro_serving"] = metro_launches["resize"]
     k2 = time_k2(dev, big, eval_launches, k2_err)
     k2["rounds_checked"] = k2_rounds
     kernels = [k1, k2, k3,

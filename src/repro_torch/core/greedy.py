@@ -12,6 +12,11 @@ gradient greedy), as a numpy oracle and as device solves.
   a :class:`~repro_torch.core.sfesp.DeviceStack`, uncoupled and coupled, in
   all four (semantic × flexible) quadrants; :func:`solve_greedy_many` groups
   mixed-grid instance sets into one batch per grid.
+* :func:`solve_greedy_sharded` / :func:`solve_sharded_batch` /
+  :func:`dispatch_sharded_batch` — the metro-scale solve over a
+  :class:`~repro_torch.core.sfesp.ShardedStack`: one batched solve per
+  distinct device of the mesh (one K1 launch on a card), decisions
+  gathered back to input order.
 
 Each device solve has two interchangeable inner steps, named as in the
 serving tick: ``inner="kernel"`` launches a hand-written CUDA kernel (the
@@ -59,6 +64,7 @@ Two facts about the reference, so nobody chases a phantom mismatch:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -66,14 +72,17 @@ import torch
 
 from ..kernels import resolve_device
 from . import semantics
-from .sfesp import (DeviceStack, _f32, device_stack, lexicographic_cost,
-                    next_pow2, objective_value, stack_instances)
+from .sfesp import (DeviceStack, ShardedStack, _f32, device_stack,
+                    device_stack_sharded, lexicographic_cost, next_pow2,
+                    objective_value, stack_instances)
 from .types import ProblemInstance, Solution, StackedInstances
 
 __all__ = ["primal_gradient", "solve_greedy", "solve_greedy_torch",
            "solve_greedy_batch", "solve_greedy_many", "solve",
            "solve_device_batch", "dispatch_device_batch",
-           "unpack_device_batch", "resolve_inner", "lexicographic_cost"]
+           "unpack_device_batch", "resolve_inner", "lexicographic_cost",
+           "dispatch_sharded_batch", "unpack_sharded_batch",
+           "solve_sharded_batch", "solve_greedy_sharded"]
 
 _EPS_DEN = 1e-9
 # admission rounds between two convergence tests (host syncs) of the loop
@@ -698,6 +707,139 @@ def _pack_batch_solutions(stacked: StackedInstances, admitted: np.ndarray,
             admitted=admitted[b, :t], alloc=alloc[b, :t], z=z[b, :t],
             objective=float(objective[b]), satisfied=satisfied[b, :t]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded (metro-scale) entry points
+#
+# The reference jits one ``shard_map`` program per (mesh, mode) and caches it
+# (``_sharded_solve_fn``, ``_sharded_serve_fn``, ``clear_sharded_caches``).
+# The port has no traced program to cache: a sharded solve is one batched
+# solve per device, each a K1 launch (or the torch loop) on that device's
+# stream, so those three have no counterpart here.
+# ---------------------------------------------------------------------------
+
+def _to_input_order(stacked: StackedInstances, sols: list) -> list:
+    """Undo a group-major stacking permutation: ``out[perm[b]] = sols[b]``."""
+    if stacked.perm is None:
+        return sols
+    out = [None] * len(sols)
+    for b, sol in enumerate(sols):
+        out[int(stacked.perm[b])] = sol
+    return out
+
+
+def dispatch_sharded_batch(shd: ShardedStack, *, flexible: bool = True,
+                           inner: str | None = None) -> tuple:
+    """Run the sharded solve up to its packed decisions, without reading
+    them back.
+
+    The mesh-resident sibling of :func:`dispatch_device_batch`: each
+    distinct device's stack (``ShardedStack.inputs``) is solved by
+    :func:`dispatch_device_batch`, so with ``inner="kernel"`` (CUDA's
+    default) a flexible solve enqueues ONE K1 ``batch_solve`` launch per
+    device on that device's current stream, with no host sync; the devices
+    then solve concurrently. Otherwise each device runs the host loop of
+    the torch rounds. The row maps are captured at dispatch, so a session
+    replan cannot skew an in-flight tick.
+    """
+    handles = []
+    for st in shd.stacks:
+        # a kernel launches on the current device's stream
+        with torch.cuda.device(st.device) if st.device.type == "cuda" \
+                else contextlib.nullcontext():
+            handles.append(dispatch_device_batch(st, flexible=flexible,
+                                                 inner=inner))
+    return (tuple(handles), shd.dev_of, shd.local_of, shd.row_of,
+            shd.batch_size, shd.max_tasks, shd.coupled)
+
+
+def unpack_sharded_batch(dispatched: tuple) -> dict:
+    """Read a :func:`dispatch_sharded_batch` handle back (one read-back per
+    device) and unpack it into the :func:`unpack_device_batch` dict, in
+    STACKED (input) row order.
+
+    ``row_of`` gathers the live rows back, so callers (the serving session's
+    slot unpacker, the twin-engine tests) never see the plan; inert padding
+    rows never admit and are dropped. ``link_used`` is the sum of the
+    devices' (L,) blocks: each link lives in one shard, hence on one device,
+    so the sum is exact; it is empty when the batch is uncoupled.
+    ``rounds`` is the largest device's, ``syncs`` the sum over devices.
+    """
+    handles, dev_of, local_of, row_of, B, tmax, coupled = dispatched
+    parts = [unpack_device_batch(h) for h in handles]
+    live = row_of >= 0
+    src = np.flatnonzero(live)
+    dst = row_of[live]
+    m = parts[0]["residual"].shape[1]
+    admitted = np.zeros((B, tmax), bool)
+    alloc_idx = np.full((B, tmax), -1, np.int64)
+    residual = np.zeros((B, m), parts[0]["residual"].dtype)
+    for i, part in enumerate(parts):
+        mine = dev_of[src] == i
+        rows = local_of[src[mine]]
+        admitted[dst[mine]] = part["admitted"][rows]
+        alloc_idx[dst[mine]] = part["alloc_idx"][rows]
+        residual[dst[mine]] = part["residual"][rows]
+    used = np.zeros(0)
+    if coupled:
+        blocks = [p["link_used"] for p in parts if p["link_used"].size]
+        used = np.sum(blocks, axis=0, dtype=blocks[0].dtype)
+    return {
+        "admitted": admitted,
+        "alloc_idx": alloc_idx,
+        "residual": residual,
+        "link_used": used,
+        "rounds": max(p["rounds"] for p in parts),
+        "syncs": sum(p["syncs"] for p in parts),
+    }
+
+
+def solve_sharded_batch(shd: ShardedStack, *, flexible: bool = True,
+                        inner: str | None = None) -> dict:
+    """Solve a mesh-resident stack: :func:`solve_device_batch` for a
+    :class:`~repro_torch.core.sfesp.ShardedStack`. Decisions equal the
+    single-device solve on the same rows."""
+    return unpack_sharded_batch(dispatch_sharded_batch(
+        shd, flexible=flexible, inner=inner))
+
+
+def solve_greedy_sharded(insts, *, mesh=None, semantic: bool = True,
+                         flexible: bool = True, inner: str | None = None,
+                         axis: str = "cells") -> list[Solution]:
+    """Metro-scale front door: the coupled batched solve sharded over a
+    cells mesh, one block of coupling groups per shard.
+
+    ``insts`` is a sequence of :class:`ProblemInstance` (stacked group-major
+    on the fly, Tmax padded to a power of two) or a pre-built
+    :class:`StackedInstances` (any layout — the sharded device half permutes
+    group-major itself). ``mesh`` is a ``launch/mesh.py::CellsMesh``;
+    ``None`` builds one shard per visible CUDA device. Solutions come back
+    in INPUT order regardless of layout.
+
+    Decisions are bit-identical to :func:`solve_greedy_batch` on the same
+    instances: the group-major permutation is stable, so within-group cell
+    order — the coupled tie-break — is preserved, and each device runs the
+    same batched solve on its groups. A 1-shard mesh IS the single-device
+    solve (on the mesh's device), reordered.
+    """
+    stacked = insts if isinstance(insts, StackedInstances) \
+        else stack_instances(
+            insts, group_major=True,
+            tmax=next_pow2(max((i.num_tasks for i in insts), default=1)))
+    if mesh is None:
+        from ..launch.mesh import make_cells_mesh
+        mesh = make_cells_mesh(axis=axis)
+    if int(mesh.shape[axis]) == 1:
+        sols = solve_greedy_batch(stacked, semantic=semantic,
+                                  flexible=flexible, inner=inner,
+                                  device=mesh.devices[0])
+        return _to_input_order(stacked, sols)
+    shd = device_stack_sharded(stacked, mesh, semantic=semantic, axis=axis)
+    res = solve_sharded_batch(shd, flexible=flexible, inner=inner)
+    sols = _pack_batch_solutions(stacked, res["admitted"], res["alloc_idx"],
+                                 semantic)
+    return _to_input_order(stacked, sols)
 
 
 def solve_greedy_many(insts, *, semantic: bool = True, flexible: bool = True,

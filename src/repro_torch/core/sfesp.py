@@ -1,14 +1,19 @@
 """Port of ``src/repro/core/sfesp.py``: instance construction, stacking and
-the device-resident half of the stacking cache.
+the device-resident halves of the stacking cache.
 
-The host half (Eq. (2) min-z, latency tables, padded stacking, validation)
-stays numpy, value for value the reference's. The device half holds the
-solver inputs as torch tensors on an explicit device: :class:`DeviceStack`,
-:func:`device_stack` (memoized per stacked batch) and
-:func:`empty_device_stack` with its delta scatters (:meth:`DeviceStack.
-update_rows`, :meth:`~DeviceStack.update_link_budgets`,
-:meth:`~DeviceStack.update_semantics`). The reference's group-major layout
-and ``ShardedStack`` (the sharded metro solve) are not ported yet.
+The host half (Eq. (2) min-z, latency tables, padded stacking, the
+group-major layout, validation) stays numpy, value for value the
+reference's. The device half holds the solver inputs as torch tensors on an
+explicit device: :class:`DeviceStack`, :func:`device_stack` (memoized per
+stacked batch) and :func:`empty_device_stack` with its delta scatters
+(:meth:`DeviceStack.update_rows`, :meth:`~DeviceStack.update_link_budgets`,
+:meth:`~DeviceStack.update_semantics`). The sharded half lays a group-major
+batch out over a ``launch/mesh.py::CellsMesh``: :class:`ShardedStack`,
+:func:`device_stack_sharded` and :func:`empty_sharded_stack`, with the
+reference's shard plan (:func:`shard_plan`) number for number. It holds ONE
+:class:`DeviceStack` per distinct device of the mesh, with the rows of
+every shard placed there, so the batched solve (K1 on a card) reads it
+unchanged.
 
 Where JAX *rebinds* a donated buffer on every scatter, the port updates the
 device tensors IN PLACE; :meth:`DeviceStack.inputs` says why a dispatched
@@ -31,9 +36,11 @@ from .types import (CouplingSpec, ProblemInstance, ResourcePool, Solution,
 __all__ = ["build_instance", "check_solution", "objective_value",
            "default_z_grid", "stack_instances", "restack", "next_pow2",
            "task_link_load", "merge_coupling", "lexicographic_cost",
+           "group_major_order", "group_offsets_of",
            "TaskRows", "task_feasibility_rows",
            "DeviceStack", "GroupCSR", "group_csr", "device_stack",
-           "empty_device_stack"]
+           "empty_device_stack", "ShardedStack", "shard_plan",
+           "device_stack_sharded", "empty_sharded_stack"]
 
 
 def next_pow2(n: int) -> int:
@@ -175,6 +182,44 @@ def merge_coupling(insts: Sequence[ProblemInstance]) -> CouplingSpec | None:
     return CouplingSpec(ref.link_capacity, inc, ref.names)
 
 
+def group_major_order(insts: Sequence[ProblemInstance]) -> np.ndarray:
+    """Permutation putting every coupling group's instances contiguous.
+
+    The stable sort by group id (``CouplingSpec.groups`` on the merged batch
+    spec): instances of one connected component become a contiguous span of
+    the batch axis while their RELATIVE order — the cell-major order the
+    coupled round's first-cell tie-break scans — is preserved, so solving
+    the permuted batch yields bit-identical per-instance decisions.
+    Uncoupled instances are singleton groups keyed by their own index.
+    """
+    insts = tuple(insts)
+    coupling = merge_coupling(insts)
+    if coupling is None:
+        return np.arange(len(insts), dtype=np.int64)
+    return np.argsort(coupling.groups(), kind="stable").astype(np.int64)
+
+
+def group_offsets_of(coupling: CouplingSpec | None,
+                     batch_size: int) -> np.ndarray:
+    """Span boundaries (G+1,) of a GROUP-MAJOR batch's coupling groups.
+
+    Requires the batch to already be in group-major order (each connected
+    component contiguous — e.g. after :func:`group_major_order`); raises
+    otherwise, because silently returning spans of an interleaved batch
+    would let a sharded solve split a coupling group across shards.
+    """
+    if coupling is None:
+        return np.arange(batch_size + 1, dtype=np.int64)
+    gid = coupling.groups()
+    changed = np.r_[True, gid[1:] != gid[:-1]]
+    starts = np.flatnonzero(changed)
+    if len(np.unique(gid)) != len(starts):
+        raise ValueError(
+            "batch is not group-major: a coupling group occupies "
+            "non-contiguous rows; permute via group_major_order first")
+    return np.r_[starts, batch_size].astype(np.int64)
+
+
 def _check_shared_grid(insts: Sequence[ProblemInstance], grid: np.ndarray,
                        what: str):
     for inst in insts:
@@ -242,7 +287,8 @@ def _fill_stacked(st: StackedInstances, insts: tuple[ProblemInstance, ...],
 
 
 def stack_instances(insts: Sequence[ProblemInstance], *,
-                    tmax: int | None = None) -> StackedInstances:
+                    tmax: int | None = None,
+                    group_major: bool = False) -> StackedInstances:
     """Stack instances into one padded batch for the sweep engine.
 
     Instances must share the allocation grid (identical ``pool.levels``);
@@ -250,13 +296,22 @@ def stack_instances(insts: Sequence[ProblemInstance], *,
     padded to ``Tmax`` with never-feasible rows (lat=+inf, z*_idx=-1) so the
     batched solver's masked rounds ignore them. ``tmax`` overrides the
     natural padding target (must be >= the largest task count) — callers
-    pass power-of-two buckets so repeated solves share one shape. The
-    group-major layout of the reference (``group_major=True``) belongs to the
-    sharded solve and is not ported yet.
+    pass power-of-two buckets so repeated solves share one shape.
+
+    ``group_major=True`` permutes the instances so every coupling group is a
+    contiguous span of the batch axis (the sharded solve's layout),
+    recording ``perm`` (stacked row → input index) and ``group_offsets`` on
+    the result. Per-instance decisions are unaffected: the stable
+    permutation keeps each group's internal cell order, hence the coupled
+    tie-breaks.
     """
     insts = tuple(insts)
     if not insts:
         raise ValueError("stack_instances needs at least one instance")
+    perm = None
+    if group_major:
+        perm = group_major_order(insts)
+        insts = tuple(insts[i] for i in perm)
     grid = insts[0].grid
     _check_shared_grid(insts[1:], grid, "stacked")
     B = len(insts)
@@ -284,6 +339,9 @@ def stack_instances(insts: Sequence[ProblemInstance], *,
         coupling=merge_coupling(insts),
         semantics=_shared_model(insts, "stacked"),
     )
+    if group_major:
+        st = dataclasses.replace(
+            st, perm=perm, group_offsets=group_offsets_of(st.coupling, B))
     _fill_stacked(st, insts, n_tasks)
     return st
 
@@ -310,6 +368,10 @@ def restack(stacked: StackedInstances,
         raise ValueError(
             f"restack needs the original batch size {stacked.batch_size}, "
             f"got {len(insts)} instances; re-stack instead")
+    perm = None
+    if stacked.group_major:
+        perm = group_major_order(insts)
+        insts = tuple(insts[i] for i in perm)
     _check_shared_grid(insts, stacked.grid, "restacked")
     n_tasks = np.array([inst.num_tasks for inst in insts], np.int64)
     if n_tasks.max(initial=0) > stacked.max_tasks:
@@ -333,6 +395,9 @@ def restack(stacked: StackedInstances,
     coupling = merge_coupling(insts)
     st = dataclasses.replace(
         stacked, instances=insts, num_tasks=n_tasks, coupling=coupling,
+        perm=perm,
+        group_offsets=(group_offsets_of(coupling, len(insts))
+                       if stacked.group_major else None),
         semantics=_shared_model(insts, "restacked"))
     _fill_stacked(st, insts, n_tasks)
     return st
@@ -675,6 +740,387 @@ def empty_device_stack(grid: np.ndarray, price: np.ndarray,
         link_cap=link[0], incidence=link[1], group=link[2],
         semantic=bool(semantic), batch_size=B, group_csr=link[3],
     )
+
+
+# --------------------------------------------------------------- sharded half
+#
+# * CACHE KEY — ``device_stack_sharded`` memoizes per stacked-batch OBJECT,
+#   keyed by ``(mesh, axis, semantic, semantic_signature)``, as the
+#   reference does.
+# * LAYOUT — the reference's: ``shard_plan`` packs whole coupling groups into
+#   ``num_shards`` blocks of ``shard_rows`` rows (LPT), ``row_of`` maps a
+#   padded row to its stacked row (-1: inert balance padding), ``padded_of``
+#   is its inverse and ``group`` holds each row's shard-LOCAL group id.
+# * PLACEMENT — one DeviceStack per DISTINCT device of the mesh, holding the
+#   padded blocks of the shards placed there in shard order. Its group ids
+#   are device-global (``k * shard_rows + local`` for the k-th shard on the
+#   device): local ids repeat from shard to shard, and two shards on one
+#   device must not merge into one coupling group of K1.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardedStack:
+    """Group-major device half laid out over a 1-D cells mesh.
+
+    The metro-scale layout of the reference: the batch axis is split into
+    ``num_shards`` equal blocks of ``shard_rows`` rows, and every coupling
+    group lives WHOLLY inside one block (:func:`shard_plan`), so no shard's
+    admission rounds depend on another's. Shard ``s`` lives on
+    ``mesh.devices[s]``; ``stacks[i]`` is the :class:`DeviceStack` of the
+    i-th distinct device (:attr:`devices`), holding the padded rows of its
+    shards in shard order, which ``core/greedy.py::dispatch_sharded_batch``
+    solves with one batched solve (one K1 launch on a card) per device.
+
+    ``row_of``, ``padded_of``, ``shard_rows``, ``groups_per_shard`` and
+    ``group`` (shard-LOCAL group ids) are the reference's arrays, value for
+    value; ``dev_of`` / ``local_of`` (B',) address a padded row's device and
+    its row in that device's stack. Built/memoized per stacked batch by
+    :func:`device_stack_sharded`, or as cleared rows by
+    :func:`empty_sharded_stack` (the metro serving session).
+    """
+
+    mesh: object                     # launch/mesh.py::CellsMesh
+    axis: str                        # mesh axis the batch is split over
+    stacks: tuple                    # one DeviceStack per distinct device
+    group: np.ndarray                # (B',) shard-local group ids
+    row_of: np.ndarray               # (B',) stacked row per padded row, -1 pad
+    padded_of: np.ndarray            # (B,) padded row per stacked row
+    dev_of: np.ndarray               # (B',) index into ``devices``
+    local_of: np.ndarray             # (B',) row in that device's stack
+    batch_size: int                  # real B
+    shard_rows: int                  # rows per shard (B' / num_shards)
+    groups_per_shard: np.ndarray     # (num_shards,) assigned group counts
+    coupled: bool                    # the batch has shared links
+    num_links: int                   # L (0 when uncoupled)
+    scatter_calls: int = 0
+    rows_scattered: int = 0
+    budget_updates: int = 0
+    semantic_updates: int = 0        # update_semantics calls (drift traffic)
+    semantic_rows: int = 0           # rows re-scattered because curves moved
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.groups_per_shard)
+
+    @property
+    def devices(self) -> tuple:
+        """The distinct devices, in mesh order (``stacks[i]`` is on
+        ``devices[i]``)."""
+        return self.mesh.distinct()
+
+    @property
+    def max_tasks(self) -> int:
+        return self.stacks[0].max_tasks
+
+    def inputs(self) -> tuple:
+        """The solver's input bindings, one :meth:`DeviceStack.inputs`
+        tuple per device.
+
+        The scatters of :meth:`update_rows` / :meth:`update_link_budgets`
+        write the device stacks IN PLACE, and the argument of
+        :meth:`DeviceStack.inputs` holds for each device's stream apart: the
+        sharded dispatch enqueues every read of a device's tensors (one K1
+        launch on a card, or the whole torch loop) on that device's current
+        stream before it returns, so any scatter the serving loop enqueues
+        afterwards on that stream comes after them. Streams of different
+        devices never touch each other's tensors. With one card this is the
+        single-device argument.
+        """
+        return tuple(st.inputs() for st in self.stacks)
+
+    def update_rows(self, b_idx, t_idx, lat_ok_rows, alive_rows,
+                    load_rows=None):
+        """Delta-scatter changed task rows into the sharded device tensors.
+
+        The surface of :meth:`DeviceStack.update_rows`: ``b_idx`` addresses
+        STACKED (input-order) rows, routed to (device, row) through
+        ``padded_of``, the inverse of the shard plan's placement, so callers
+        never see the padded layout. The same bucket-overflow and off-range
+        ValueErrors; each device's rows go to its stack's scatter.
+        """
+        b_idx = np.asarray(b_idx, np.int64)
+        t_idx = np.asarray(t_idx, np.int64)
+        d = len(t_idx)
+        if d == 0:
+            return
+        if t_idx.max(initial=0) >= self.max_tasks:
+            raise ValueError(
+                f"slot {int(t_idx.max())} does not fit the device bucket "
+                f"Tmax={self.max_tasks}; rebuild the stack at a larger "
+                "bucket")
+        if b_idx.max(initial=0) >= self.batch_size or \
+                b_idx.min(initial=0) < 0:
+            raise ValueError(
+                f"cell index {int(b_idx.max())} outside the stacked batch "
+                f"of {self.batch_size} rows")
+        p_idx = self.padded_of[b_idx]
+        lat_ok_rows = np.asarray(lat_ok_rows, bool)
+        alive_rows = np.asarray(alive_rows, bool)
+        load_rows = np.zeros(d) if load_rows is None \
+            else np.asarray(load_rows, np.float64)
+        on = self.dev_of[p_idx]
+        for i, st in enumerate(self.stacks):
+            sel = np.flatnonzero(on == i)
+            if len(sel):
+                st.update_rows(self.local_of[p_idx[sel]], t_idx[sel],
+                               lat_ok_rows[sel], alive_rows[sel],
+                               load_rows[sel])
+        self.scatter_calls += 1
+        self.rows_scattered += d
+
+    def update_semantics(self, b_idx, t_idx, lat_ok_rows, alive_rows,
+                         load_rows=None):
+        """Drift half of the sharded delta path: the scatter of
+        :meth:`update_rows`, accounted apart (``semantic_updates`` /
+        ``semantic_rows``) as :meth:`DeviceStack.update_semantics` is."""
+        d = len(np.asarray(t_idx))
+        if d == 0:
+            return
+        self.update_rows(b_idx, t_idx, lat_ok_rows, alive_rows, load_rows)
+        self.semantic_updates += 1
+        self.semantic_rows += d
+
+    def update_link_budgets(self, budgets):
+        """Refresh the (L,) link budgets on every device, in place.
+
+        The link set and the shard plan are invariant (each link lives
+        wholly inside one shard's groups); only capacities move — no
+        replan. Changing the link set is a topology change (ValueError).
+        """
+        if not self.coupled:
+            raise ValueError(
+                "this stack is uncoupled (no link budgets to update); "
+                "introducing links is a topology change — rebuild")
+        new = np.asarray(budgets, np.float64)
+        if new.shape != (self.num_links,):
+            raise ValueError(
+                f"budget shape {new.shape} != device link set "
+                f"{(self.num_links,)}; changing the link set is a "
+                "topology change — rebuild the stack")
+        for st in self.stacks:
+            if st.coupled:
+                st.update_link_budgets(new)
+        self.budget_updates += 1
+
+
+def shard_plan(group_offsets: np.ndarray,
+               n_shards: int) -> tuple[list[list[int]], np.ndarray]:
+    """Balanced groups→shards assignment: largest group first, into the
+    currently least-loaded shard (LPT scheduling). Returns the per-shard
+    group-index lists and the per-shard row loads; the block size is
+    ``loads.max()`` and lighter shards are padded with inert rows. Groups
+    are never split — a coupling group is the atomic unit of parallelism.
+    """
+    sizes = np.diff(np.asarray(group_offsets, np.int64))
+    shards: list[list[int]] = [[] for _ in range(n_shards)]
+    loads = np.zeros(n_shards, np.int64)
+    for g in np.argsort(-sizes, kind="stable"):
+        s = int(np.argmin(loads))
+        shards[s].append(int(g))
+        loads[s] += int(sizes[g])
+    return shards, loads
+
+
+def _plan_layout(order: np.ndarray, offsets: np.ndarray, n_shards: int
+                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int,
+                            np.ndarray]:
+    """Materialize a :func:`shard_plan` as row maps.
+
+    Returns ``(row_of, local_gid, padded_of, rows, groups_per_shard)``:
+    ``row_of`` (B',) maps padded row → stacked row (-1 = inert balance
+    padding), ``local_gid`` (B',) holds shard-LOCAL group ids, ``padded_of``
+    (B,) is the inverse map stacked row → padded row — the address
+    translation the sharded delta scatters route through.
+    """
+    shards, loads = shard_plan(offsets, n_shards)
+    rows = max(1, int(loads.max()))
+    bp = n_shards * rows
+    row_of = np.full(bp, -1, np.int64)
+    local_gid = np.zeros(bp, np.int64)
+    for s, group_list in enumerate(shards):
+        pos = s * rows
+        for g in group_list:
+            span = order[offsets[g]:offsets[g + 1]]
+            n = len(span)
+            row_of[pos:pos + n] = span
+            local_gid[pos:pos + n] = pos - s * rows
+            pos += n
+        # inert padding rows: singleton groups that never admit
+        local_gid[pos:(s + 1) * rows] = \
+            np.arange(pos, (s + 1) * rows) - s * rows
+    live = row_of >= 0
+    padded_of = np.empty(len(order), np.int64)
+    padded_of[row_of[live]] = np.flatnonzero(live)
+    return row_of, local_gid, padded_of, rows, \
+        np.array([len(g) for g in shards], np.int64)
+
+
+def _groups_in_order(gid: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(order, offsets) of the stable sort by group id ``gid``."""
+    order = np.argsort(gid, kind="stable").astype(np.int64)
+    gs = gid[order]
+    starts = np.flatnonzero(np.r_[True, gs[1:] != gs[:-1]])
+    return order, np.r_[starts, len(gid)].astype(np.int64)
+
+
+def _group_major_view(stacked: StackedInstances
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """(order, offsets) presenting ``stacked`` in group-major order.
+
+    Identity order when the batch already carries the layout (or is
+    uncoupled); otherwise the stable group permutation is derived on the
+    fly so plainly-stacked batches can still dispatch sharded.
+    """
+    B = stacked.batch_size
+    if stacked.group_major:
+        return np.arange(B, dtype=np.int64), \
+            np.asarray(stacked.group_offsets, np.int64)
+    coupling = stacked.coupling
+    if coupling is None or not bool(coupling.incidence.any()):
+        return np.arange(B, dtype=np.int64), np.arange(B + 1, dtype=np.int64)
+    return _groups_in_order(coupling.groups())
+
+
+def _build_sharded(mesh, axis, order, offsets, *, grid, price, capacity,
+                   tmax, coupling, semantic, tables=None) -> ShardedStack:
+    """Plan ``order``/``offsets`` over ``mesh.shape[axis]`` shards and
+    upload the padded rows, one :class:`DeviceStack` per distinct device.
+
+    ``price``/``capacity`` (B, m) in stacked-row order; ``coupling`` the
+    batch's (B, L) spec, None when uncoupled; ``tables`` is ``(lat_ok,
+    alive0, load)`` of the stacked rows, or None for cleared rows (the
+    serving session's empty stack). Inert padding rows get unit capacity (a
+    NaN-free gradient), price 0, no link and nothing alive, as the
+    reference's do.
+    """
+    n_shards = int(mesh.shape[axis])
+    row_of, local_gid, padded_of, rows, gps = \
+        _plan_layout(order, offsets, n_shards)
+    devices = mesh.distinct()
+    dev_idx = np.array([devices.index(d) for d in mesh.devices], np.int64)
+    # k: a shard's position among the shards of its device
+    k_of = np.array([int((dev_idx[:s] == dev_idx[s]).sum())
+                     for s in range(n_shards)], np.int64)
+    shard_of = np.repeat(np.arange(n_shards), rows)
+    dev_of = dev_idx[shard_of]
+    local_of = k_of[shard_of] * rows + np.tile(np.arange(rows), n_shards)
+    live = row_of >= 0
+    src = np.clip(row_of, 0, None)
+
+    def pad(table, fill, sel):
+        out = np.asarray(table)[src[sel]]
+        out[~live[sel]] = fill
+        return out
+
+    A = grid.shape[0]
+    stacks = []
+    for i, dev in enumerate(devices):
+        sel = np.flatnonzero(dev_of == i)          # ascending = shard order
+        n = len(sel)
+        link = (None, None, None, None)
+        if coupling is not None:
+            inc = pad(coupling.incidence, False, sel)
+            if inc.any():
+                # device-global group ids: the k-th shard's block offset
+                # plus the reference's shard-local id
+                gid = local_of[sel] - local_of[sel] % rows + local_gid[sel]
+                link = (_f32(coupling.link_capacity, dev),
+                        torch.as_tensor(inc, device=dev),
+                        torch.as_tensor(gid, dtype=torch.int64, device=dev),
+                        group_csr(inc, gid, dev))
+        if tables is None:
+            lat_ok = torch.zeros((n, tmax, A), dtype=torch.bool, device=dev)
+            alive0 = torch.zeros((n, tmax), dtype=torch.bool, device=dev)
+            load = torch.zeros((n, tmax), dtype=torch.float32, device=dev)
+        else:
+            lat_ok = torch.as_tensor(pad(tables[0], False, sel), device=dev)
+            alive0 = torch.as_tensor(pad(tables[1], False, sel), device=dev)
+            load = _f32(pad(tables[2], 0.0, sel), dev)
+        stacks.append(DeviceStack(
+            grid=_f32(grid, dev), cost=_f32(lexicographic_cost(grid), dev),
+            price=_f32(pad(price, 0.0, sel), dev),
+            capacity=_f32(pad(capacity, 1.0, sel), dev),
+            lat_ok=lat_ok, alive0=alive0, link_load=load,
+            link_cap=link[0], incidence=link[1], group=link[2],
+            semantic=bool(semantic), batch_size=n, group_csr=link[3]))
+    return ShardedStack(
+        mesh=mesh, axis=axis, stacks=tuple(stacks),
+        group=local_gid, row_of=row_of, padded_of=padded_of, dev_of=dev_of,
+        local_of=local_of, batch_size=len(order), shard_rows=rows,
+        groups_per_shard=gps, coupled=coupling is not None,
+        num_links=0 if coupling is None else coupling.num_links)
+
+
+def device_stack_sharded(stacked: StackedInstances, mesh, *,
+                         semantic: bool = True,
+                         axis: str = "cells") -> ShardedStack:
+    """The memoized SHARDED device half of ``stacked`` for one solver mode.
+
+    Same cache discipline as :func:`device_stack` (entry keyed by
+    ``(mesh, axis, semantic, semantic_signature)`` on the stacked batch
+    object; ``restack`` invalidates by returning a new object), but the batch
+    axis is permuted group-major, balanced over ``mesh.shape[axis]`` blocks
+    (:func:`shard_plan`), padded with inert rows to a uniform block size,
+    and uploaded block by block to the shards' devices. An uncoupled batch
+    shards as singleton groups with no link tensors (the device stacks'
+    uncoupled form; the reference uses a dummy infinite link instead, with
+    the same admissions).
+    """
+    cache = stacked.__dict__.get("_sharded_half")
+    if cache is None:
+        cache = {}
+        object.__setattr__(stacked, "_sharded_half", cache)
+    key = (mesh, axis, bool(semantic), stacked.semantic_signature)
+    if key in cache:
+        return cache[key]
+    order, offsets = _group_major_view(stacked)
+    coupling = stacked.coupling
+    if coupling is not None and not bool(coupling.incidence.any()):
+        coupling = None
+    shd = _build_sharded(
+        mesh, axis, order, offsets, grid=stacked.grid, price=stacked.price,
+        capacity=stacked.capacity, tmax=stacked.max_tasks, coupling=coupling,
+        semantic=semantic, tables=_solver_tables(stacked, semantic))
+    cache[key] = shd
+    return shd
+
+
+def empty_sharded_stack(grid: np.ndarray, price: np.ndarray,
+                        capacity: np.ndarray, tmax: int, mesh, *,
+                        coupling: CouplingSpec | None = None,
+                        semantic: bool = True,
+                        axis: str | None = None) -> ShardedStack:
+    """A MESH-RESIDENT stack of cleared rows — :func:`empty_device_stack`
+    laid out over the mesh.
+
+    The metro serving session allocates one per (batch, Tmax bucket): the
+    coupling groups are LPT-packed over ``mesh.shape[axis]`` blocks once
+    (:func:`shard_plan`), the invariants (grid, cost, prices, capacities,
+    incidence, budgets) are uploaded once into that layout, and live task
+    rows then arrive as perm-addressed delta scatters
+    (:meth:`ShardedStack.update_rows`). A coupling-group membership change
+    invalidates the plan itself — the session layer rebuilds; budget and
+    semantic drift ride the in-place scatters.
+    """
+    if axis is None:
+        axis = mesh.axis_names[0]
+    price = np.asarray(price)
+    B = price.shape[0]
+    if coupling is not None and not bool(coupling.incidence.any()):
+        coupling = None
+    if coupling is not None:
+        if coupling.num_cells != B:
+            raise ValueError(
+                f"coupling.incidence has {coupling.num_cells} rows for "
+                f"{B} cells")
+        order, offsets = _groups_in_order(coupling.groups())
+    else:
+        order = np.arange(B, dtype=np.int64)
+        offsets = np.arange(B + 1, dtype=np.int64)
+    return _build_sharded(
+        mesh, axis, order, offsets, grid=grid, price=price,
+        capacity=np.asarray(capacity), tmax=tmax, coupling=coupling,
+        semantic=semantic)
 
 
 def objective_value(inst: ProblemInstance, admitted: np.ndarray,

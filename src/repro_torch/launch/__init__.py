@@ -1,1 +1,2 @@
-"""Port of ``src/repro/launch``: the serving launcher (``serve.py``)."""
+"""Port of ``src/repro/launch``: the serving launcher (``serve.py``) and
+the metro solve's cells mesh (``mesh.py``)."""

@@ -18,10 +18,12 @@ import numpy as np
 
 from ..core import latency as lat_mod
 from ..core import semantics
-from ..core.greedy import (dispatch_device_batch, solve, solve_greedy_batch,
-                           unpack_device_batch)
-from ..core.sfesp import (DeviceStack, check_solution, default_z_grid,
-                          empty_device_stack, next_pow2, restack,
+from ..core.greedy import (dispatch_device_batch, dispatch_sharded_batch,
+                           solve, solve_greedy_batch, solve_greedy_sharded,
+                           unpack_device_batch, unpack_sharded_batch)
+from ..core.sfesp import (DeviceStack, ShardedStack, check_solution,
+                          default_z_grid, empty_device_stack,
+                          empty_sharded_stack, next_pow2, restack,
                           stack_instances, task_feasibility_rows)
 from ..core.types import CouplingSpec, ResourcePool, make_allocation_grid
 from ..kernels import resolve_device
@@ -89,9 +91,18 @@ class _ServeSession:
     slots until a live solve consumes them — deltas reported on a tick whose
     solve is skipped (transiently all-empty batch) must survive to the next.
 
+    With a metro ``mesh`` configured the device half is a MESH-RESIDENT
+    :class:`~repro_torch.core.sfesp.ShardedStack` instead: the coupling
+    groups are shard-planned once at build, dirty slots scatter through the
+    group-major perm (``ShardedStack.update_rows``), and the tick solves one
+    batched solve per device of the mesh. The session-level triggers are
+    identical, plus shard-plan invalidation: a coupling-group membership
+    change (a DIFFERENT coupling object) replans + rebuilds
+    (``sesm.shard_replans``), while budget/semantic drift rides the same
+    in-place scatters as the single-device session.
     """
 
-    dev: DeviceStack
+    dev: DeviceStack | ShardedStack
     grid: np.ndarray                 # host copy, for alloc unpack
     z_grid: np.ndarray
     names: list[tuple[str, ...]]     # per-cell resource names
@@ -139,11 +150,17 @@ class SESM:
     (many request sets — what-if studies or the cells of one coupled
     deployment — in ONE device program, restack-cached across calls) and
     :meth:`solve_slots` (the device-resident delta fast path over sticky
-    solver-row slots). The reference's metro mode (a sharded serve session
-    over a device mesh) is not ported yet.
+    solver-row slots). A configured ``mesh`` (``launch/mesh.py::
+    make_cells_mesh``) routes ``solve_batch`` through the sharded metro
+    solve (``core.greedy.solve_greedy_sharded``) and makes
+    :meth:`solve_slots`'s serve session MESH-RESIDENT: a
+    :class:`~repro_torch.core.sfesp.ShardedStack` persisted across ticks,
+    delta scatters addressed through the shard plan, one batched solve per
+    device of the mesh a tick (``core.greedy.dispatch_sharded_batch``; one
+    K1 launch per card).
 
     ``device`` is where the solves run (``"cuda"`` by default; raises when
-    no card is visible). ``backend`` picks :meth:`slice`'s solver:
+    no card is visible); with a ``mesh`` it is the mesh's first device. ``backend`` picks :meth:`slice`'s solver:
     ``"numpy"`` (the oracle, the default) or ``"torch"`` (the single-
     instance device solve); the batched front doors always solve on
     ``device``. ``inner`` picks the device round (``"kernel"`` = K1 in the
@@ -154,12 +171,16 @@ class SESM:
 
     def __init__(self, pool: ResourcePool, sdla: SDLA | None = None,
                  backend: str = "numpy", inner: str | None = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.pool = pool
         self.sdla = sdla or SDLA()
         self.backend = backend
         self.inner = inner
-        self.device = resolve_device(device)
+        # metro mode: a 1-D cells mesh routes solve_batch through the
+        # sharded coupled solve and keeps the serve session on the mesh
+        self.mesh = mesh
+        self.device = resolve_device(
+            device if mesh is None else mesh.devices[0])
         self.algorithm = {"semantic": True, "flexible": True}
         # padded stacking buffers reused across solve_batch calls (the
         # closed-loop re-slice case: only tasks/capacities change per call)
@@ -186,6 +207,10 @@ class SESM:
         # absorbed as dirty-row delta scatters with the session kept alive
         # (the drift fast path; rows counted on dev.semantic_rows)
         self.semantic_updates = 0
+        # metro telemetry: shard-plan computations (one per sharded-session
+        # build — a coupling-group membership change is the only way to force
+        # a replan once the session is warm; budget/semantic drift must not)
+        self.shard_replans = 0
 
     def slice(self, requests: list[SliceRequest]) -> list[SliceDecision]:
         if not requests:
@@ -258,8 +283,16 @@ class SESM:
             stacked = stack_instances(insts, tmax=next_pow2(tneed))
             self.fresh_stacks += 1
         self._batch_cache = stacked
-        sols = solve_greedy_batch(stacked, inner=self.inner,
-                                  device=self.device, **self.algorithm)
+        if self.mesh is not None:
+            # metro mode: shard the coupled solve over the configured mesh
+            # (decisions identical to the single-device engine; the sharded
+            # front door re-derives the group-major permutation itself and
+            # returns solutions in this batch's row order)
+            sols = solve_greedy_sharded(stacked, mesh=self.mesh,
+                                        inner=self.inner, **self.algorithm)
+        else:
+            sols = solve_greedy_batch(stacked, inner=self.inner,
+                                      device=self.device, **self.algorithm)
         for i, (rs, inst, sol) in enumerate(zip(request_sets, insts, sols)):
             out[i] = self._decisions(rs, inst, sol, cell=i)
         return out
@@ -314,6 +347,15 @@ class SESM:
         handle (the double-buffered back buffer) — the caller blocks only at
         ``PendingSolve.wait()``, typically after ingesting the next tick's
         events. Decisions are identical either way.
+
+        With a metro ``mesh`` configured the session is MESH-RESIDENT: the
+        same triggers and in-place survivals apply, but the device half is a
+        :class:`~repro_torch.core.sfesp.ShardedStack` (coupling groups
+        shard-planned at build, ``sesm.shard_replans``), the dirty rows
+        scatter through the group-major perm, and the tick dispatches one
+        batched solve per device (``core.greedy.dispatch_sharded_batch``) —
+        decisions identical to the single-device session and to
+        :meth:`solve_batch`.
         """
         B = len(slot_rows)
         if coupling is not None and coupling.num_cells != B:
@@ -338,6 +380,8 @@ class SESM:
                 or sess.coupling_ref is not coupling
                 or sess.pools_ref is not pools
                 or sess.sem_ref is not model
+                or isinstance(sess.dev, ShardedStack)
+                != (self.mesh is not None)
                 or not np.array_equal(sess.pool_state,
                                       self._pool_state(B, pools))):
             sess = self._serve_session = None
@@ -372,12 +416,18 @@ class SESM:
                 return out if wait else PendingSolve.ready(out)
             self.restacks += 1
         self._sync_rows(sess, slot_rows)
-        dispatched = dispatch_device_batch(sess.dev, flexible=flexible,
-                                           inner=self.inner)
+        if isinstance(sess.dev, ShardedStack):
+            dispatched = dispatch_sharded_batch(sess.dev, flexible=flexible,
+                                                inner=self.inner)
+            block = unpack_sharded_batch
+        else:
+            dispatched = dispatch_device_batch(sess.dev, flexible=flexible,
+                                               inner=self.inner)
+            block = unpack_device_batch
         unpack = self._slot_unpacker(sess, slot_rows, out)
         if wait:
-            return unpack(unpack_device_batch(dispatched))
-        return PendingSolve(lambda: unpack(unpack_device_batch(dispatched)))
+            return unpack(block(dispatched))
+        return PendingSolve(lambda: unpack(block(dispatched)))
 
     def ready_solve(self, request_sets, coupling=None,
                     pools=None) -> PendingSolve:
@@ -410,9 +460,19 @@ class SESM:
         tmax = next_pow2(max([len(rows) for rows in slot_rows] + [1]))
         price = np.stack([p.price for p in cell_pools])
         cap = np.stack([p.capacity for p in cell_pools])
-        dev = empty_device_stack(
-            grid, price, cap, tmax, coupling=coupling,
-            semantic=bool(self.algorithm["semantic"]), device=self.device)
+        if self.mesh is not None:
+            # metro mode: the session lives ON the mesh — coupling groups are
+            # shard-planned here, once; every later tick is delta scatters
+            # through that plan plus one batched solve per device
+            dev = empty_sharded_stack(
+                grid, price, cap, tmax, self.mesh, coupling=coupling,
+                semantic=bool(self.algorithm["semantic"]))
+            self.shard_replans += 1
+        else:
+            dev = empty_device_stack(
+                grid, price, cap, tmax, coupling=coupling,
+                semantic=bool(self.algorithm["semantic"]),
+                device=self.device)
         return _ServeSession(
             dev=dev, grid=grid, z_grid=default_z_grid(),
             names=[p.names for p in cell_pools],

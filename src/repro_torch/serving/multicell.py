@@ -31,10 +31,11 @@ Cache lifecycle (what persists across ticks, and what invalidates it):
   matches (counter ``sesm.restacks``); rebuilt fresh — and therefore with
   fresh device halves — when the batch size changes or a cell's task count
   overflows the bucket (``sesm.fresh_stacks``).
-* The DEVICE half — ``core.sfesp.device_stack`` — is memoized ON the host
-  stack object, so a restack (a NEW object sharing the old buffers)
-  implicitly drops it; see the "Device half" section of ``core/sfesp.py``
-  for the cache keys.
+* The DEVICE halves — ``core.sfesp.device_stack`` (single-device) and
+  ``device_stack_sharded`` (metro mesh) — are memoized ON the host stack
+  object, so a restack (a NEW object sharing the old buffers) implicitly
+  drops them; see the "Device half" section of ``core/sfesp.py`` for the
+  cache keys.
 * ``SESM._serve_session`` — the fully device-resident state of the
   :meth:`MultiCellEngine.reslice` fast path. Dirty slot indices reported by
   ``CellRuntime.sync_slots(consume=True)`` ACCUMULATE in
@@ -46,8 +47,20 @@ Cache lifecycle (what persists across ticks, and what invalidates it):
 
 The engine runs on one ``device`` (``"cuda"`` by default): the serve
 session's tables live there, the re-slice's admission solve runs there (one
-K1 launch on a card) and so do the cells' vision jobs (K3). The reference's METRO mode
-(a mesh-resident sharded session) is not ported yet.
+K1 launch on a card) and so do the cells' vision jobs (K3).
+
+With a cells ``mesh`` configured (``launch/mesh.py::make_cells_mesh``) the
+engine is in METRO mode: the serve session itself is MESH-RESIDENT
+(``core/sfesp.py::ShardedStack``) — the coupling groups are shard-planned
+once when the session builds, each tick's dirty slots scatter through the
+group-major perm (``ShardedStack.update_rows``), and the re-slice solves as
+one batched solve per device of the mesh (one K1 launch per card,
+``core.greedy.dispatch_sharded_batch``). No host restack after tick 0: the
+same delta fast path as the single-device engine, with the solve split
+one-block-of-coupling-groups-per-shard. The full-rebuild reference path
+(:meth:`MultiCellEngine.reslice_rebuild`) routes through
+``core.greedy.solve_greedy_sharded`` on a mesh and stays bit-identical. The
+engine's ``device`` (the vision jobs') is then the mesh's first device.
 
 FAULT PLANE. The engine degrades gracefully instead of assuming healthy
 topologies:
@@ -135,6 +148,12 @@ class MultiCellEngine:
         per cell. ``None`` re-slices the cells as independent what-ifs
         (still one device program).
       max_retries: per-request rejection budget of every cell's retry queue.
+      mesh: optional 1-D cells mesh (``launch/mesh.py::make_cells_mesh``).
+        When set, re-slices solve through ``core.greedy.
+        solve_greedy_sharded`` / the mesh-resident session — one block of
+        coupling groups per shard — instead of the single-device engine
+        (metro mode; see the module docstring). Decisions are identical
+        either way.
       preempt: enable the tier-aware POST-SOLVE preemption pass: when a
         re-slice rejects a candidate while a strictly lower-priority task
         keeps running in its coupling group, the engine preempts the
@@ -142,17 +161,19 @@ class MultiCellEngine:
         freed rows as a delta — the solver itself stays SLA-blind, and only
         the second round's decisions are applied. See :meth:`_preempt_pass`.
       device: where the serve session, the admission solve and the vision
-        jobs run; ``"cuda"`` by default (raises when no card is visible).
+        jobs run; ``"cuda"`` by default (raises when no card is visible);
+        with a ``mesh``, the mesh's first device.
     """
 
     def __init__(self, pools: list[ResourcePool], *,
                  coupling: CouplingSpec | None = None, lat_params=None,
                  max_batch: int = 8, max_retries: int = 2,
-                 solver_backend: str = "numpy",
+                 solver_backend: str = "numpy", mesh=None,
                  tier_policy: TierPolicy | None = None,
                  preempt: bool = False, heartbeat_timeout: int = 3,
                  device="cuda"):
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            device if mesh is None else mesh.devices[0])
         pools = list(pools)
         if not pools:
             raise ValueError("MultiCellEngine needs at least one cell pool")
@@ -171,7 +192,7 @@ class MultiCellEngine:
         self.coupling = coupling
         self.sdla = SDLA(lat_params or LatencyParams())
         self.sesm = SESM(pools[0], self.sdla, backend=solver_backend,
-                         device=self.device)
+                         device=self.device, mesh=mesh)
         # shared request-id → cell index, maintained by every CellRuntime
         # enter/leave path (submit, hand-in/out, departure, drop, shed,
         # drain) — the O(1) locate() the event stream routes through
@@ -555,7 +576,14 @@ class MultiCellEngine:
         nothing) → apply per-cell (evictions flagged, rejected requests
         re-queued). Decisions are identical to the full-rebuild
         :meth:`reslice_rebuild` path; ``sesm.fresh_stacks``/``restacks``/
-        ``delta_rows`` expose the session-cache health."""
+        ``delta_rows`` expose the session-cache health.
+
+        In metro mode (a ``mesh`` was configured) the session is
+        mesh-resident: the same dirty-slot deltas scatter into a
+        ``ShardedStack`` through the shard plan and the solve runs as one
+        batched solve per device of the mesh — same decisions, and the
+        256-cell tick keeps ``session_rebuilds == 0`` with zero restacks in
+        steady state."""
         return self.reslice_commit(self.reslice_dispatch())
 
     def reslice_dispatch(self):
@@ -603,8 +631,9 @@ class MultiCellEngine:
         task (greater tier number) kept running in its coupling group, one
         victim is preempted — lowest priority first, newest arrival first
         within a tier, then by cell index — and the freed rows re-solve as
-        an ordinary dirty-row delta on the live device session. Victims pay
-        the
+        an ordinary dirty-row delta on the live device session (in metro
+        mode that session is mesh-resident and the re-solve is sharded).
+        Victims pay the
         standard eviction price (one retry consumed, pin cleared, re-queued
         or dropped; ``CellRuntime.preempt``); a surviving victim's row is
         hidden from the re-solve only — its slot re-dirties afterwards, so

@@ -465,3 +465,28 @@ def test_prefill_through_the_kernel_on_card(cuda_device):
             assert torch.allclose(gcache["scan"]["pos0"][n][i].cpu(),
                                   wcache["scan"]["pos0"][n][i], rtol=1e-5,
                                   atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 8])
+def test_sharded_solve_on_one_card_is_one_launch_on_card(n, cuda_device):
+    """n shards of one card: the sharded solve decides as the meshless
+    ``solve_greedy_batch`` bit for bit, with one ``batch_solve`` launch per
+    solve (one device, one launch) and no one-round launch."""
+    from repro_torch.core import (scenarios, solve_greedy_batch,
+                                  solve_greedy_sharded)
+    from repro_torch.launch.mesh import make_cells_mesh
+    insts, _ = scenarios.metro_diurnal_trace(64, n_domains=8, hours=(13,))
+    want = solve_greedy_batch(insts, device=cuda_device)
+    mesh = make_cells_mesh(n, devices=[cuda_device])
+    solve, rnd = PK.SOLVE_KERNEL.launches, PK.ROUND_KERNEL.launches
+    got = solve_greedy_sharded(insts, mesh=mesh)
+    assert PK.SOLVE_KERNEL.launches == solve + 1
+    assert PK.ROUND_KERNEL.launches == rnd
+    for a, b in zip(want, got):
+        assert np.array_equal(a.admitted, b.admitted)
+        assert np.array_equal(a.alloc, b.alloc)
+        assert np.array_equal(a.z, b.z)
+    twin = solve_greedy_sharded(insts, mesh=mesh, inner="torch")
+    for a, b in zip(twin, got):
+        assert np.array_equal(a.admitted, b.admitted)
