@@ -1,17 +1,19 @@
-"""Port of ``src/repro/models/attention.py``: GQA/MQA attention for prefill,
-full-causal and sliding-window.
+"""Port of ``src/repro/models/attention.py``: GQA/MQA attention for prefill
+and for the encoder's forward pass, full (causal or not) and
+sliding-window, and the encoder-decoder's cross-attention.
 
-Full-causal attention with no window is kernel K4
-(``kernels/attn/attn.py::flash_attention_fwd``): the CUDA kernel on a CUDA
-tensor, its plain version on a CPU tensor. That is the function the
-reference computes there with its chunked streaming softmax in jnp. The
-sliding-window kind keeps the reference's banded plain path: per query
-chunk one KV slice of width window + chunk, masked softmax in float32.
+Full attention with no window is kernel K4
+(``kernels/attn/attn.py::flash_attention_fwd``), causal or not and with
+Tq != Tk for cross-attention: the CUDA kernel on a CUDA tensor, its plain
+version on a CPU tensor. That is the function the reference computes there
+with its chunked streaming softmax in jnp. The sliding-window kind keeps
+the reference's banded plain path: per query chunk one KV slice of width
+window + chunk, masked softmax in float32.
 
 Sliding-window layers use a rolling (ring) KV cache of length ``window``
 (Mistral-style): slot ``i`` holds the newest position ≡ i (mod window).
-``attn_train``, ``attn_decode`` and cross-attention wait (ROADMAP.md,
-queue 1).
+``attn_decode`` and ``cross_attn_decode`` wait (ROADMAP.md, queue 1); the
+training forward is here for the encoder, without its backward.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from ..kernels.attn import attn as attn_kernel
 from .common import TensorSpec
 from .layers import apply_rotary, dense_init, rms_norm, rotary_cos_sin
 
-__all__ = ["attn_init", "attn_prefill", "cache_spec", "flash_attention"]
+__all__ = ["attn_init", "attn_prefill", "attn_train", "cache_spec",
+           "cross_attn_train", "flash_attention"]
 
 NEG = -1e30
 
@@ -126,8 +129,22 @@ def flash_attention(q, k, v, *, causal: bool, window: int | None,
 
 
 # ---------------------------------------------------------------------------
-# prefill entry point
+# train (forward) and prefill entry points
 # ---------------------------------------------------------------------------
+
+def attn_train(params, x, cfg, kind: str, *, rope: bool = True,
+               causal: bool = True):
+    """Reference ``attn_train`` (attention.py:177), forward: x (B, T, d) →
+    (B, T, d). The whisper encoder calls it with ``causal=False``; with no
+    window that is K4, non-causal."""
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=x.device)[None, :]
+    q, k, v = _project(params, x, cfg, positions, rope=rope)
+    window = cfg.window if kind == "local" else None
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
+    return o.reshape(b, t, -1) @ params["wo"]
+
 
 def cache_spec(cfg, kind: str, batch: int, seq_len: int, dtype):
     """Shape of the KV cache for one attention layer of the given kind."""
@@ -169,3 +186,21 @@ def attn_prefill(params, x, cfg, kind: str, cache_len: int):
         k_c[:, :t] = k
         v_c[:, :t] = v
     return y, {"k": k_c, "v": v_c}
+
+
+# --- cross attention (whisper decoder) --------------------------------------
+
+def cross_attn_train(params, x, enc, cfg):
+    """Reference ``cross_attn_train`` (attention.py:266): x (B, Td, d)
+    queries, enc (B, Te, d) keys and values; no RoPE, no qk-norm, no mask.
+    K4 with ``causal=False`` and Tq != Tk. Returns (y, the ``{"k", "v"}``
+    cross cache)."""
+    b, t, _ = x.shape
+    te = enc.shape[1]
+    dh = cfg.d_head
+    q = (x @ params["wq"]).reshape(b, t, cfg.n_heads, dh)
+    k = (enc @ params["wk"]).reshape(b, te, cfg.n_kv_heads, dh)
+    v = (enc @ params["wv"]).reshape(b, te, cfg.n_kv_heads, dh)
+    o = flash_attention(q, k, v, causal=False, window=None,
+                        chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
+    return o.reshape(b, t, -1) @ params["wo"], {"k": k, "v": v}

@@ -1,10 +1,11 @@
 """Port of ``src/repro/models/blocks.py``: per-kind transformer blocks with
-pre-norm residual wiring, for prefill.
+pre-norm residual wiring, for prefill and for the encoder's forward pass.
 
-Kinds "attn" (full causal) and "local" (sliding window) with a dense FFN.
-MoE FFNs, the recurrent kinds ("rec", "rwkv") and cross-attention
-(``cross=True``) raise ``NotImplementedError`` until their modules are
-ported (ROADMAP.md, queue 1); so do train and decode.
+Kinds "attn" (full attention), "local" (sliding window), "rec" (RG-LRU)
+and "rwkv" (RWKV-6 time and channel mix); the FFN of the attention and
+"rec" kinds is the MoE FFN in an MoE config. The encoder-decoder adds
+cross-attention with ``cross=True``. Decode, and the training forward of
+every kind but "attn" and "local", wait (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -12,52 +13,138 @@ from __future__ import annotations
 import torch
 
 from . import attention as attn
+from . import moe as moe_mod
+from . import recurrent as rec
+from . import rwkv as rwkv_mod
+from .common import TensorSpec
 from .layers import mlp_apply, mlp_init, rms_norm
 
-__all__ = ["block_init", "block_prefill", "block_cache_spec"]
+__all__ = ["block_init", "block_prefill", "block_train", "block_decode",
+           "block_cache_spec"]
 
-WAITS = ("waits for its port: ROADMAP.md queue 1, the LM stack's "
-         "MoE / 'rec' / 'rwkv' / encoder-decoder item")
+KINDS = ("attn", "local", "rec", "rwkv")
+WAITS = "waits for its port: ROADMAP.md queue 1"
 
 
-def _supported(cfg, kind: str, cross: bool = False):
-    if kind not in ("attn", "local", "rec", "rwkv"):
+def _kind(kind: str):
+    if kind not in KINDS:
         raise ValueError(kind)
-    if kind in ("rec", "rwkv"):
-        raise NotImplementedError(f"block kind {kind!r} {WAITS}")
+
+
+def _ffn_init(generator, cfg, dtype, device):
+    """Reference ``_ffn_init`` (blocks.py:24)."""
     if cfg.is_moe:
-        raise NotImplementedError(f"the MoE FFN {WAITS}")
-    if cross:
-        raise NotImplementedError(f"cross-attention {WAITS}")
+        return moe_mod.moe_init(generator, cfg, dtype, device=device)
+    return mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype,
+                    device=device)
+
+
+def _ffn_apply(params, x, cfg):
+    """Reference ``_ffn_apply`` (blocks.py:30) on one device: an MoE FFN
+    takes ``moe_apply``'s dense form, as the reference's does without a
+    mesh."""
+    if cfg.is_moe:
+        return moe_mod.moe_apply(params, x, cfg)
+    return mlp_apply(params, x, cfg.mlp_kind)
 
 
 def block_init(generator, cfg, kind: str, dtype, *, cross: bool = False,
                device=None):
-    _supported(cfg, kind, cross)
+    """Reference ``block_init`` (blocks.py:37)."""
+    _kind(kind)
     d = cfg.d_model
     dev = device or generator.device
-    return {
-        "ln1": torch.zeros((d,), dtype=dtype, device=dev),
-        "ln2": torch.zeros((d,), dtype=dtype, device=dev),
-        "attn": attn.attn_init(generator, cfg, dtype=dtype, device=device),
-        "ffn": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                        dtype, device=device),
-    }
+    p = {"ln1": torch.zeros((d,), dtype=dtype, device=dev),
+         "ln2": torch.zeros((d,), dtype=dtype, device=dev)}
+    if kind in ("attn", "local"):
+        p["attn"] = attn.attn_init(generator, cfg, dtype=dtype, device=dev)
+        p["ffn"] = _ffn_init(generator, cfg, dtype, dev)
+    elif kind == "rec":
+        p["rec"] = rec.rglru_init(generator, cfg, dtype, device=dev)
+        p["ffn"] = _ffn_init(generator, cfg, dtype, dev)
+    else:
+        p.update(rwkv_mod.rwkv_init(generator, cfg, dtype, device=dev))
+    if cross:
+        p["ln_cross"] = torch.zeros((d,), dtype=dtype, device=dev)
+        p["cross"] = attn.attn_init(generator, cfg, cross=True, dtype=dtype,
+                                    device=dev)
+    return p
+
+
+def block_train(params, x, cfg, kind: str, *, enc=None,
+                causal: bool = True):
+    """Reference ``block_train`` (blocks.py:57), forward, for the attention
+    kinds (the encoder's "attn" blocks); the other kinds' training forward
+    waits (ROADMAP.md queue 1)."""
+    _kind(kind)
+    if kind not in ("attn", "local"):
+        raise NotImplementedError(f"the training forward of {kind!r} "
+                                  f"blocks {WAITS}")
+    eps = cfg.norm_eps
+    x = x + attn.attn_train(params["attn"], rms_norm(x, params["ln1"], eps),
+                            cfg, kind, causal=causal)
+    if "cross" in params:
+        c, _ = attn.cross_attn_train(
+            params["cross"], rms_norm(x, params["ln_cross"], eps), enc, cfg)
+        x = x + c
+    return x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
+                          cfg)
 
 
 def block_cache_spec(cfg, kind: str, batch: int, cache_len: int, dtype,
                      *, cross_len: int = 0):
-    _supported(cfg, kind, bool(cross_len))
-    return attn.cache_spec(cfg, kind, batch, cache_len, dtype)
+    """Reference ``block_cache_spec`` (blocks.py:89): the KV cache of an
+    attention kind or the state of a recurrent one, plus the cross cache
+    of ``cross_len`` encoder positions."""
+    _kind(kind)
+    if kind in ("attn", "local"):
+        spec = attn.cache_spec(cfg, kind, batch, cache_len, dtype)
+    elif kind == "rec":
+        spec = rec.rglru_state_spec(cfg, batch, dtype)
+    else:
+        spec = rwkv_mod.rwkv_state_spec(cfg, batch, dtype)
+    if cross_len:
+        shp = (batch, cross_len, cfg.n_kv_heads, cfg.d_head)
+        spec = dict(spec)
+        spec["cross"] = {"k": TensorSpec(shp, dtype),
+                         "v": TensorSpec(shp, dtype)}
+    return spec
 
 
-def block_prefill(params, x, cfg, kind: str, cache_len: int):
-    _supported(cfg, kind, "cross" in params)
+def block_prefill(params, x, cfg, kind: str, cache_len: int, *, enc=None):
+    """Reference ``block_prefill`` (blocks.py:107): (x, the block's cache)."""
+    _kind(kind)
     eps = cfg.norm_eps
-    h, cache = attn.attn_prefill(params["attn"],
-                                 rms_norm(x, params["ln1"], eps), cfg, kind,
-                                 cache_len)
+    if kind in ("attn", "local"):
+        h, cache = attn.attn_prefill(params["attn"],
+                                     rms_norm(x, params["ln1"], eps), cfg,
+                                     kind, cache_len)
+        x = x + h
+        if "cross" in params:
+            c, cache["cross"] = attn.cross_attn_train(
+                params["cross"], rms_norm(x, params["ln_cross"], eps), enc,
+                cfg)
+            x = x + c
+        x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
+                           cfg)
+        return x, cache
+    if kind == "rec":
+        h, state = rec.rglru_train(params["rec"],
+                                   rms_norm(x, params["ln1"], eps), cfg)
+        x = x + h
+        x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
+                           cfg)
+        return x, state
+    h, st_att = rwkv_mod.rwkv_time_mix(params, rms_norm(x, params["ln1"], eps),
+                                       cfg)
     x = x + h
-    x = x + mlp_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                      cfg.mlp_kind)
-    return x, cache
+    h, st_ffn = rwkv_mod.rwkv_channel_mix(
+        params, rms_norm(x, params["ln2"], eps), cfg)
+    return x + h, {**st_att, **st_ffn}
+
+
+def block_decode(params, x, cache, pos, cfg, kind: str):
+    """Reference ``block_decode`` (blocks.py:137): the one-token step of
+    every kind waits for the decode slice (ROADMAP.md queue 1, item 3)."""
+    _kind(kind)
+    raise NotImplementedError(f"decode of {kind!r} blocks {WAITS}")

@@ -1,13 +1,15 @@
 """Port of ``src/repro/models/model.py``: parameters, caches and prefill of
-the composable model stack.
+the composable model stack, decoder-only or encoder-decoder.
 
 The parameter tree is the reference's: ``embed``, ``final_ln``,
 ``scan.pos{i}`` (each leaf stacked over a leading ``n_repeats`` axis),
-``rem`` (the remainder layers, a tuple) and ``lm_head`` unless the
-embeddings are tied — so ``repro_torch.convert.lm_params`` maps a reference
-tree leaf for leaf. The reference's ``lax.scan`` over repeats is a Python
-loop here. ``forward_train``, ``loss_fn``, ``decode_step`` and the
-encoder-decoder stack wait (ROADMAP.md, queue 1).
+``rem`` (the remainder layers, a tuple), ``lm_head`` unless the
+embeddings are tied, and for an encoder-decoder ``enc_in_proj`` and
+``enc`` (``scan.pos0`` over the encoder layers, ``final_ln``) — so
+``repro_torch.convert.lm_params`` maps a reference tree leaf for leaf. The
+reference's ``lax.scan`` over repeats is a Python loop here.
+``forward_train``, ``loss_fn`` and ``decode_step`` wait (ROADMAP.md,
+queue 1).
 """
 
 from __future__ import annotations
@@ -33,28 +35,31 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
-def _no_encdec(cfg):
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"the encoder-decoder stack {blocks.WAITS}")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _stack_init(generator, cfg, kinds, dtype, n: int, device):
-    """Stacked params for n repeats of the given pattern positions."""
-    reps = [{f"pos{i}": blocks.block_init(generator, cfg, kind, dtype,
-                                          device=device)
-             for i, kind in enumerate(kinds)} for _ in range(n)]
-    return _tree_map(lambda *xs: torch.stack(xs), *reps)
+def _stack_init(generator, cfg, kinds, dtype, n: int, device, *,
+                cross: bool = False):
+    """Stacked params for n repeats of the given pattern positions, drawn
+    repeat by repeat into the stacked tensors (so the peak is the stack
+    plus one repeat, not twice the stack)."""
+    stacked = None
+    for r in range(n):
+        rep = {f"pos{i}": blocks.block_init(generator, cfg, kind, dtype,
+                                            cross=cross, device=device)
+               for i, kind in enumerate(kinds)}
+        if stacked is None:
+            stacked = _tree_map(
+                lambda t: t.new_empty((n,) + tuple(t.shape)), rep)
+        _tree_map(lambda dst, src, r=r: dst[r].copy_(src), stacked, rep)
+    return stacked
 
 
 def init_params(generator, cfg, device=None):
     """Random parameters of ``cfg`` drawn from ``generator`` (a
-    ``torch.Generator`` on ``device``, which defaults to the generator's)."""
-    _no_encdec(cfg)
+    ``torch.Generator`` on ``device``, which defaults to the generator's).
+    Reference ``init_params`` (model.py:49)."""
     dtype = _dtype(cfg)
     device = torch.device(device) if device is not None else generator.device
     d = cfg.d_model
@@ -63,53 +68,90 @@ def init_params(generator, cfg, device=None):
                             dtype=dtype, device=device),
         "final_ln": torch.zeros((d,), dtype=dtype, device=device),
     }
+    cross = cfg.is_encdec
     params["scan"] = _stack_init(generator, cfg, cfg.block_pattern, dtype,
-                                 cfg.n_repeats, device)
+                                 cfg.n_repeats, device, cross=cross)
     rem = cfg.remainder_kinds
     if rem:
         params["rem"] = tuple(
-            blocks.block_init(generator, cfg, kind, dtype, device=device)
+            blocks.block_init(generator, cfg, kind, dtype, cross=cross,
+                              device=device)
             for kind in rem)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, (d, cfg.vocab_size),
                                        scale=0.02, dtype=dtype, device=device)
+    if cfg.is_encdec:
+        params["enc_in_proj"] = dense_init(generator, (d, d), dtype=dtype,
+                                           device=device)
+        params["enc"] = {
+            "scan": _stack_init(generator, cfg, ("attn",), dtype,
+                                cfg.encoder_layers, device),
+            "final_ln": torch.zeros((d,), dtype=dtype, device=device),
+        }
     return params
+
+
+def _encode(params, enc_input, cfg):
+    """Reference ``_encode`` (model.py:102): the stub frame embeddings
+    through the input adapter, the bidirectional "attn" stack (RoPE,
+    ``causal=False``) and the encoder's final norm."""
+    x = enc_input.to(_dtype(cfg)) @ params["enc_in_proj"]
+    stack = params["enc"]["scan"]["pos0"]
+    for r in range(cfg.encoder_layers):
+        rep = _tree_map(lambda t, r=r: t[r], stack)
+        x = blocks.block_train(rep, x, cfg, "attn", causal=False)
+    return rms_norm(x, params["enc"]["final_ln"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
 # serving: prefill
 # ---------------------------------------------------------------------------
 
-def cache_specs(cfg, batch: int, cache_len: int):
-    """Shape/dtype tree of the KV cache (``TensorSpec`` leaves)."""
-    _no_encdec(cfg)
+def cache_specs(cfg, batch: int, cache_len: int, *, enc_len: int = 0):
+    """Shape/dtype tree of the KV and state cache (``TensorSpec`` leaves);
+    an encoder-decoder's blocks add the cross cache of ``enc_len`` encoder
+    positions. Reference ``cache_specs`` (model.py:155)."""
     dtype = _dtype(cfg)
+    cross_len = enc_len if cfg.is_encdec else 0
 
     def stack(spec):
-        return {k: type(s)((cfg.n_repeats,) + s.shape, s.dtype)
-                for k, s in spec.items()}
+        return _tree_map(lambda s: type(s)((cfg.n_repeats,) + s.shape,
+                                           s.dtype), spec)
 
     cache = {"scan": {
         f"pos{i}": stack(blocks.block_cache_spec(cfg, kind, batch, cache_len,
-                                                 dtype))
+                                                 dtype, cross_len=cross_len))
         for i, kind in enumerate(cfg.block_pattern)}}
     rem = cfg.remainder_kinds
     if rem:
         cache["rem"] = tuple(
-            blocks.block_cache_spec(cfg, kind, batch, cache_len, dtype)
+            blocks.block_cache_spec(cfg, kind, batch, cache_len, dtype,
+                                    cross_len=cross_len)
             for kind in rem)
     return cache
 
 
-def init_cache(cfg, batch: int, cache_len: int, *, device="cuda"):
-    specs = cache_specs(cfg, batch, cache_len)
+def init_cache(cfg, batch: int, cache_len: int, *, enc_len: int = 0,
+               device="cuda"):
+    """Reference ``init_cache`` (model.py:178): the zero cache."""
+    specs = cache_specs(cfg, batch, cache_len, enc_len=enc_len)
     return _tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                            device=device), specs)
 
 
 def prefill(params, batch, cfg, cache_len: int):
-    """Full forward over the prompt; returns (last-token logits, cache)."""
-    _no_encdec(cfg)
+    """Full forward over the prompt; returns (last-token logits, cache).
+    Reference ``prefill`` (model.py:183): an encoder-decoder first encodes
+    ``batch["enc_input"]`` (B, frames, d) and its decoder blocks attend to
+    that. On one device, as the reference without a mesh: an MoE FFN is
+    the dense form."""
+    enc = None
+    if cfg.is_encdec:
+        if "enc_input" not in batch:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its "
+                             "prefill needs batch['enc_input'], the (B, "
+                             "frames, d_model) frame embeddings")
+        enc = _encode(params, batch["enc_input"], cfg)
     tokens = batch["tokens"]
     x = params["embed"].index_select(0, tokens.reshape(-1)).reshape(
         tuple(tokens.shape) + (cfg.d_model,))
@@ -119,13 +161,13 @@ def prefill(params, batch, cfg, cache_len: int):
         for i, kind in enumerate(cfg.block_pattern):
             rep = _tree_map(lambda t, r=r: t[r], params["scan"][f"pos{i}"])
             x, caches[f"pos{i}"] = blocks.block_prefill(rep, x, cfg, kind,
-                                                        cache_len)
+                                                        cache_len, enc=enc)
         per_rep.append(caches)
     cache = {"scan": _tree_map(lambda *xs: torch.stack(xs), *per_rep)}
     if params.get("rem"):
         rem_caches = []
         for p, kind in zip(params["rem"], cfg.remainder_kinds):
-            x, c = blocks.block_prefill(p, x, cfg, kind, cache_len)
+            x, c = blocks.block_prefill(p, x, cfg, kind, cache_len, enc=enc)
             rem_caches.append(c)
         cache["rem"] = tuple(rem_caches)
     x = rms_norm(x[:, -1:], params["final_ln"], cfg.norm_eps)

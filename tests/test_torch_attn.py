@@ -6,7 +6,10 @@ K4's plain version (the CUDA kernel has no host mode; ``tests/
 test_torch_cuda.py`` holds the kernel against it on a card). It is held
 against the reference's Pallas kernel in interpret mode and its oracle
 ``attention_ref``; the port's ``models.attention.flash_attention`` against
-the reference's chunked jnp version, with and without a window. Inputs are
+the reference's chunked jnp version, with and without a window; the
+encoder's ``attn_train`` (causal or not) and the decoder's
+``cross_attn_train`` against the reference's, with the K4 calls they
+make recorded. Inputs are
 unit normals from a seeded numpy generator. Tolerances: 2e-5 in float32
 (sums in another order), 3e-2 in bfloat16 (one bf16 rounding of outputs
 of order 1), the reference's own in ``tests/test_kernels_attn.py``.
@@ -126,3 +129,76 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         args, err = (q, k[:, :, :, :4], k), ValueError
     with pytest.raises(err):
         flash_attention_fwd(*args)
+
+
+def _attn_params(name, *, cross=False):
+    """The reference's ``attn_init`` weights for smoke config ``name``, as
+    (jax config, port config, jax params, port params)."""
+    import dataclasses
+    import jax
+    from repro.configs import get_smoke_config
+    from repro.models.attention import attn_init
+    from repro_torch.models import ModelConfig
+    jcfg = get_smoke_config(name)
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
+    jp = attn_init(jax.random.PRNGKey(3), jcfg, cross=cross)
+    if not cross and cfg.qk_norm:        # nonzero norm scales
+        jp = dict(jp, q_scale=jp["q_scale"] + 0.3, k_scale=jp["k_scale"] - 0.2)
+    return jcfg, cfg, jp, {k: torch.from_numpy(np.array(v))
+                           for k, v in jp.items()}
+
+
+def _k4_calls(monkeypatch):
+    """Record the causal flag and shapes of every call of K4's wrapper
+    from the model's attention."""
+    calls = []
+    wrapped = MA.attn_kernel.flash_attention_fwd
+
+    def spy(q, k, v, *, causal=True):
+        calls.append((tuple(q.shape), tuple(k.shape), causal))
+        return wrapped(q, k, v, causal=causal)
+    monkeypatch.setattr(MA.attn_kernel, "flash_attention_fwd", spy)
+    return calls
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("name", ["whisper-tiny", "qwen3-moe-235b-a22b",
+                                  "mixtral-8x7b"])
+def test_attn_train_matches_reference(name, causal, rng, monkeypatch):
+    """The forward of ``attn_train``: RoPE, qk-norm (qwen3) and, with no
+    window, K4 with the given ``causal`` (the whisper encoder's is
+    False); mixtral's "local" kind takes the banded plain path."""
+    from repro.models.attention import attn_train as j_train
+    jcfg, cfg, jp, tp = _attn_params(name)
+    kind = cfg.block_pattern[0]
+    x = rng.standard_normal((2, 37, cfg.d_model)).astype(np.float32)
+    calls = _k4_calls(monkeypatch)
+    got = MA.attn_train(tp, torch.from_numpy(x), cfg, kind, causal=causal)
+    want = j_train(jp, jnp.asarray(x), jcfg, kind, causal=causal)
+    _close(got, want, _TOL["float32"])
+    if kind == "local":
+        assert calls == []
+    else:
+        h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        assert calls == [((2, 37, h, dh), (2, 37, kv, dh), causal)]
+
+
+@pytest.mark.parametrize("te", [50, 23])
+def test_cross_attn_train_matches_reference(te, rng, monkeypatch):
+    """Decoder queries over encoder keys: no RoPE, no mask, K4 non-causal
+    with Tq != Tk; the cross cache is the un-rotated k and v."""
+    from repro.models.attention import cross_attn_train as j_cross
+    jcfg, cfg, jp, tp = _attn_params("whisper-tiny", cross=True)
+    assert "q_scale" not in tp
+    x = rng.standard_normal((2, 37, cfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((2, te, cfg.d_model)).astype(np.float32)
+    calls = _k4_calls(monkeypatch)
+    y, cache = MA.cross_attn_train(tp, torch.from_numpy(x),
+                                   torch.from_numpy(enc), cfg)
+    jy, jcache = j_cross(jp, jnp.asarray(x), jnp.asarray(enc), jcfg)
+    _close(y, jy, _TOL["float32"])
+    assert sorted(cache) == ["k", "v"]
+    for key in ("k", "v"):
+        _close(cache[key], jcache[key], _TOL["float32"])
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    assert calls == [((2, 37, h, dh), (2, te, kv, dh), False)]

@@ -12,7 +12,10 @@ summed from the rounded P — and is held against the reference's Pallas
 kernel in interpret mode and against ``attention_ref``, within rtol 2^-7,
 atol 3e-2 (a bf16 P can move a rounded output of magnitude >= 4 by one bf16
 ulp, 0.031), at chatglm3-6b's head geometry, at Dh = 120 and 256, and at
-the packed short-prompt shape of the engine's LM jobs.
+the packed short-prompt shape of the engine's LM jobs. The card tests
+hold the kernel tighter, row by row (``_bf16_excess``): the model meets
+that tolerance at the whisper-tiny and qwen3-moe shapes, and a tail tile
+dropped or left unmasked at Tk = 1500 does not.
 """
 
 import math
@@ -70,6 +73,22 @@ def _qkv(rng, b, tq, tk, hq, hkv, dh):
         out.append((j, torch.from_numpy(np.array(j.astype(jnp.float32)))
                     .to(torch.bfloat16)))
     return out
+
+
+def _bf16_excess(out, ref):
+    """The card tests' bf16 tolerance (``tests/test_torch_cuda.py``): each
+    element within 2^-7 |ref| + 2^-6 rms(ref's row over Dh) of ``ref``, the
+    plain version in float32. Returns the largest share of it."""
+    ref = ref.float()
+    rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
+    return ((out.float() - ref).abs()
+            / (2 ** -7 * ref.abs() + 2 ** -6 * rms)).max().item()
+
+
+def _normals(rng, b, tq, tk, hq, hkv, dh):
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(torch.bfloat16)
+            for s in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh))]
 
 
 def _close(got, want):
@@ -175,3 +194,38 @@ def test_tc_model_tolerance_is_needed_and_enough(rng):
     want = np.asarray(j_ref(jq, jk, jv), np.float32)
     assert np.allclose(got, want, rtol=RTOL, atol=ATOL)
     assert np.abs(got - want).max() > 0.5 * 2 ** -7 * 4
+
+
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,dh,causal", [
+    (2, 1500, 1500, 6, 6, 64, False),   # the whisper-tiny encoder
+    (2, 448, 1500, 6, 6, 64, False),    # its cross-attention
+    (2, 448, 448, 6, 6, 64, True),      # its decoder
+    (1, 2048, 2048, 16, 1, 128, True),  # one of qwen3-moe's KV heads
+    (8, 16, 16, 32, 2, 128, True)])     # the engine's chatglm3 LM job
+def test_tc_model_within_the_card_tolerance(b, tq, tk, hq, hkv, dh, causal,
+                                            rng):
+    """The kernel's arithmetic stays within half the card tests' row-scaled
+    bf16 tolerance of the plain version in float32 (its bf16 P moves a row
+    by a few thousandths of the row's rms)."""
+    q, k, v = _normals(rng, b, tq, tk, hq, hkv, dh)
+    want = PA.flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                      causal=causal)
+    assert _bf16_excess(_tc_model(q, k, v, causal=causal), want) <= 0.75
+
+
+def test_card_tolerance_catches_a_lost_or_unmasked_tail(rng):
+    """At Tk = 1500 (a 28-key tail in 64-key tiles) an output averages
+    ~550 values of v, so |out| ~0.04: the kernel with its tail tile
+    dropped, or with the tail left unmasked (K and V zero-filled to a whole
+    tile), fails the row-scaled tolerance. The unmasked tail passes the
+    flat rtol 2^-7, atol 3e-2, which is as large as the outputs."""
+    q, k, v = _normals(rng, 2, 1500, 1500, 6, 6, 64)
+    want = PA.flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                      causal=False)
+    dropped = _tc_model(q, k[:, :1472], v[:, :1472], causal=False)
+    zeros = torch.zeros(2, 36, 6, 64, dtype=torch.bfloat16)
+    unmasked = _tc_model(q, torch.cat([k, zeros], 1),
+                         torch.cat([v, zeros], 1), causal=False)
+    assert _bf16_excess(dropped, want) > 10
+    assert _bf16_excess(unmasked, want) > 1.2
+    assert torch.allclose(unmasked.float(), want, rtol=RTOL, atol=ATOL)

@@ -31,6 +31,19 @@ def _random_round(rng, b, t, a, m, occupied_frac=0.5):
     return lat, alive, grid, price, cap, occ
 
 
+def _bf16_excess(out, ref):
+    """K4's bf16 tolerance, as ``chip_smoke.py``'s ``K4_BF16_TOL``: each
+    element of ``out`` within 2^-7 |ref| + 2^-6 rms(ref's row over Dh) of
+    ``ref``, the plain version in float32 on the same inputs (twice the
+    output's half-ulp rounding, plus the bf16 P's error, which scales with
+    the row: a row averaging 1500 keys is held as tightly as a short one).
+    Returns the largest share of it; at most 1 passes."""
+    ref = ref.float()
+    rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
+    return ((out.float() - ref).abs()
+            / (2 ** -7 * ref.abs() + 2 ** -6 * rms)).max().item()
+
+
 @pytest.fixture
 def cuda_device():
     if not kernels.available():
@@ -343,21 +356,25 @@ def test_kernels_launch_on_the_callers_stream_on_card(cuda_device, rng):
     (8, 16, 16, 32, 2, 128, True), (1, 1000, 1000, 32, 2, 128, True),
     (2, 77, 77, 32, 8, 120, True), (2, 333, 333, 16, 8, 256, True),
     (1, 1, 1, 4, 4, 16, True), (2, 33, 33, 4, 2, 16, True),
-    (2, 24, 40, 4, 2, 8, False), (1, 130, 17, 6, 3, 64, False)])
+    (2, 24, 40, 4, 2, 8, False), (1, 130, 17, 6, 3, 64, False),
+    # the whisper-tiny encoder, cross-attention and decoder, qwen3-moe's
+    # 64 query over 4 KV heads
+    (2, 1500, 1500, 6, 6, 64, False), (2, 448, 1500, 6, 6, 64, False),
+    (2, 448, 448, 6, 6, 64, True), (2, 2048, 2048, 64, 4, 128, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh, causal,
                                             dtype, cuda_device, rng):
     """K4 against its plain version on unit normals, through the route
     ``flash_attention_fwd`` takes: float32 on the CUDA-core kernel within
     2e-5 (sums in another order); bfloat16 (every Dh here is a multiple of
-    8) on the tensor-core kernel within rtol 2^-7, atol 3e-2 (P is rounded
-    to bf16 before the second product, which can move a rounded output of
-    magnitude >= 4 by one bf16 ulp, 0.031)."""
+    8) on the tensor-core kernel within ``_bf16_excess``'s tolerance of the
+    plain version in float32."""
     from repro_torch.kernels.attn import attn as PA
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(cuda_device, dtype)
                for s in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh)))
-    ref = PA.flash_attention_fwd_ref(q, k, v, causal=causal)
+    ref = PA.flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                     causal=causal)
     routed = PA.FLASH_TC_KERNEL if dtype == torch.bfloat16 \
         else PA.FLASH_CORE_KERNEL
     before, routed_before = PA.FLASH_KERNEL.launches, routed.launches
@@ -369,28 +386,29 @@ def test_flash_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh, causal,
     if dtype == torch.float32:
         assert torch.allclose(out, ref, rtol=0, atol=2e-5)
     else:
-        assert torch.allclose(out.float(), ref.float(), rtol=2 ** -7,
-                              atol=3e-2)
+        assert _bf16_excess(out, ref) <= 1.0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_wide_heads_on_card(dtype, cuda_device, rng):
     """Dh = 320 goes to the CUDA-core kernel's Dh <= 512 tile in both
-    types (the tensor-core tiles stop at 256), within 2e-5 (f32) and rtol
-    2^-7, atol 3e-2 (bf16 in and out); Dh = 520 raises."""
+    types (the tensor-core tiles stop at 256), within 2e-5 (f32) and
+    ``_bf16_excess``'s tolerance (bf16 in and out) of the plain version in
+    float32; Dh = 520 raises."""
     from repro_torch.kernels.attn import attn as PA
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(cuda_device, dtype)
                for s in ((2, 77, 8, 320), (2, 77, 4, 320), (2, 77, 4, 320)))
-    ref = PA.flash_attention_fwd_ref(q, k, v)
+    ref = PA.flash_attention_fwd_ref(q.float(), k.float(), v.float())
     before = PA.FLASH_CORE_KERNEL.launches
     out = PA.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     assert PA.FLASH_CORE_KERNEL.launches == before + 1
-    tol = (0, 2e-5) if dtype == torch.float32 else (2 ** -7, 3e-2)
-    assert torch.allclose(out.float(), ref.float(), rtol=tol[0],
-                          atol=tol[1])
+    if dtype == torch.float32:
+        assert torch.allclose(out, ref, rtol=0, atol=2e-5)
+    else:
+        assert _bf16_excess(out, ref) <= 1.0
     wide = torch.zeros(1, 4, 2, 520, device=cuda_device, dtype=dtype)
     with pytest.raises(ValueError, match="520"):
         PA.flash_attention_fwd(wide, wide, wide)
@@ -404,7 +422,8 @@ def test_tc_kernel_packs_short_prompts_on_card(b, t, hq, hkv, dh,
                                                cuda_device, rng):
     """Short prompts pack a KV head's G query heads into one 64-row tile
     (row r is head r // T at t = r % T): the tensor-core kernel against the
-    plain version and the CUDA-core kernel on the same bf16 inputs."""
+    plain version (in float32) and the CUDA-core kernel on the same bf16
+    inputs, within ``_bf16_excess``'s tolerance."""
     from repro_torch.kernels.attn import attn as PA
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(cuda_device, torch.bfloat16)
@@ -414,9 +433,9 @@ def test_tc_kernel_packs_short_prompts_on_card(b, t, hq, hkv, dh,
     core = PA.launch("cuda_cores", q, k, v)
     torch.cuda.synchronize()
     assert PA.FLASH_TC_KERNEL.launches == before + 1
-    for want in (PA.flash_attention_fwd_ref(q, k, v), core):
-        assert torch.allclose(out.float(), want.float(), rtol=2 ** -7,
-                              atol=3e-2)
+    for want in (PA.flash_attention_fwd_ref(q.float(), k.float(),
+                                            v.float()), core):
+        assert _bf16_excess(out, want) <= 1.0
 
 
 @pytest.mark.cuda
@@ -465,6 +484,53 @@ def test_prefill_through_the_kernel_on_card(cuda_device):
             assert torch.allclose(gcache["scan"]["pos0"][n][i].cpu(),
                                   wcache["scan"]["pos0"][n][i], rtol=1e-5,
                                   atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k4", [("mixtral-8x7b", 0),
+                                     ("qwen3-moe-235b-a22b", 2),
+                                     ("recurrentgemma-9b", 0),
+                                     ("rwkv6-1.6b", 0), ("whisper-tiny", 6)])
+def test_slice8_prefill_on_card_matches_host(name, k4, cuda_device):
+    """The MoE, RG-LRU, RWKV and encoder-decoder smoke models' prefill on
+    the card against the same prefill on the host, float32: logits within
+    2e-5, caches within 5e-5 plus 1e-5 relative (other sums of the
+    products). K4 launches: one a full-attention layer (whisper: 2
+    encoder, 2 decoder self- and 2 cross-attention layers)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.models import init_params, prefill
+    cfg = get_smoke_config(name)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 37), dtype=np.int32))}
+    if cfg.is_encdec:
+        batch["enc_input"] = torch.from_numpy(rng.standard_normal(
+            (2, 50, cfg.d_model)).astype(np.float32))
+    want, wcache = prefill(params, batch, cfg, cache_len=40)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(to_card(v) for v in tree)
+        return tree.to(cuda_device)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, tuple):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+    before = PA.FLASH_KERNEL.launches
+    got, gcache = prefill(to_card(params), to_card(batch), cfg,
+                          cache_len=40)
+    torch.cuda.synchronize()
+    assert PA.FLASH_KERNEL.launches == before + k4
+    assert torch.allclose(got.cpu(), want, rtol=0, atol=2e-5)
+    for g, w in zip(leaves(gcache), leaves(wcache), strict=True):
+        assert torch.allclose(g.cpu(), w, rtol=1e-5, atol=5e-5)
 
 
 @pytest.mark.cuda

@@ -1,12 +1,17 @@
-"""The port's dense attention stack against the JAX reference, on the CPU.
+"""The port's model stack against the JAX reference, on the CPU: all ten
+configs' prefill (dense and MoE FFNs, "attn", "local", "rec" and "rwkv"
+blocks, the whisper encoder-decoder with its cross caches).
 
 The reference's ``init_params`` draws the weights; ``repro_torch.convert.
 lm_params`` carries them into the port, and both ``prefill``s run the same
-seeded tokens. T = 37 with ``cache_len=40`` exceeds the smoke window of 16,
-so the sliding-window kinds fill and rotate their ring caches. Everything
-is float32: logits within 2e-5 and cache tensors within 5e-5 absolute plus
-1e-5 relative (sums of products in another order through each layer's
-projections, the cache being unnormalised projections of width up to 4096).
+seeded tokens (whisper also the same seeded (2, 50, d) frame embeddings).
+T = 37 with ``cache_len=40`` exceeds the smoke window of 16, so the
+sliding-window kinds fill and rotate their ring caches, and is not a
+multiple of the recurrent chunk (8), so the scans pad their tails.
+Everything is float32: logits within 2e-5 and cache tensors within 5e-5
+absolute plus 1e-5 relative (sums of products in another order through
+each layer's projections, the cache being unnormalised projections of
+width up to 8192 and float32 recurrent states).
 """
 
 import dataclasses
@@ -38,6 +43,17 @@ from repro_torch.models import layers as TL  # noqa: E402
 
 DENSE = ["chatglm3-6b", "h2o-danube-3-4b", "gemma3-12b", "chameleon-34b",
          "granite-34b"]
+ALL = list(TC.ARCHS)
+# head geometries of three configs at smoke width: (config, reductions)
+HEADS = {
+    "chatglm3-heads": ("chatglm3-6b", dict(n_heads=32, n_kv_heads=2,
+                                           d_head=128)),
+    "qwen3-heads": ("qwen3-moe-235b-a22b", dict(n_heads=64, n_kv_heads=4,
+                                                d_head=128)),
+    "whisper-heads": ("whisper-tiny", dict(n_heads=6, n_kv_heads=6,
+                                           d_head=64)),
+}
+ENC_LEN = 50
 
 
 def _port_cfg(jcfg) -> ModelConfig:
@@ -77,22 +93,32 @@ def test_configs_are_copies_of_the_reference():
             == j_get_config(name).param_count()
 
 
-@pytest.mark.parametrize("name", DENSE + ["chatglm3-heads"])
+def _batches(cfg, t=37):
+    """The same seeded tokens (and, for an encoder-decoder, (2, ENC_LEN, d)
+    frame embeddings) for the reference and the port."""
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, t),
+                                             dtype=np.int32)
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    if cfg.is_encdec:
+        e = np.random.default_rng(2).standard_normal(
+            (2, ENC_LEN, cfg.d_model)).astype(np.float32)
+        jb["enc_input"], tb["enc_input"] = jnp.asarray(e), torch.from_numpy(e)
+    return jb, tb
+
+
+@pytest.mark.parametrize("name", ALL + list(HEADS))
 def test_prefill_matches_reference(name):
-    if name == "chatglm3-heads":   # chatglm3's head geometry at smoke width
-        jcfg = j_reduce(j_get_config("chatglm3-6b"), n_heads=32,
-                        n_kv_heads=2, d_head=128)
+    if name in HEADS:             # a config's head geometry at smoke width
+        arch, heads = HEADS[name]
+        jcfg = j_reduce(j_get_config(arch), **heads)
     else:
         jcfg = j_get_smoke(name)
     cfg = _port_cfg(jcfg)
     jparams = j_init(jax.random.PRNGKey(0), jcfg)
     params = lm_params(jax.tree.map(np.asarray, jparams), cfg, "cpu")
-    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 37),
-                                             dtype=np.int32)
-    jl, jc = j_prefill(jparams, {"tokens": jnp.asarray(toks)}, jcfg,
-                       cache_len=40)
-    tl, tc = prefill(params, {"tokens": torch.from_numpy(toks)}, cfg,
-                     cache_len=40)
+    jb, tb = _batches(cfg)
+    jl, jc = j_prefill(jparams, jb, jcfg, cache_len=40)
+    tl, tc = prefill(params, tb, cfg, cache_len=40)
     assert tl.shape == (2, cfg.vocab_size) and tl.dtype == torch.float32
     assert np.allclose(_np(tl), _np(jl), atol=2e-5, rtol=0)
     jflat, tflat = _flat(jc), _flat(tc)
@@ -103,8 +129,15 @@ def test_prefill_matches_reference(name):
                            rtol=1e-5), path
 
 
-@pytest.mark.parametrize("name", DENSE)
+def _dtype_name(dt):
+    return str(dt).removeprefix("torch.")
+
+
+@pytest.mark.parametrize("name", ALL)
 def test_param_and_cache_trees_match_reference(name):
+    """Keys, shapes and types of the parameter and cache trees (the MoE
+    router float32, recurrent states float32, whisper's cross caches of
+    ``enc_len`` positions)."""
     jcfg = j_get_smoke(name)
     cfg = _port_cfg(jcfg)
     jp = _flat(jax.eval_shape(lambda k: j_init(k, jcfg),
@@ -113,14 +146,40 @@ def test_param_and_cache_trees_match_reference(name):
     assert list(jp) == list(tp)
     for path, spec in jp.items():
         assert tuple(tp[path].shape) == spec.shape, path
-        assert tp[path].dtype == torch.float32
-    jcs = _flat(j_cache_specs(jcfg, 3, 24))
-    tcs = _flat(cache_specs(cfg, 3, 24))
-    assert {p: s.shape for p, s in jcs.items()} \
-        == {p: s.shape for p, s in tcs.items()}
-    zeros = _flat(init_cache(cfg, 3, 24, device="cpu"))
+        assert _dtype_name(tp[path].dtype) == str(spec.dtype), path
+    enc_len = 7 if cfg.is_encdec else 0
+    jcs = _flat(j_cache_specs(jcfg, 3, 24, enc_len=enc_len))
+    tcs = _flat(cache_specs(cfg, 3, 24, enc_len=enc_len))
+    assert {p: (s.shape, str(s.dtype)) for p, s in jcs.items()} \
+        == {p: (s.shape, _dtype_name(s.dtype)) for p, s in tcs.items()}
+    assert any("cross" in p for p in tcs) == cfg.is_encdec
+    zeros = _flat(init_cache(cfg, 3, 24, enc_len=enc_len, device="cpu"))
     assert all(not z.any() and tuple(z.shape) == tcs[p].shape
-               for p, z in zeros.items())
+               and z.dtype == tcs[p].dtype for p, z in zeros.items())
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "qwen3-moe-235b-a22b",
+                                  "recurrentgemma-9b", "rwkv6-1.6b",
+                                  "whisper-tiny"])
+def test_lm_params_carries_a_bf16_tree_as_it_is(name):
+    """``lm_params`` maps the reference's tree generically: every new leaf
+    arrives with its key, shape and type (the MoE router float32 in a
+    bf16 model), bit for bit."""
+    jcfg = dataclasses.replace(j_get_smoke(name), param_dtype="bfloat16")
+    cfg = _port_cfg(jcfg)
+    jflat = _flat(jax.tree.map(np.asarray,
+                               j_init(jax.random.PRNGKey(0), jcfg)))
+    tflat = _flat(lm_params(jax.tree.map(np.asarray,
+                                         j_init(jax.random.PRNGKey(0), jcfg)),
+                            cfg, "cpu"))
+    assert list(jflat) == list(tflat)
+    for path, a in jflat.items():
+        t = tflat[path]
+        assert _dtype_name(t.dtype) == str(a.dtype), path
+        assert np.array_equal(t.float().numpy(), a.astype(np.float32)), path
+    routers = [p for p in tflat if p.endswith("/router")]
+    assert bool(routers) == cfg.is_moe
+    assert all(tflat[p].dtype == torch.float32 for p in routers)
 
 
 def test_full_width_params_keep_the_configured_type():
@@ -181,15 +240,38 @@ def test_mlp_and_norm_match_reference(kind, rng):
                        np.asarray(JL.softcap(jnp.asarray(x), 2.0)), atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "recurrentgemma-9b",
-                                  "rwkv6-1.6b", "whisper-tiny"])
-def test_unported_kinds_name_the_roadmap(name):
+@pytest.mark.parametrize("kind", ["attn", "local", "rec", "rwkv"])
+def test_decode_and_train_still_name_the_roadmap(kind):
+    """Decode waits for every kind, the training forward for the recurrent
+    ones (ROADMAP.md queue 1); the attention kinds' forward is the
+    encoder's."""
+    name = {"attn": "chatglm3-6b", "local": "mixtral-8x7b",
+            "rec": "recurrentgemma-9b", "rwkv": "rwkv6-1.6b"}[kind]
     cfg = TC.get_smoke_config(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cache_specs(cfg, 1, 8)
-    if not cfg.is_encdec:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TB.block_init(torch.Generator(), cfg, cfg.block_pattern[0],
-                          torch.float32)
+    p = TB.block_init(torch.Generator().manual_seed(0), cfg, kind,
+                      torch.float32)
+    x = torch.zeros(1, 4, cfg.d_model)
+    cache = init_cache(cfg, 1, 8, device="cpu")["scan"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        TB.block_decode(p, x[:, :1], cache, 4, cfg, kind)
+    if kind in ("rec", "rwkv"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+            TB.block_train(p, x, cfg, kind)
+    else:
+        assert TB.block_train(p, x, cfg, kind).shape == x.shape
+    with pytest.raises(ValueError):
+        TB.block_init(torch.Generator(), cfg, "global", torch.float32)
+
+
+def test_encoder_decoder_prefill_needs_its_frames():
+    cfg = TC.get_smoke_config("whisper-tiny")
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.zeros(1, 5, dtype=torch.int32)
+    with pytest.raises(ValueError, match="enc_input"):
+        prefill(params, {"tokens": toks}, cfg, cache_len=8)
+    frames = torch.zeros(1, 9, cfg.d_model)
+    logits, cache = prefill(params, {"tokens": toks, "enc_input": frames},
+                            cfg, cache_len=8)
+    assert logits.shape == (1, cfg.vocab_size)
+    assert cache["scan"]["pos0"]["cross"]["k"].shape \
+        == (cfg.n_repeats, 1, 9, cfg.n_kv_heads, cfg.d_head)

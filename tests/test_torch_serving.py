@@ -218,6 +218,34 @@ def test_serve_launcher_runs_on_the_host(capsys):
     assert "h2o-danube-3-4b" in eng.runtime._models
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b",
+                                  "recurrentgemma-9b", "rwkv6-1.6b"])
+def test_serve_launcher_serves_the_token_only_configs(arch, capsys):
+    """The launcher serves the MoE, RG-LRU and RWKV smoke models with no
+    code of their own; the LM job's logits are the reference ``prefill``'s
+    on the same weights and token draw, within 2e-5 (float32 prefills,
+    sums in another order)."""
+    import jax
+    from repro.configs import get_smoke_config as j_get_smoke
+    from repro.models import prefill as j_prefill
+    from repro_torch.launch import serve
+    eng = serve.main(["--device", "cpu", "--arch", arch, "--ticks", "1"])
+    assert capsys.readouterr().out.count("admitted=True") == 4
+    assert all(rt.jobs_done > 0 for rt in eng.tasks.values())
+    cfg, params, _ = eng.runtime._models[arch]
+    (lm,) = [rt for rt in eng.tasks.values()
+             if rt.decision.request.model == arch]
+    got = eng.runtime._run_lm_job(lm, 3)
+    toks = np.random.default_rng(eng.runtime.step).integers(
+        0, cfg.vocab_size, size=(3, 16), dtype=np.int32)
+    jparams = jax.tree.map(lambda t: np.array(t.numpy()), params)
+    want = np.asarray(j_prefill(jparams, {"tokens": toks}, j_get_smoke(arch),
+                                cache_len=32)[0])
+    assert got.dtype == np.float32 and got.shape == want.shape \
+        == (3, cfg.vocab_size)
+    assert np.allclose(got, want, atol=2e-5, rtol=0)
+
+
 def test_serve_launcher_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the CUDA default does not raise")
