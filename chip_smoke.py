@@ -4,9 +4,9 @@
 Drives the port (``src/repro_torch``, never the JAX package) through its
 slices on the card — the multi-cell serving tick, the paper's
 single-instance evaluation, the serving engine's LM-service jobs, the
-metro-scale sharded solve with its mesh-resident serving session, and the
+metro-scale sharded solve with its mesh-resident serving session, the
 MoE, RG-LRU, RWKV-6 and encoder-decoder prefills of the other five LM
-configs — and
+configs, and the decode that continues a prefill — and
 holds every hand-written kernel of those paths against its plain PyTorch
 version:
 
@@ -153,7 +153,31 @@ version:
    where its own router logits would choose others, the choice must be a
    near-tie (``routing_flips``). Wall ms, device busy
    share, K4's share and peak memory (the K4 run's, and the config's
-   whole run's) are printed.
+   whole run's) are printed;
+14. SLICE 9'S MAIN PATH, decode (on chatglm3-6b's weights after phase 9,
+   on each of phase 13's five models after its prefill checks, then on
+   gemma3-12b at full width and depth, bf16, seed 0: 5 local layers with
+   a 1024 window to 1 global, so a 2048-token prompt wraps its ring):
+   ``prefill`` at B = 2, T = 2048 (whisper: 416 tokens after its 1500
+   frames) with ``cache_len`` T + 32, then 32 teacher-forced
+   ``decode_step``s, counts zeroed just before and read just after (K4
+   once a full-attention layer in the prefill, on the tensor-core kernel,
+   never in a step); the 32 steps again from the same cache, bit for bit,
+   timed (ms a step, tokens/s); each step's bound (the weights, every
+   expert of a dense MoE, and the cache read once at 3.35 TB/s); 4 steps
+   under ``torch.profiler`` (launches a step, device busy share); peak
+   memory. ``forward_train`` over the T + 32 tokens: each block fed its
+   input there, ``block_prefill`` on its first T rows and
+   ``block_decode`` on the next 32, within ``PREFILL_BLOCK_TOL`` of the
+   forward's block output row's rms (an MoE block takes the forward's
+   experts; where its own logits would choose others, a near-tie), and
+   the free-running decode's logits against the forward's at the same
+   positions, reported (max abs diff, top-1 agreement), not bounded. Then
+   in float32 at two pattern repeats (gemma3-12b six layers) on all seven
+   configs: prefill plus 32 steps within ``DECODE_F32_TOL`` of
+   ``forward_train``'s logits, and a step at ``pos == cache_len`` whose
+   every attention call matches a float64 statement of the reference's
+   clamped update (``clamp_oracle``). The phase's time is printed.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -209,7 +233,12 @@ K4_SHAPES = ((8, 16, 16, 32, 2, 128, True), (2, 2048, 2048, 32, 2, 128, True),
              # slice 8: the whisper-tiny encoder, its cross-attention and
              # decoder (G = 1, Dh 64), qwen3-moe (G = 16)
              (2, 1500, 1500, 6, 6, 64, False), (2, 448, 1500, 6, 6, 64, False),
-             (2, 448, 448, 6, 6, 64, True), (2, 2048, 2048, 64, 4, 128, True))
+             (2, 448, 448, 6, 6, 64, True), (2, 2048, 2048, 64, 4, 128, True),
+             # slice 9: gemma3-12b's global layers (Dh 256 at T = 2048), and
+             # whisper's decoder over a 416-token prompt, not a whole number
+             # of 64-row tiles, on itself and on its 1500 frames
+             (2, 2048, 2048, 16, 8, 256, True), (2, 416, 416, 6, 6, 64, True),
+             (2, 416, 1500, 6, 6, 64, False))
 # K4 heads wider than the tensor-core tiles (route: the CUDA-core kernel's
 # Dh <= 512 tile, in both types)
 K4_WIDE_SHAPES = ((2, 77, 77, 8, 4, 320, True), (1, 40, 100, 4, 2, 320, False))
@@ -248,6 +277,24 @@ SLICE8_RESERVE = 16 * 2 ** 30
 # whisper-tiny's prefill: 1500 encoder frames (30 s of audio) and its
 # longest target, 448 decoder tokens
 WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
+# slice 9: 32 decode steps after each prompt (whisper: 416 tokens, so that
+# its 448-token cache is its longest target), on these configs in bf16 (the
+# MoE ones at phase 13's fitting depths) and, at two pattern repeats, in
+# float32, where prefill plus decode must continue forward_train's logits
+# within DECODE_F32_TOL (the reference's own check holds 1e-4 at smoke
+# width; full width sums 10-100 times more terms a product) and a step at
+# pos == cache_len must match the float64 clamp oracle within
+# DECODE_CLAMP_TOL of its output row's rms (float32 against float64)
+DECODE_STEPS = 32
+# decode steps in phase 14's trace (launches a step, busy share): every
+# step launches the same kernels, and the trace gathers each launch on the
+# host (qwen3-moe's dense MoE, a loop over its 128 experts a layer, makes
+# thousands a step)
+DECODE_TRACE_STEPS = 2
+SLICE9 = ("chatglm3-6b", "gemma3-12b", "recurrentgemma-9b", "rwkv6-1.6b",
+          "whisper-tiny", "mixtral-8x7b", "qwen3-moe-235b-a22b")
+DECODE_F32_TOL = 1e-3
+DECODE_CLAMP_TOL = 1e-4
 
 
 def log(*args):
@@ -951,15 +998,16 @@ def phase_serving(dev):
     return launches, sesm._serve_session.dev, zs
 
 
-def profile_call(fn, what: str):
+def profile_call(fn, what: str, warm: bool = True):
     """Where one call of ``fn`` spends its time: wall time, device busy
     time (summed kernel time), launches and the top kernels, from a
     ``torch.profiler`` trace of a warm call (launches: every device event,
-    kernels and copies). Returns (wall us, device us by kernel name,
-    launches)."""
+    kernels and copies); ``warm=False`` where ``fn`` has just run. Returns
+    (wall us, device us by kernel name, launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1597,21 +1645,10 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T, k4=None):
     def run():
         return prefill(params, batch, cfg, cache_len=t)
     kernel_route = MA.attn_kernel
-    calls = []
-
-    def recorded(q, k, v, *, causal=True):
-        out = PA.flash_attention_fwd(q, k, v, causal=causal)
-        calls.append((q, k, v, causal, out))
-        return out
-    # the first run warms and records; the second is timed
-    MA.attn_kernel = types.SimpleNamespace(flash_attention_fwd=recorded)
-    try:
-        with RouteLog() as routes, BlockLog() as blocks:
-            logits, cache = run()
-    finally:
-        MA.attn_kernel = kernel_route
-    per_call = path_calls_within(calls, f"{cfg.name} prefill")
-    del calls
+    # the first run warms and checks; the second is timed
+    with RouteLog() as routes, BlockLog() as blocks, K4Checked() as checked:
+        logits, cache = run()
+    per_call = checked.held(f"{cfg.name} prefill")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     PA.FLASH_KERNEL.launches = 0
@@ -1718,38 +1755,70 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T, k4=None):
                 k4_share_of_busy=k4_us / max(busy, 1e-9))
 
 
-def path_calls_within(calls, what: str) -> float:
-    """Each K4 call of a path, recorded as (q, k, v, causal, out), against
-    the plain version in float32 on its inputs, within the phase-8
-    tolerance (``k4_excess``): the kernel held at the inputs the path gave
-    it, layer by layer, whatever the depth. Returns the largest share of
-    the tolerance."""
+def k4_call_excess(q, k, v, causal, out) -> float:
+    """One K4 call against the plain version in float32 on its inputs, as
+    a share of the phase-8 tolerance (``k4_excess``). A KV head of a batch
+    row at a time: float32 scores of one head group (0.27 GB at qwen3's 16
+    query heads a KV head, T = 2048)."""
     import torch
     from repro_torch.kernels.attn import attn as PA
-    worst = 0.0
-    if not calls:
-        return worst
-    for q, k, v, causal, out in calls:
-        # a KV head of a batch row at a time: float32 scores of one head
-        # group (0.27 GB at qwen3's 16 query heads a KV head, T = 2048)
-        ref = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-        g = q.shape[2] // k.shape[2]
-        for b in range(q.shape[0]):
-            for h in range(k.shape[2]):
-                heads = slice(h * g, (h + 1) * g)
-                ref[b:b + 1, :, heads] = PA.flash_attention_fwd_ref(
-                    q[b:b + 1, :, heads].float(),
-                    k[b:b + 1, :, h:h + 1].float(),
-                    v[b:b + 1, :, h:h + 1].float(), causal=causal)
-        worst = max(worst, k4_excess(out, ref))
-        del ref
-    log(f"[prefill] {what}: each of its {len(calls)} K4 calls within "
-        f"{worst:.3f} of the tolerance of the plain version in float32 on "
-        "the call's own inputs")
-    if worst > 1.0:
-        raise AssertionError(f"{what}: a K4 call differs from its plain "
-                             f"version by {worst:.3g}x the tolerance")
-    return worst
+    ref = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    g = q.shape[2] // k.shape[2]
+    for b in range(q.shape[0]):
+        for h in range(k.shape[2]):
+            heads = slice(h * g, (h + 1) * g)
+            ref[b:b + 1, :, heads] = PA.flash_attention_fwd_ref(
+                q[b:b + 1, :, heads].float(),
+                k[b:b + 1, :, h:h + 1].float(),
+                v[b:b + 1, :, h:h + 1].float(), causal=causal)
+    return k4_excess(out, ref)
+
+
+class K4Checked:
+    """K4 on the full-attention route, each call checked as it returns
+    against the plain version in float32 on its own inputs, within the
+    phase-8 tolerance (``k4_call_excess``), and dropped, so that no call's
+    tensors outlive it: the kernel held at the inputs the path gave it,
+    layer by layer, whatever the depth. ``calls`` counts them, ``worst``
+    is the largest share of the tolerance and ``check_s`` the seconds the
+    checks took, which a timed run takes out (each check starts on a
+    synchronized card)."""
+
+    def __enter__(self):
+        import types
+        import torch
+        from repro_torch.kernels.attn import attn as PA
+        from repro_torch.models import attention as MA
+        self._ma, self._route = MA, MA.attn_kernel
+        self.calls, self.worst, self.check_s = 0, 0.0, 0.0
+
+        def checked(q, k, v, *, causal=True):
+            out = PA.flash_attention_fwd(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.worst = max(self.worst,
+                             k4_call_excess(q, k, v, causal, out))
+            self.check_s += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        MA.attn_kernel = types.SimpleNamespace(flash_attention_fwd=checked)
+        return self
+
+    def __exit__(self, *exc):
+        self._ma.attn_kernel = self._route
+
+    def held(self, what: str) -> float:
+        """Logs the checked calls of ``what`` and fails if one was beyond
+        the tolerance. Returns the largest share of it."""
+        if self.calls:
+            log(f"[prefill] {what}: each of its {self.calls} K4 calls within "
+                f"{self.worst:.3f} of the tolerance of the plain version in "
+                "float32 on the call's own inputs")
+        if self.worst > 1.0:
+            raise AssertionError(f"{what}: a K4 call differs from its plain "
+                                 f"version by {self.worst:.3g}x the "
+                                 "tolerance")
+        return self.worst
 
 
 def yardsticks(run, kernel_route, routes, blocks, logits, pl):
@@ -1813,15 +1882,17 @@ def fitting_depth(cfg, free: int):
     return dataclasses.replace(cfg, n_layers=layers)
 
 
-def phase_slice8(dev, archs=SLICE8):
+def phase_slice8(dev, archs=SLICE8, decode=None):
     """Slice 8's main path: each config at full width in bf16 (random
     weights from a seeded generator on the card, one model at a time),
     depth cut where stated. The four token-only configs serve the
     launcher's engine (``phase_lm_serving``); every config runs its
-    prefill against its plain-attention twin (``phase_lm_prefill``).
-    Every config runs even after one fails; the phase then raises with
-    every failure. Returns each config's numbers, with the peak memory over
-    the config's whole run (init, engine, prefill and twins)."""
+    prefill against its plain-attention twin (``phase_lm_prefill``), then
+    ``decode(cfg, params)`` where given (slice 9's path on the same
+    weights). Every config runs even after one fails; the phase then
+    raises with every failure. Returns each config's numbers, with the peak
+    memory over the config's whole run (init, engine, prefill and
+    twins)."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -1864,6 +1935,8 @@ def phase_slice8(dev, archs=SLICE8):
                 f"{row['peak_gib']:.2f} GiB (weights "
                 f"{weights / 2**30:.2f} GiB; {free / 2**30:.2f} GiB free "
                 "before it)")
+            if decode is not None:
+                decode(cfg, params)
         except AssertionError as e:
             log(f"[slice8] {name} FAILED: {e}")
             failed.append(f"{name}: {e}")
@@ -1873,6 +1946,340 @@ def phase_slice8(dev, archs=SLICE8):
         out[name] = row
     if failed:
         raise AssertionError("slice 8: " + "; ".join(failed))
+    return out
+
+
+# --------------------------------------------------------------- phase 14
+
+def decode_layers(cfg, params):
+    """The decoder's blocks in call order: (parameters, kind) for each
+    repeat of the pattern, then the remainder layers."""
+    from repro_torch.models.model import _tree_map
+    out = []
+    for r in range(cfg.n_repeats):
+        for i, kind in enumerate(cfg.block_pattern):
+            out.append((_tree_map(lambda t, r=r: t[r],
+                                  params["scan"][f"pos{i}"]), kind))
+    out += list(zip(params.get("rem", ()), cfg.remainder_kinds))
+    return out
+
+
+def decode_bytes(cfg, params, cache, b) -> tuple[int, int]:
+    """(weight bytes, cache bytes) one decode step must read: every
+    decoder weight (every expert of a dense MoE) and the head, ``b`` rows
+    of an untied embedding, and every cache leaf; the encoder's weights
+    are not read."""
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves(tree))
+    weights = sum(nbytes(v) for k, v in params.items()
+                  if k not in ("embed", "enc", "enc_in_proj"))
+    emb = params["embed"]
+    weights += nbytes(emb) if cfg.tie_embeddings \
+        else b * emb.shape[1] * emb.element_size()
+    return weights, nbytes(cache)
+
+
+def decode_run(params, cache, toks, t, n, cfg):
+    """``n`` teacher-forced ``decode_step``s from ``cache`` (the prefill's
+    of ``t`` tokens): step j takes ``toks[:, t + j]`` at position t + j.
+    Returns the logits of each step and the last cache."""
+    from repro_torch.models import decode_step
+    out = []
+    for j in range(n):
+        lg, cache = decode_step(params, cache, toks[:, t + j], t + j, cfg)
+        out.append(lg)
+    return out, cache
+
+
+def block_fed(cfg, params, blocks, routes, t, n):
+    """Each block's prefill and decode on ``forward_train``'s input to it
+    (``BlockLog`` ``blocks``): the block's cache from ``block_prefill`` on
+    its first t input rows, then ``block_decode`` on rows t..t+n-1, each
+    output against ``forward_train``'s block output at that row, in units
+    of the row's rms. In an MoE model every step takes the forward's
+    experts (``RouteLog`` ``routes``); where its own router logits would
+    choose others, ``routing_flips`` must find a near-tie. Returns (largest
+    excess, flips, largest near-tie ratio)."""
+    import types
+    from repro_torch.models import blocks as MB
+    calls = blocks.calls[cfg.encoder_layers:]       # the decoder's
+    layers = decode_layers(cfg, params)
+    if len(calls) != len(layers):
+        raise AssertionError(f"forward_train ran {len(calls)} decoder "
+                             f"blocks, the model has {len(layers)}")
+    worst, flips, ratio, moe = 0.0, 0, 0.0, 0
+    for (p, kind), (x, enc, y) in zip(layers, calls):
+        force = None
+        if cfg.is_moe and "ffn" in p:
+            lg, idx = routes.logits[moe], routes.idx[moe]
+            moe += 1
+            cut = [slice(0, t)] + [slice(t + j, t + j + 1) for j in range(n)]
+            force = types.SimpleNamespace(idx=[idx[:, s] for s in cut],
+                                          logits=[lg[:, s] for s in cut])
+        with RouteLog(force=force) as own:
+            _, c = MB.block_prefill(p, x[:, :t], cfg, kind, t + n, enc=enc)
+            for j in range(n):
+                out, c = MB.block_decode(p, x[:, t + j:t + j + 1], c, t + j,
+                                         cfg, kind)
+                ref = y[:, t + j:t + j + 1].float()
+                rms = ref.pow(2).mean(-1, keepdim=True).sqrt().clamp(
+                    min=1e-30)
+                worst = max(worst, ((out.float() - ref).abs() / rms).max()
+                            .item())
+        if force is not None:
+            f, r = routing_flips(force, own, cfg.top_k)
+            flips += sum(f)
+            ratio = max(ratio, r)
+    return worst, flips, ratio
+
+
+def phase_decode(dev, cfg, params, t=PREFILL_T, n=DECODE_STEPS):
+    """Slice 9's main path on one bf16 model: ``prefill`` of B = 2 seeded
+    prompts of ``t`` tokens (``cache_len`` t + n) through K4, each K4 call
+    held to phase 8's tolerance on its own inputs (``K4Checked``, its
+    checks' time taken out of the prefill's), then ``n`` teacher-forced
+    ``decode_step``s, counts zeroed just before and read just after (K4
+    launches once a full-attention layer in the prefill, never in a step);
+    the steps again from the same cache, bit for bit (timed: ms a step,
+    tokens/s); one step's bound; a trace of ``DECODE_TRACE_STEPS`` steps
+    (launches a step, busy share). Then ``forward_train`` over the t + n
+    tokens, its K4 calls checked as the prefill's: each block fed its input
+    there (``block_fed``) within ``PREFILL_BLOCK_TOL`` of its row's rms,
+    and the free-running decode's logits against its logits at the same
+    positions (reported, not bounded). Returns the run's numbers."""
+    import torch
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.models import forward_train, prefill
+    b = PREFILL_B
+    start = time.perf_counter()
+    if cfg.is_encdec:
+        t = WHISPER_TOKENS - n
+    batch = prefill_batch(dev, cfg, b, t + n)
+    toks = batch["tokens"]
+    k4 = attention_layers(cfg)[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    PA.FLASH_KERNEL.launches = 0
+    with K4Checked() as pre:
+        t0 = time.perf_counter()
+        logits0, cache = prefill(params, dict(batch, tokens=toks[:, :t]),
+                                 cfg, cache_len=t + n)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    prefill_ms = 1e3 * (t1 - t0 - pre.check_s)
+    k4_prefill = PA.FLASH_KERNEL.launches
+    run, _ = decode_run(params, cache, toks, t, n, cfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = PA.FLASH_KERNEL.launches
+    if k4_prefill != k4 or launches != k4 \
+            or PA.FLASH_TC_KERNEL.launches != k4:
+        raise AssertionError(
+            f"{cfg.name}: K4 launched {k4_prefill} times in the prefill and "
+            f"{launches - k4_prefill} in the steps; {k4} (one a "
+            "full-attention layer, on the tensor-core kernel) and 0 "
+            "expected")
+    for lg in [logits0] + run:
+        if lg.shape != (b, cfg.vocab_size) or lg.device.type != dev.type \
+                or not torch.isfinite(lg.float()).all():
+            raise AssertionError(f"{cfg.name}: decode logits are not finite "
+                                 f"of shape {(b, cfg.vocab_size)} on the "
+                                 "card")
+    t3 = time.perf_counter()
+    again, last = decode_run(params, cache, toks, t, n, cfg)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t3) * 1e3 / n
+    peak = torch.cuda.max_memory_allocated()
+    if not all(torch.equal(a, c) for a, c in zip(run, again, strict=True)):
+        raise AssertionError(f"{cfg.name}: a repeat of the decode gave "
+                             "other logits")
+    w_bytes, c_bytes = decode_bytes(cfg, params, last, b)
+    bound_ms = (w_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3
+    del again, last
+    steps = DECODE_TRACE_STEPS
+    wall_us, kern, count = profile_call(
+        lambda: decode_run(params, cache, toks, t, steps, cfg),
+        f"{cfg.name} {steps} decode steps B={b} after {t}", warm=False)
+    busy = sum(kern.values())
+    # the functional cache's copies (each attention cache rewritten with its
+    # new slot, then re-stacked over the repeats) run as cat/stack kernels,
+    # as do the rotary's and the conv carry's small ones: an upper bound
+    copy_us = sum(us for name, us in kern.items()
+                  if "CatArrayBatchedCopy" in name)
+
+    with RouteLog() as routes, BlockLog() as blocks, K4Checked() as fwd:
+        full = forward_train(params, batch, cfg)
+    pre.held(f"{cfg.name} decode prefill")
+    fwd.held(f"{cfg.name} forward_train over {t + n} tokens")
+    if pre.calls != k4 or fwd.calls != k4:
+        raise AssertionError(f"{cfg.name}: {pre.calls} K4 calls checked in "
+                             f"the prefill, {fwd.calls} in forward_train; "
+                             f"{k4} each expected")
+    if full.shape != (b, t + n, cfg.vocab_size) \
+            or not torch.isfinite(full.float()).all():
+        raise AssertionError(f"{cfg.name}: forward_train logits are not "
+                             "finite of the expected shape")
+    ref = full[:, t - 1:t + n].float()
+    got = torch.stack([logits0] + run, dim=1).float()
+    free = (got - ref).abs().max().item()
+    top1 = (got.argmax(-1) == ref.argmax(-1)).sum().item()
+    del full, ref, got
+    excess, flips, ratio = block_fed(cfg, params, blocks, routes, t, n)
+    del blocks, routes
+    log(f"[decode] {cfg.name} ({cfg.n_layers} layers, bf16) B={b}, prompt "
+        f"{t}, {n} steps: prefill {prefill_ms:.1f} ms (less its K4 checks' "
+        f"{pre.check_s:.2f} s; {k4_prefill} K4 launches, none in the steps); {step_ms:.2f} ms a step, "
+        f"{b * 1e3 / step_ms:.1f} tokens/s; {count / steps:.0f} launches a "
+        f"step, device busy {100 * busy / wall_us:.1f} % over {steps} "
+        f"steps, the cache copies (cat/stack kernels) "
+        f"{copy_us / steps / 1e3:.3f} ms a step "
+        f"({100 * copy_us / max(busy, 1e-9):.1f} % of the busy time); "
+        f"bound {bound_ms:.3f} ms a step ({w_bytes / 1e9:.2f} GB of "
+        f"weights, {c_bytes / 1e9:.3f} GB of cache at 3.35 TB/s); peak "
+        f"memory {peak / 2**30:.2f} GiB; a repeat bit for bit; on "
+        f"{nvidia_smi()}")
+    log(f"[decode] {cfg.name}: each block fed forward_train's input within "
+        f"{excess:.4g} of its output row's rms (bound {PREFILL_BLOCK_TOL})"
+        + (f"; the forward's experts taken, own logits would differ at "
+           f"{flips} (layer, token) pairs, largest near-tie ratio "
+           f"{ratio:.3g}" if cfg.is_moe else "")
+        + f"; free-running logits vs forward_train's at the {n + 1} "
+        f"positions: max abs diff {free:.4g}, top-1 equal in {top1} of "
+        f"{b * (n + 1)} (reported, not bounded)")
+    if excess > PREFILL_BLOCK_TOL:
+        raise AssertionError(f"{cfg.name}: a block's decode differs from "
+                             f"forward_train beyond {PREFILL_BLOCK_TOL} of "
+                             "its row's rms")
+    if ratio > 1.0:
+        raise AssertionError(f"{cfg.name}: a block's decode routes "
+                             "differently from forward_train beyond a "
+                             "near-tie")
+    return dict(layers=cfg.n_layers, prompt=t, steps=n, batch=b,
+                phase_s=time.perf_counter() - start,
+                k4_launches=k4_prefill, prefill_ms=prefill_ms,
+                k4_calls_share_of_tolerance=dict(prefill=pre.worst,
+                                                 forward_train=fwd.worst),
+                first_steps_ms=1e3 * (t2 - t1), step_ms=step_ms,
+                tokens_per_s=b * 1e3 / step_ms, bound_ms=bound_ms,
+                weight_gb=w_bytes / 1e9, cache_gb=c_bytes / 1e9,
+                launches_per_step=count / steps,
+                copy_ms=copy_us / steps / 1e3, busy_ms=busy / steps / 1e3,
+                busy_share=busy / wall_us, peak_gib=peak / 2**30,
+                block_max_excess=excess, routing_flips=flips,
+                near_tie_ratio=ratio, free_running_max_diff=free,
+                free_running_top1=[top1, b * (n + 1)])
+
+
+def clamp_oracle(p, x, cache, pos, cfg, kind):
+    """``attn_decode``'s semantics at ``pos`` written out in float64 for a
+    step past a full cache: the new K/V (the port's projection) go to
+    slot ``min(pos, L - 1)`` of a full cache, as the reference's clamped
+    update, or to ``pos mod L`` of a ring, whose slot s then holds position
+    s + L·floor((pos - s) / L), valid within the window; every valid slot
+    scores. Returns (the new k, the new v, y)."""
+    import torch
+    from repro_torch.models import attention as MA
+    b, dh = x.shape[0], cfg.d_head
+    q, k, v = MA._project(p, x, cfg, torch.full((b, 1), pos,
+                                                device=x.device))
+    length = cache["k"].shape[1]
+    s = torch.arange(length, device=x.device)
+    if kind == "local":
+        slot = pos % length
+        held = s + length * torch.div(pos - s, length, rounding_mode="floor")
+        valid = (held >= 0) & (held > pos - cfg.window)
+    else:
+        slot = min(pos, length - 1)
+        valid = torch.ones(length, dtype=torch.bool, device=x.device)
+    k_c, v_c = cache["k"].clone(), cache["v"].clone()
+    k_c[:, slot], v_c[:, slot] = k[:, 0], v[:, 0]
+    g = cfg.n_heads // cfg.n_kv_heads
+    qh = (q * dh ** -0.5).reshape(b, cfg.n_kv_heads, g, dh).double()
+    sc = torch.einsum("bhgd,bkhd->bhgk", qh, k_c.double())
+    sc = sc.masked_fill(~valid, float("-inf"))
+    o = torch.einsum("bhgk,bkhd->bhgd", sc.softmax(-1), v_c.double())
+    y = o.reshape(b, 1, cfg.n_heads * dh) @ p["wo"].double()
+    return k_c, v_c, y
+
+
+def phase_decode_f32(dev, archs=SLICE9, n=DECODE_STEPS):
+    """Decode's exactness in float32 on the card, each config at full width
+    and a depth of two pattern repeats (gemma3-12b: six layers, five local
+    and one global, its ring wrapped by the prompt), B = 2: the prefill of
+    ``PREFILL_T`` tokens (whisper: 416 after 1500 frames) plus ``n``
+    teacher-forced steps within ``DECODE_F32_TOL`` of ``forward_train``'s
+    logits at the same positions; then a step at ``pos == cache_len``,
+    whose every attention call must match ``clamp_oracle`` (new K/V bit
+    for bit, output within ``DECODE_CLAMP_TOL`` of its row's rms) and
+    leave every other slot as it was. Returns each config's numbers."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as MA
+    from repro_torch.models import decode_step, forward_train, prefill
+    out = {}
+    for name in archs:
+        base = get_config(name)
+        depth = 6 if name == "gemma3-12b" else 2 * len(base.block_pattern)
+        cfg = dataclasses.replace(base, n_layers=depth,
+                                  param_dtype="float32")
+        t = WHISPER_TOKENS - n if cfg.is_encdec else PREFILL_T
+        params = lm_model(dev, cfg)
+        batch = prefill_batch(dev, cfg, PREFILL_B, t + n)
+        toks = batch["tokens"]
+        full = forward_train(params, batch, cfg)[:, t - 1:].clone()
+        logits0, cache = prefill(params, dict(batch, tokens=toks[:, :t]),
+                                 cfg, cache_len=t + n)
+        run, last = decode_run(params, cache, toks, t, n, cfg)
+        got = torch.stack([logits0] + run, dim=1)
+        err = (got - full).abs().max().item()
+        scale = full.abs().max().item()
+        calls = []
+        attn_decode = MA.attn_decode
+
+        def seen(p, x, c, pos, cfg_, kind):
+            y, new = attn_decode(p, x, c, pos, cfg_, kind)
+            calls.append((p, x, c, pos, kind, y, new))
+            return y, new
+        MA.attn_decode = seen
+        try:
+            lg, _ = decode_step(params, last, toks[:, 0], t + n, cfg)
+        finally:
+            MA.attn_decode = attn_decode
+        clamp, slots_kept = 0.0, True
+        for p, x, c, pos, kind, y, new in calls:
+            k_c, v_c, y64 = clamp_oracle(p, x, c, pos, cfg, kind)
+            if not (torch.equal(new["k"], k_c) and torch.equal(new["v"], v_c)):
+                slots_kept = False
+            rms = y64.pow(2).mean(-1, keepdim=True).sqrt().clamp(min=1e-30)
+            clamp = max(clamp, ((y.double() - y64).abs() / rms).max().item())
+        kinds = sorted({c[4] for c in calls})
+        log(f"[decode f32] {name} ({depth} layers, float32) B={PREFILL_B}, "
+            f"prompt {t}: prefill + {n} steps vs forward_train's logits: max "
+            f"abs diff {err:.4g} (|logits| max {scale:.3g}; bound "
+            f"{DECODE_F32_TOL}); a step at pos == cache_len ({t + n}): "
+            + (f"{len(calls)} attention calls ({', '.join(kinds)}) "
+               f"against the float64 clamp oracle: new K/V "
+               f"{'bit for bit' if slots_kept else 'DIFFER'}, output "
+               f"within {clamp:.3g} of its row's rms (bound "
+               f"{DECODE_CLAMP_TOL})" if calls else "no attention layer, "
+               "the states step")
+            + f"; logits finite {bool(torch.isfinite(lg).all())}")
+        failed = []
+        if not err <= DECODE_F32_TOL:
+            failed.append(f"decode differs from forward_train by {err:.4g}")
+        if not slots_kept or not clamp <= DECODE_CLAMP_TOL \
+                or not torch.isfinite(lg).all():
+            failed.append("the step at pos == cache_len breaks the clamp")
+        if failed:
+            raise AssertionError(f"{name} in float32: " + "; ".join(failed))
+        out[name] = dict(layers=depth, prompt=t, max_abs_diff=err,
+                         logits_max=scale, clamp_calls=len(calls),
+                         clamp_excess=clamp)
+        del params, cache, last, run, full, got, calls
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2787,9 +3194,30 @@ def main() -> int:
     params = lm_model(dev, cfg)
     lm_launches, k4_shapes = phase_lm_serving(dev, cfg, params)
     phase_lm_prefill(dev, cfg, params)
+    # slice 9 on the weights phases 9 and 13 draw, then gemma3-12b's
+    decode = {}
+
+    def decode_on(cfg, params):
+        decode[cfg.name] = phase_decode(dev, cfg, params)
+    decode_on(cfg, params)
     del params
     torch.cuda.empty_cache()
-    slice8 = phase_slice8(dev)
+    slice8 = phase_slice8(dev, decode=decode_on)
+    t0 = time.perf_counter()
+    cfg9 = get_config("gemma3-12b")
+    params = lm_model(dev, cfg9)
+    decode_on(cfg9, params)
+    del params
+    torch.cuda.empty_cache()
+    decode_f32 = phase_decode_f32(dev)
+    phase14_s = time.perf_counter() - t0 - decode[cfg9.name]["phase_s"] \
+        + sum(row["phase_s"] for row in decode.values())
+    log(f"[decode] phase 14: {phase14_s:.1f} s on {card} (the decode "
+        "checks of the seven bf16 models, gemma3-12b's draw and the float32 "
+        "checks)")
+    if sorted(decode) != sorted(SLICE9):
+        raise AssertionError(f"slice 9 decoded {sorted(decode)}, not "
+                             f"{sorted(SLICE9)}")
     k1 = time_k1(dev, serve_stack, metro_stack, launches, k1_err)
     k1["launches_eval"] = eval_launches["pg_solve"]
     k1["tick"] = launches["tick"]
@@ -2812,6 +3240,9 @@ def main() -> int:
                "prefill": row["prefill"]["k4_launches"]}
         for name, row in slice8.items()}
     k4["slice8"] = slice8
+    k4["launches_decode"] = {name: row["k4_launches"]
+                             for name, row in decode.items()}
+    k4["decode"] = dict(decode, float32=decode_f32, phase_s=phase14_s)
     kernels = [k1, k2, k3, k4]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -145,11 +145,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     A CUDA tensor launches the kernel :func:`route` names (counted in
     ``FLASH_TC_KERNEL`` or ``FLASH_CORE_KERNEL``, both in
     ``FLASH_KERNEL.launches``); the tensor-core route needs 16-byte-aligned
-    q, k and v. A CPU tensor computes :func:`flash_attention_fwd_ref`.
+    q, k and v. A CPU tensor computes :func:`flash_attention_fwd_ref`,
+    with its autograd. The kernels have no backward yet, so a CUDA input
+    that requires grad under grad mode raises rather than return an output
+    that carries no gradient to it.
     """
     if q.device.type == "cpu":
         _check(q, k, v)
         return flash_attention_fwd_ref(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "K4 has no backward yet (an autograd Function for it is "
+            "ROADMAP.md queue 1, item 4): call it under torch.no_grad() or "
+            "on inputs that do not require grad")
     return launch(route(q.dtype, q.shape[-1]), q, k, v, causal=causal)
 
 

@@ -1,11 +1,12 @@
 """Port of ``src/repro/models/blocks.py``: per-kind transformer blocks with
-pre-norm residual wiring, for prefill and for the encoder's forward pass.
+pre-norm residual wiring, for the training forward, prefill and decode.
 
 Kinds "attn" (full attention), "local" (sliding window), "rec" (RG-LRU)
 and "rwkv" (RWKV-6 time and channel mix); the FFN of the attention and
 "rec" kinds is the MoE FFN in an MoE config. The encoder-decoder adds
-cross-attention with ``cross=True``. Decode, and the training forward of
-every kind but "attn" and "local", wait (ROADMAP.md queue 1).
+cross-attention with ``cross=True``. Each kind has the reference's uniform
+cache interface; the training forward is without its backward
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ __all__ = ["block_init", "block_prefill", "block_train", "block_decode",
            "block_cache_spec"]
 
 KINDS = ("attn", "local", "rec", "rwkv")
-WAITS = "waits for its port: ROADMAP.md queue 1"
 
 
 def _kind(kind: str):
@@ -42,7 +42,7 @@ def _ffn_init(generator, cfg, dtype, device):
 def _ffn_apply(params, x, cfg):
     """Reference ``_ffn_apply`` (blocks.py:30) on one device: an MoE FFN
     takes ``moe_apply``'s dense form, as the reference's does without a
-    mesh."""
+    mesh and as its decode asks (``moe_impl="dense"``)."""
     if cfg.is_moe:
         return moe_mod.moe_apply(params, x, cfg)
     return mlp_apply(params, x, cfg.mlp_kind)
@@ -73,22 +73,32 @@ def block_init(generator, cfg, kind: str, dtype, *, cross: bool = False,
 
 def block_train(params, x, cfg, kind: str, *, enc=None,
                 causal: bool = True):
-    """Reference ``block_train`` (blocks.py:57), forward, for the attention
-    kinds (the encoder's "attn" blocks); the other kinds' training forward
-    waits (ROADMAP.md queue 1)."""
+    """Reference ``block_train`` (blocks.py:57), forward: x (B, T, d) →
+    (B, T, d). ``causal=False`` is the encoder's bidirectional "attn"."""
     _kind(kind)
-    if kind not in ("attn", "local"):
-        raise NotImplementedError(f"the training forward of {kind!r} "
-                                  f"blocks {WAITS}")
     eps = cfg.norm_eps
-    x = x + attn.attn_train(params["attn"], rms_norm(x, params["ln1"], eps),
-                            cfg, kind, causal=causal)
-    if "cross" in params:
-        c, _ = attn.cross_attn_train(
-            params["cross"], rms_norm(x, params["ln_cross"], eps), enc, cfg)
-        x = x + c
-    return x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                          cfg)
+    if kind in ("attn", "local"):
+        x = x + attn.attn_train(params["attn"],
+                                rms_norm(x, params["ln1"], eps), cfg, kind,
+                                causal=causal)
+        if "cross" in params:
+            c, _ = attn.cross_attn_train(
+                params["cross"], rms_norm(x, params["ln_cross"], eps), enc,
+                cfg)
+            x = x + c
+        return x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
+                              cfg)
+    if kind == "rec":
+        h, _ = rec.rglru_train(params["rec"], rms_norm(x, params["ln1"], eps),
+                               cfg)
+        x = x + h
+        return x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
+                              cfg)
+    h, _ = rwkv_mod.rwkv_time_mix(params, rms_norm(x, params["ln1"], eps), cfg)
+    x = x + h
+    h, _ = rwkv_mod.rwkv_channel_mix(params, rms_norm(x, params["ln2"], eps),
+                                     cfg)
+    return x + h
 
 
 def block_cache_spec(cfg, kind: str, batch: int, cache_len: int, dtype,
@@ -143,8 +153,38 @@ def block_prefill(params, x, cfg, kind: str, cache_len: int, *, enc=None):
     return x + h, {**st_att, **st_ffn}
 
 
-def block_decode(params, x, cache, pos, cfg, kind: str):
-    """Reference ``block_decode`` (blocks.py:137): the one-token step of
-    every kind waits for the decode slice (ROADMAP.md queue 1, item 3)."""
+def block_decode(params, x, cache, pos: int, cfg, kind: str):
+    """Reference ``block_decode`` (blocks.py:137): one token x (B, 1, d) at
+    absolute position ``pos`` → (x, the block's new cache). An MoE FFN
+    takes the dense form. The cross cache is passed through unchanged."""
     _kind(kind)
-    raise NotImplementedError(f"decode of {kind!r} blocks {WAITS}")
+    eps = cfg.norm_eps
+    if kind in ("attn", "local"):
+        h, new_cache = attn.attn_decode(params["attn"],
+                                        rms_norm(x, params["ln1"], eps),
+                                        cache, pos, cfg, kind)
+        x = x + h
+        if "cross" in params:
+            x = x + attn.cross_attn_decode(
+                params["cross"], rms_norm(x, params["ln_cross"], eps),
+                cache["cross"], cfg)
+            new_cache["cross"] = cache["cross"]
+        x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
+                           cfg)
+        return x, new_cache
+    if kind == "rec":
+        h, state = rec.rglru_decode(params["rec"],
+                                    rms_norm(x, params["ln1"], eps), cache,
+                                    cfg)
+        x = x + h
+        x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
+                           cfg)
+        return x, state
+    h, st_att = rwkv_mod.rwkv_time_mix(
+        params, rms_norm(x, params["ln1"], eps), cfg,
+        state={"s": cache["s"], "x_att": cache["x_att"]})
+    x = x + h
+    h, st_ffn = rwkv_mod.rwkv_channel_mix(
+        params, rms_norm(x, params["ln2"], eps), cfg,
+        state={"x_ffn": cache["x_ffn"]})
+    return x + h, {**st_att, **st_ffn}

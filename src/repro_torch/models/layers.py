@@ -3,8 +3,7 @@
 Initialisers draw from an explicit ``torch.Generator`` on the target device
 (the counterpart of a ``jax.random`` key); the two frameworks give different
 numbers from one seed, so tests carry weights across with
-``repro_torch.convert.lm_params``. ``cross_entropy`` waits for the training
-slice (ROADMAP.md, queue 1).
+``repro_torch.convert.lm_params``.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_init", "rms_norm", "mlp_init", "mlp_apply",
-           "rotary_cos_sin", "apply_rotary", "softcap"]
+           "rotary_cos_sin", "apply_rotary", "softcap", "cross_entropy"]
 
 
 def dense_init(generator, shape, scale: float | None = None,
@@ -108,3 +107,16 @@ def softcap(logits, cap: float):
     if cap and cap > 0:
         return torch.tanh(logits / cap) * cap
     return logits
+
+
+def cross_entropy(logits, labels, ignore_id: int = -100):
+    """Reference ``cross_entropy`` (layers.py:89): token-level CE in float32,
+    the mean over the labels that are not ``ignore_id`` (0 when all are).
+    The gold logit is the reference's mask reduction over the vocabulary,
+    so a label outside it reads 0 rather than raising."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(vocab == labels[..., None], logits, 0.0).sum(-1)
+    mask = (labels != ignore_id).float()
+    return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,5 +1,6 @@
-"""Port of ``src/repro/models/model.py``: parameters, caches and prefill of
-the composable model stack, decoder-only or encoder-decoder.
+"""Port of ``src/repro/models/model.py``: parameters, caches, the training
+forward and loss, prefill and decode of the composable model stack,
+decoder-only or encoder-decoder.
 
 The parameter tree is the reference's: ``embed``, ``final_ln``,
 ``scan.pos{i}`` (each leaf stacked over a leading ``n_repeats`` axis),
@@ -7,9 +8,9 @@ The parameter tree is the reference's: ``embed``, ``final_ln``,
 embeddings are tied, and for an encoder-decoder ``enc_in_proj`` and
 ``enc`` (``scan.pos0`` over the encoder layers, ``final_ln``) — so
 ``repro_torch.convert.lm_params`` maps a reference tree leaf for leaf. The
-reference's ``lax.scan`` over repeats is a Python loop here.
-``forward_train``, ``loss_fn`` and ``decode_step`` wait (ROADMAP.md,
-queue 1).
+reference's ``lax.scan`` over repeats is a Python loop here. The
+training forward is without its backward, ``_maybe_remat`` and
+``param_specs`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ from __future__ import annotations
 import torch
 
 from . import blocks
-from .layers import dense_init, rms_norm, softcap
+from .layers import cross_entropy, dense_init, rms_norm, softcap
 
-__all__ = ["cache_specs", "init_cache", "init_params", "prefill"]
+__all__ = ["cache_specs", "decode_step", "forward_train", "init_cache",
+           "init_params", "loss_fn", "prefill"]
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -103,8 +105,59 @@ def _encode(params, enc_input, cfg):
     return rms_norm(x, params["enc"]["final_ln"], cfg.norm_eps)
 
 
+def _embed(params, tokens, cfg):
+    return params["embed"].index_select(0, tokens.reshape(-1)).reshape(
+        tuple(tokens.shape) + (cfg.d_model,))
+
+
+def _head(params, x, cfg):
+    """The final norm, the tied or untied head and the soft cap."""
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return softcap(x @ head, cfg.logit_softcap)
+
+
+def _frames(params, batch, cfg):
+    """An encoder-decoder's encoded ``batch["enc_input"]``, else None."""
+    if not cfg.is_encdec:
+        return None
+    if "enc_input" not in batch:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: it needs "
+                         "batch['enc_input'], the (B, frames, d_model) "
+                         "frame embeddings")
+    return _encode(params, batch["enc_input"], cfg)
+
+
 # ---------------------------------------------------------------------------
-# serving: prefill
+# train forward
+# ---------------------------------------------------------------------------
+
+def forward_train(params, batch, cfg):
+    """Reference ``forward_train`` (model.py:116), forward: the logits (B,
+    T, vocab) of ``batch["tokens"]`` (B, T) at every position. An
+    encoder-decoder first encodes ``batch["enc_input"]``. On one device, as
+    the reference without a mesh: an MoE FFN is the dense form."""
+    enc = _frames(params, batch, cfg)
+    x = _embed(params, batch["tokens"], cfg)
+    for r in range(cfg.n_repeats):
+        for i, kind in enumerate(cfg.block_pattern):
+            rep = _tree_map(lambda t, r=r: t[r], params["scan"][f"pos{i}"])
+            x = blocks.block_train(rep, x, cfg, kind, enc=enc)
+    for p, kind in zip(params.get("rem", ()), cfg.remainder_kinds):
+        x = blocks.block_train(p, x, cfg, kind, enc=enc)
+    return _head(params, x, cfg)
+
+
+def loss_fn(params, batch, cfg):
+    """Reference ``loss_fn`` (model.py:145), forward value: the token CE of
+    :func:`forward_train`'s logits against ``batch["labels"]`` → (loss,
+    {"loss": loss})."""
+    loss = cross_entropy(forward_train(params, batch, cfg), batch["labels"])
+    return loss, {"loss": loss}
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill and decode
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg, batch: int, cache_len: int, *, enc_len: int = 0):
@@ -145,16 +198,8 @@ def prefill(params, batch, cfg, cache_len: int):
     ``batch["enc_input"]`` (B, frames, d) and its decoder blocks attend to
     that. On one device, as the reference without a mesh: an MoE FFN is
     the dense form."""
-    enc = None
-    if cfg.is_encdec:
-        if "enc_input" not in batch:
-            raise ValueError(f"{cfg.name} is an encoder-decoder: its "
-                             "prefill needs batch['enc_input'], the (B, "
-                             "frames, d_model) frame embeddings")
-        enc = _encode(params, batch["enc_input"], cfg)
-    tokens = batch["tokens"]
-    x = params["embed"].index_select(0, tokens.reshape(-1)).reshape(
-        tuple(tokens.shape) + (cfg.d_model,))
+    enc = _frames(params, batch, cfg)
+    x = _embed(params, batch["tokens"], cfg)
     per_rep = []
     for r in range(cfg.n_repeats):
         caches = {}
@@ -170,7 +215,33 @@ def prefill(params, batch, cfg, cache_len: int):
             x, c = blocks.block_prefill(p, x, cfg, kind, cache_len, enc=enc)
             rem_caches.append(c)
         cache["rem"] = tuple(rem_caches)
-    x = rms_norm(x[:, -1:], params["final_ln"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = softcap(x @ head, cfg.logit_softcap)
-    return logits[:, 0], cache
+    return _head(params, x[:, -1:], cfg)[:, 0], cache
+
+
+def decode_step(params, cache, tokens, pos: int, cfg):
+    """One decode step. Reference ``decode_step`` (model.py:216): tokens
+    (B,) at absolute position ``pos`` (an int) → (logits (B, vocab), new
+    cache). Each repeat's blocks decode against that repeat's cache, and
+    the new caches are stacked again; then the remainder layers. The
+    caller's cache is unchanged. An MoE FFN takes the dense form, as the
+    reference's decode does."""
+    x = _embed(params, tokens[:, None], cfg)
+    per_rep = []
+    for r in range(cfg.n_repeats):
+        new = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            rep, rc = _tree_map(lambda t, r=r: t[r],
+                                (params["scan"][f"pos{i}"],
+                                 cache["scan"][f"pos{i}"]))
+            x, new[f"pos{i}"] = blocks.block_decode(rep, x, rc, pos, cfg,
+                                                    kind)
+        per_rep.append(new)
+    new_cache = {"scan": _tree_map(lambda *xs: torch.stack(xs), *per_rep)}
+    if params.get("rem"):
+        rem_new = []
+        for p, kind, c in zip(params["rem"], cfg.remainder_kinds,
+                              cache["rem"]):
+            x, nc = blocks.block_decode(p, x, c, pos, cfg, kind)
+            rem_new.append(nc)
+        new_cache["rem"] = tuple(rem_new)
+    return _head(params, x, cfg)[:, 0], new_cache

@@ -7,8 +7,8 @@ same odd/even recursion as ``jax.lax.associative_scan``, for all chunks at
 once), then a sequential pass over the chunks carrying the state. Block
 structure (Griffin Fig. 2): a gate branch GeLU(W_y x) and a value branch
 (width-4 causal conv → RG-LRU), merged multiplicatively and projected back
-by W_o. Plain PyTorch, as the reference is jnp outside any Pallas kernel.
-``rglru_decode`` waits (ROADMAP.md queue 1).
+by W_o. Decode is the single-step update. Plain PyTorch, as the reference
+is jnp outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from .common import TensorSpec
 from .layers import _gelu, dense_init
 
-__all__ = ["rglru_init", "rglru_train", "rglru_state_spec"]
+__all__ = ["rglru_init", "rglru_train", "rglru_decode", "rglru_state_spec"]
 
 _C_RGLRU = 8.0  # Griffin's fixed recurrence sharpness constant
 
@@ -165,3 +165,21 @@ def rglru_train(params, x, cfg, state=None):
     h, h_last = _linear_scan_chunked(a, b, h0, cfg.chunk_rec)
     y = (h.to(x.dtype) * gate) @ params["w_o"]
     return y, {"h": h_last, "conv": conv_carry}
+
+
+def rglru_decode(params, x, state, cfg):
+    """Reference ``rglru_decode`` (recurrent.py:121): one token x (B, 1, d)
+    → (y (B, 1, d), new state). The width-W conv over the carried W-1
+    inputs and this one, summed in the reference's order; h stays
+    float32."""
+    gate = _gelu(x @ params["w_y"])[:, 0]
+    u = (x @ params["w_x"])[:, 0]                         # (B, dr)
+    ext = torch.cat([state["conv"], u[:, None, :]], dim=1)
+    w = params["conv_w"]
+    width = w.shape[0]
+    u_c = sum(ext[:, width - 1 - j] * w[width - 1 - j]
+              for j in range(width)) + params["conv_b"]
+    a, b = _rglru_coeffs(params, u_c)
+    h = a * state["h"].float() + b
+    y = (h.to(x.dtype) * gate) @ params["w_o"]
+    return y[:, None, :], {"h": h, "conv": ext[:, 1:]}

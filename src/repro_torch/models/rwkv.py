@@ -7,8 +7,10 @@ the reference's chunked linear-attention form: a loop over chunks carries
 the float32 state, and within a chunk every contribution is a product of
 dense tensors. Every exponent is a difference of cumulative log-decays in
 the past → present direction, hence ≤ 0. Token shift uses static learned
-mixes μ, as the reference does. Plain PyTorch, as the reference is jnp
-outside any Pallas kernel. ``rwkv_decode`` waits (ROADMAP.md queue 1).
+mixes μ, as the reference does. Decode is the same time and channel mix
+at T = 1: the shift reads the stored previous activation and the WKV runs
+one chunk of length 1. Plain PyTorch, as the reference is jnp outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch.nn.functional as F
 from .common import TensorSpec
 from .layers import dense_init
 
-__all__ = ["rwkv_init", "rwkv_time_mix", "rwkv_channel_mix",
+__all__ = ["rwkv_init", "rwkv_time_mix", "rwkv_channel_mix", "rwkv_decode",
            "rwkv_state_spec"]
 
 _LORA_RANK = 64
@@ -194,3 +196,10 @@ def rwkv_channel_mix(params, x, cfg, state=None):
     k = torch.square(torch.relu(_mix(x, xs, p["mu_k"]) @ p["w_k"]))
     r = torch.sigmoid(_mix(x, xs, p["mu_r"]) @ p["w_r"])
     return r * (k @ p["w_v"]), {"x_ffn": x[:, -1, :]}
+
+
+def rwkv_decode(params, x, state, cfg):
+    """Reference ``rwkv_decode`` (rwkv.py:191), as it is: the time mix of
+    one token x (B, 1, d) with ``state`` → (y, {"s", "x_att"}). The block's
+    decode calls the time and channel mix itself."""
+    return rwkv_time_mix(params, x, cfg, state)

@@ -103,11 +103,19 @@ def test_model_flash_attention_matches_reference(t, window, chunk, rng):
     _close(got, want, _TOL["float32"])
 
 
-def test_full_attention_with_offset_waits_for_decode(rng):
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MA.flash_attention(q, q, q, causal=True, window=None, chunk_q=4,
-                           chunk_k=4, q_offset=3)
+def test_full_attention_with_offset_waits_for_decode(rng, monkeypatch):
+    """Full attention with ``q_offset != 0`` against the reference's: the
+    chunked streaming softmax in plain PyTorch, never K4, which has no
+    offset. The name is kept from before decode was ported, when the
+    offset raised and this test held that it did."""
+    (jq, q), (jk, k), (jv, v) = _qkv(rng, 1, 4, 7, 2, 2, 8, "float32")
+    calls = _k4_calls(monkeypatch)
+    got = MA.flash_attention(q, k, v, causal=True, window=None, chunk_q=4,
+                             chunk_k=4, q_offset=3)
+    want = j_chunked(jq, jk, jv, causal=True, window=None, chunk_q=4,
+                     chunk_k=4, q_offset=3)
+    _close(got, want, _TOL["float32"])
+    assert calls == []
 
 
 @pytest.mark.parametrize("bad", ["gqa", "dh", "dtype", "shape"])
@@ -202,3 +210,22 @@ def test_cross_attn_train_matches_reference(te, rng, monkeypatch):
         _close(cache[key], jcache[key], _TOL["float32"])
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     assert calls == [((2, 37, h, dh), (2, te, kv, dh), False)]
+
+
+def test_plain_version_keeps_its_autograd_on_the_host(rng):
+    """K4's wrapper on CPU tensors that require grad is the plain version
+    with its autograd (the CUDA route refuses them until K4 has a
+    backward: ROADMAP.md queue 1, item 4): the gradients are those of the
+    same attention written out in float64."""
+    (_, q), (_, k), (_, v) = _qkv(rng, 1, 6, 6, 4, 2, 8, "float32")
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention_fwd(*ins).square().sum().backward()
+    ref = [t.double().clone().requires_grad_(True) for t in (q, k, v)]
+    qh = ref[0].reshape(1, 6, 2, 2, 8) * 8 ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, ref[1])
+    s = s.masked_fill(torch.ones(6, 6, dtype=torch.bool).triu(1), -1e30)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", s.softmax(-1), ref[2])
+    o.reshape(1, 6, 4, 8).square().sum().backward()
+    for a, b in zip(ins, ref):
+        assert a.grad is not None
+        assert torch.allclose(a.grad.double(), b.grad, atol=1e-5)

@@ -556,3 +556,94 @@ def test_sharded_solve_on_one_card_is_one_launch_on_card(n, cuda_device):
     twin = solve_greedy_sharded(insts, mesh=mesh, inner="torch")
     for a, b in zip(twin, got):
         assert np.array_equal(a.admitted, b.admitted)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k4", [("chatglm3-6b", 2), ("gemma3-12b", 1),
+                                     ("mixtral-8x7b", 0),
+                                     ("qwen3-moe-235b-a22b", 2),
+                                     ("recurrentgemma-9b", 0),
+                                     ("rwkv6-1.6b", 0), ("whisper-tiny", 6)])
+def test_decode_on_card_matches_host(name, k4, cuda_device):
+    """Each kind's decode on the card: a smoke model's prefill (K4 on its
+    full-attention layers) and 5 ``decode_step``s, the last at ``pos ==
+    cache_len``, against the same computation on the host, float32:
+    logits and every cache leaf within 1e-4 plus 1e-5 relative (other
+    sums of the products). Decode launches no K4, and leaves the cache it
+    was given unchanged."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_smoke_config(name)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 42),
+                                         dtype=np.int32))
+    batch = {"tokens": toks[:, :37]}
+    if cfg.is_encdec:
+        batch["enc_input"] = torch.from_numpy(rng.standard_normal(
+            (2, 50, cfg.d_model)).astype(np.float32))
+
+    def run(p, b, dev):
+        lg, cache = prefill(p, b, cfg, cache_len=41)
+        out = [(lg, cache)]
+        for j in range(5):
+            lg, cache = decode_step(p, cache, toks[:, 37 + j].to(dev),
+                                    37 + j, cfg)
+            out.append((lg, cache))
+        return out
+    want = run(params, batch, "cpu")
+    dparams = _to(params, cuda_device)
+    before = PA.FLASH_KERNEL.launches
+    got = run(dparams, _to(batch, cuda_device), cuda_device)
+    torch.cuda.synchronize()
+    assert PA.FLASH_KERNEL.launches == before + k4
+    for (gl, gc), (wl, wc) in zip(got, want, strict=True):
+        assert torch.allclose(gl.cpu(), wl, rtol=1e-5, atol=1e-4)
+        for g, w in zip(_leaves(gc), _leaves(wc), strict=True):
+            assert g.device.type == "cuda"
+            assert torch.allclose(g.cpu(), w, rtol=1e-5, atol=1e-4)
+    cache = got[0][1]
+    keep = [t.clone() for t in _leaves(cache)]
+    decode_step(dparams, cache, toks[:, 37].to(cuda_device), 37, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(cache), keep))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_inputs_that_require_grad_on_card(cuda_device,
+                                                               rng):
+    """K4 has no backward yet: a CUDA input that requires grad, under grad
+    mode, raises instead of returning an output with no gradient; under
+    ``no_grad`` it launches."""
+    from repro_torch.kernels.attn import attn as PA
+    q = torch.from_numpy(rng.standard_normal((1, 16, 4, 64)).astype(
+        np.float32)).to(cuda_device).bfloat16()
+    k = q[:, :, :2].contiguous()
+    for which in range(3):
+        args = [q.clone(), k.clone(), k.clone()]
+        args[which].requires_grad_(True)
+        before = PA.FLASH_KERNEL.launches
+        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+            PA.flash_attention_fwd(*args)
+        assert PA.FLASH_KERNEL.launches == before
+        with torch.no_grad():
+            out = PA.flash_attention_fwd(*args)
+        torch.cuda.synchronize()
+        assert PA.FLASH_KERNEL.launches == before + 1
+        assert not out.requires_grad
