@@ -6,9 +6,9 @@ slices on the card — the multi-cell serving tick, the paper's
 single-instance evaluation, the serving engine's LM-service jobs, the
 metro-scale sharded solve with its mesh-resident serving session, the
 MoE, RG-LRU, RWKV-6 and encoder-decoder prefills of the other five LM
-configs, and the decode that continues a prefill — and
-holds every hand-written kernel of those paths against its plain PyTorch
-version:
+configs, the decode that continues a prefill, and training (K4's
+gradient K4′, the train step and the checkpointed loop) — and holds every
+hand-written kernel of those paths against its plain PyTorch version:
 
 1. prints the card (``nvidia-smi``) and builds every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
@@ -112,8 +112,9 @@ version:
    breakdown of each wrapper's steps; K4 on both kernels at the LM job's
    shape, at (2, 2048) and at slice 8's qwen3-moe prefill and whisper-tiny
    encoder shapes, beside SDPA, with the tensor-core kernel's ptxas report and
-   launch configuration — and prints the ``{"kernels": [...]}`` line, the
-   card's name and power limit, and finally the ``{"ok": true, ...}`` line;
+   launch configuration — and prints the ``{"kernels": [...]}`` line (K4′'s
+   row from phases 15 and 17), the card's name and power limit, and
+   finally the ``{"ok": true, ...}`` line;
 11. SLICE 7'S MAIN PATH, the sharded metro solve (run after phase 7): the
    1024-cell day (``metro_diurnal_trace(1024, n_domains=64)``, 24576
    coupled rows in 1536 groups of 16, stacked group-major at Tmax 32)
@@ -177,7 +178,39 @@ version:
    configs: prefill plus 32 steps within ``DECODE_F32_TOL`` of
    ``forward_train``'s logits, and a step at ``pos == cache_len`` whose
    every attention call matches a float64 statement of the reference's
-   clamped update (``clamp_oracle``). The phase's time is printed.
+   clamped update (``clamp_oracle``). The phase's time is printed;
+15. K4′ (``kernels/attn/attn.py::flash_attention_bwd``, run after phase 8)
+   against its plain version ``flash_attention_bwd_ref`` in float32 on the
+   same inputs at chatglm3-6b's (2, 2048, 32/2, 128) and gemma3-12b's
+   global (2, 2048, 16/8, 256) causal shapes, the whisper-tiny encoder
+   (2, 1500, 6/6, 64) and cross-attention (448 over 1500), non-causal, in
+   bf16, and (2, 512, 8/2, 64), (2, 333, 4/4, 320) and (1, 40 over 100,
+   4/2, 320) in float32, element by element within ``K4B_BF16_TOL`` or
+   ``K4B_F32_TOL``; a repeat bit for bit; four launches a call; once
+   through ``FlashAttention``'s backward, bit for bit the direct call's;
+   at the first three shapes ms a call, device µs by pass, the plain
+   version and SDPA's backward beside the bound;
+16. SLICE 10's gradient check (after phase 14): chatglm3-6b at 4 layers,
+   full width, bf16, B = 2, T = 2048, remat on, ``loss_and_grads`` on a
+   ``TokenStream`` batch through K4 and K4′ (2 and 4 launches a layer)
+   against a twin whose attention is K4's plain version with autograd,
+   each gradient leaf's rms difference within ``TRAIN_GRAD_TOL`` of its
+   rms (the largest element's printed), and one ``make_train_step`` step
+   a side: loss, grad_norm and lr agree;
+17. SLICE 10'S MAIN PATH: ``make_train_step`` on chatglm3-6b at full width
+   and the most layers whose 12 bytes a parameter of training state fit
+   the card's free memory beside ``TRAIN_RESERVE`` (``fitting_depth``),
+   bf16, remat on, ``OptConfig(warmup_steps=1)``, ``TokenStream(
+   global_batch=2, seq_len=2048)``, 6 steps, counts zeroed just before and
+   read just after: loss and grad_norm finite, K4 2 launches a layer a step
+   (all on the tensor-core kernel), K4′ 4; s a step, tokens/s, peak
+   memory, the busy share and K4′'s share of a traced step, the step's
+   bound (8 × parameters × tokens at the bf16 peak);
+18. the loop end to end: ``python -m repro_torch.launch.train --smoke
+   --device cuda --steps 8``, and ``train()`` on the chatglm3-6b smoke
+   config with ``checkpoint_every=4`` uninterrupted, crashed at step 6 and
+   restarted: the restart resumes at step 5 and ends on the uninterrupted
+   run's final loss within rel 1e-4 (whether bit for bit is printed).
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -187,6 +220,7 @@ and cuDNN), so the plain versions are exact float32 references.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -251,6 +285,30 @@ K4_WIDE_SHAPES = ((2, 77, 77, 8, 4, 320, True), (1, 40, 100, 4, 2, 320, False))
 # row averaging 1500 keys (rms ~0.04) is held as tightly as a short one
 K4_F32_ATOL = 2e-5
 K4_BF16_TOL = (2 ** -7, 2 ** -6)
+# slice 10, K4's gradient K4′: (B, Tq, Tk, Hq, Hkv, Dh, causal, dtype) —
+# chatglm3-6b's and gemma3-12b's global layer's training shapes, the
+# whisper-tiny encoder and its cross-attention, and float32 at Dh 64 and
+# 320 (the CUDA-core tile K4's widest heads take)
+K4B_SHAPES = ((2, 2048, 2048, 32, 2, 128, True, "bfloat16"),
+              (2, 2048, 2048, 16, 8, 256, True, "bfloat16"),
+              (2, 1500, 1500, 6, 6, 64, False, "bfloat16"),
+              (2, 448, 1500, 6, 6, 64, False, "bfloat16"),
+              (2, 512, 512, 8, 2, 64, True, "float32"),
+              (2, 333, 333, 4, 4, 320, True, "float32"),
+              (1, 40, 100, 4, 2, 320, False, "float32"))
+# K4′ against its plain version in float32 on the same inputs, element by
+# element: |out - ref| <= a |ref| + b rms(ref's row over Dh) + c rms(ref).
+# bfloat16 (a, b, c) = (2^-7, 2^-10, 2^-16): a is twice the outputs'
+# rounding (half a bf16 ulp, <= 2^-8 |ref|), and both compute in float32
+# from the same inputs, so the rest (another summation order, P from the
+# log-sum-exp) is ~1e-6 of a row's terms; float32 (2^-14, 2^-14, 2^-14):
+# that order alone, with a margin for sums of thousands of terms. The c
+# term is a floor for rows whose value cancels (causal dq rows 0 and 1:
+# dP - D is 0 or nearly), where float32 leaves ~1e-6 of the terms, whose
+# scale is the tensor's rms, not the row's (a floor of 2^-20 rms(ref)
+# failed at 4.6x on the first run, at (2, 512, 8/2, 64))
+K4B_BF16_TOL = (2 ** -7, 2 ** -10, 2 ** -16)
+K4B_F32_TOL = (2 ** -14, 2 ** -14, 2 ** -14)
 LM_ARCH, LM_TICKS = "chatglm3-6b", 3
 PREFILL_B, PREFILL_T = 2, 2048
 # K4's prefill against its plain twin, each block of the twin on the K4
@@ -295,6 +353,32 @@ SLICE9 = ("chatglm3-6b", "gemma3-12b", "recurrentgemma-9b", "rwkv6-1.6b",
           "whisper-tiny", "mixtral-8x7b", "qwen3-moe-235b-a22b")
 DECODE_F32_TOL = 1e-3
 DECODE_CLAMP_TOL = 1e-4
+# slice 10, training: chatglm3-6b at full width, bf16, B = 2, T = 2048
+# (``TokenStream``), remat on. Its training state is 12 bytes a parameter
+# (bf16 parameters and gradients, float32 m and v): 74.9 GB at 28 layers,
+# so the main path trains at the most whole layers whose state fits the
+# card's free memory beside TRAIN_RESERVE, 6 steps. The reserve: the peak
+# beyond the state measured on an H100 80GB at 20 layers, 1.33 GiB (the
+# logits and the loss's float32 copies, a layer's recompute, the update's
+# pieces), and allocator slack
+TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "chatglm3-6b", 2, 2048, 6
+TRAIN_BYTES_PER_PARAM, TRAIN_RESERVE = 12, 6 * 2 ** 30
+# the gradient check: 4 layers, K4 and K4′ against a twin whose attention is
+# K4's plain version with autograd, on the same card and batch. Each
+# gradient leaf as a share of its rms: rms(diff) <= 0.02 rms(ref), rms(ref)
+# over the leaf's rows that are not all zero (``leaf_rms``). bf16 products
+# everywhere: the two attentions' outputs differ by about a bf16 ulp here
+# and there, and every later product rounds that on. The largest element's
+# |diff| / rms(ref) is printed, not bounded: a bound on it (0.25, then 2^-6
+# |ref| + 0.25 rms(ref)) failed on the first card runs on elements that
+# sum many positions coherently — the most frequent token's embedding row
+# (10x the leaf's rms), and lm_head's column of the most frequent label on
+# a hidden dimension that is small in every row, whose forward value
+# differs by a few percent between the two attentions. The loss within
+# 1e-3 relative, grad_norm within 1e-2 relative, lr equal
+TRAIN_CHECK_LAYERS = 4
+TRAIN_GRAD_TOL = 0.02
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-3, 1e-2
 
 
 def log(*args):
@@ -1412,6 +1496,172 @@ def phase_k4(dev, shapes=K4_SHAPES):
     return err
 
 
+def k4b_excess(out, ref) -> float:
+    """K4′'s error against ``ref`` (its plain version in float32 on the
+    same inputs) as a share of ``K4B_BF16_TOL`` or ``K4B_F32_TOL``: the
+    largest |out - ref| / (a |ref| + b rms(ref's row) + c rms(ref)); at
+    most 1 passes."""
+    import torch
+    a, b, c = K4B_F32_TOL if out.dtype == torch.float32 else K4B_BF16_TOL
+    rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
+    floor = c * ref.pow(2).mean().sqrt()
+    return ((out.float() - ref).abs() / (a * ref.abs() + b * rms + floor)) \
+        .max().item()
+
+
+def k4b_work(shape, esize):
+    """(bytes, flops) of K4's gradient at ``shape``: q, k, v, o and dO read
+    once, dq, dk and dv written once; 10·Dh flops (five products) per
+    (query, key) pair the mask keeps, 2.5 times the forward's."""
+    b, tq, tk, hq, hkv, dh, causal = shape[:7]
+    _, fwd = k4_work(shape[:7], esize)
+    nbytes = (4 * b * tq * hq * dh + 4 * b * tk * hkv * dh) * esize
+    return nbytes, fwd * 10 // 4
+
+
+def k4b_pass_us(fn, iters: int = 5) -> dict:
+    """Device µs a call of each of K4′'s four passes, from one
+    ``torch.profiler`` trace of ``iters`` calls (empty when the profiler
+    reports no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        for name in ("bwd_rows_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel",
+                     "bwd_reduce_kernel"):
+            if name in e.name:
+                out[name] = out.get(name, 0.0) + _device_time(e) / iters
+    return {k: v for k, v in out.items() if v > 0}
+
+
+def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=3):
+    """K4′ (``kernels/attn/attn.py::flash_attention_bwd``) against its plain
+    version ``flash_attention_bwd_ref`` in float32 on the same inputs (q, k,
+    v and dO unit normals, o K4's output) within ``K4B_BF16_TOL`` or
+    ``K4B_F32_TOL``; a repeat bit for bit; four launches a call; once
+    through ``FlashAttention``'s backward (autograd), bit for bit the
+    direct call's. The first ``timed`` shapes are timed: ms a call (CUDA
+    events), device µs by pass (``torch.profiler``), the plain version and
+    SDPA's backward (``enable_gqa``, a yardstick the port never calls),
+    beside the bound. Returns the kernels-line row."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attn import attn as PA
+    rng = np.random.default_rng(9)
+    row = dict(name="flash_attn_bwd", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+               replaces="src/repro/models/attention.py:79", shapes={})
+    err, worst = {}, {}
+    for n, shape in enumerate(shapes):
+        *geo, causal, dtype = shape
+        q, k, v = k4_inputs(rng, tuple(geo) + (causal,), dev, dtype)
+        dout = torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(
+            np.float32)).to(dev, q.dtype)
+        out = PA.flash_attention_fwd(q, k, v, causal=causal)
+        before = PA.FLASH_BWD_KERNEL.launches
+        got = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+        again = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+        torch.cuda.synchronize()
+        if PA.FLASH_BWD_KERNEL.launches != before + 2 * PA.BWD_PASSES:
+            n_l = PA.FLASH_BWD_KERNEL.launches - before
+            raise AssertionError(f"K4′ {shape}: {n_l} launches for two calls")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K4′ {shape}: a repeat differs")
+        ref = PA.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                         out.float(), dout.float(),
+                                         causal=causal)
+        shares = []
+        for what, g, r, like in zip(("dq", "dk", "dv"), got, ref, (q, k, v)):
+            if g.dtype != like.dtype or g.shape != like.shape:
+                raise AssertionError(f"K4′ {shape} {what}: {g.dtype} "
+                                     f"{tuple(g.shape)}")
+            x = k4b_excess(g, r)
+            e = (g.float() - r).abs().max().item()
+            if not x <= 1.0:
+                raise AssertionError(f"K4′ {shape} {what}: max abs err {e}, "
+                                     f"{x:.3g}x the tolerance")
+            shares.append(x)
+            err[dtype] = max(err.get(dtype, 0.0), e)
+            worst[dtype] = max(worst.get(dtype, 0.0), x)
+        del ref
+        if n == 0:
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            PA.flash_attention_fwd(*ins, causal=causal).backward(dout)
+            if not all(torch.equal(t.grad, g) for t, g in zip(ins, got)):
+                raise AssertionError(f"K4′ {shape}: FlashAttention's backward "
+                                     "differs from flash_attention_bwd")
+            del ins
+        log(f"[K4′] {shape}: dq, dk, dv within the tolerance "
+            f"({', '.join(f'{x:.3f}' for x in shares)} of it), a repeat bit "
+            "for bit")
+        if n < timed:
+            ms = cuda_ms(lambda: PA.flash_attention_bwd(
+                q, k, v, out, dout, causal=causal), iters=5, warmup=1)
+            passes = k4b_pass_us(lambda: PA.flash_attention_bwd(
+                q, k, v, out, dout, causal=causal))
+            dev_us = sum(passes.values()) if passes else None
+            plain = cuda_ms(lambda: PA.flash_attention_bwd_ref(
+                q, k, v, out, dout, causal=causal), iters=2, warmup=1)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal,
+                                                   enable_gqa=True)
+            do_lib = dout.transpose(1, 2)
+            lib = cuda_ms(lambda: torch.autograd.grad(
+                o_lib, (qt, kt, vt), do_lib, retain_graph=True), iters=10)
+            del qt, kt, vt, o_lib
+            # K4's own device time at the shape, while the profiler still
+            # reports every launch (late in a run it drops records, §7)
+            fwd_us = device_us(lambda: PA.flash_attention_fwd(
+                q, k, v, causal=causal), "flash_", iters=20)
+            nbytes, flops = k4b_work(shape, q.element_size())
+            peak = F32_FLOP_PER_S if dtype == "float32" else BF16_FLOP_PER_S
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+            by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak \
+                else "operations"
+            f32_bound = max(nbytes / HBM_BYTES_PER_S,
+                            flops / F32_FLOP_PER_S) * 1e3
+            log(f"[time] K4′ {shape}: {ms:.3f} ms a call (device "
+                f"{fmt_us(dev_us)}: "
+                + ", ".join(f"{k.split('_')[1]} {x:.1f}" for k, x in
+                            passes.items())
+                + f"); plain {plain:.3f} ms; SDPA backward {lib:.3f} ms; "
+                f"K4 forward device {fmt_us(fwd_us)}; "
+                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB: bound "
+                f"{bound:.4f} ms ({by}), f32 CUDA-core bound "
+                f"{f32_bound:.3f} ms")
+            key = "_".join(str(x) for x in geo) + ("_causal" if causal
+                                                   else "")
+            row["shapes"][key] = dict(
+                dtype=dtype, ms=ms, device_ms=None if dev_us is None
+                else dev_us / 1e3, pass_device_us=passes, plain_ms=plain,
+                library_ms=lib, bound_ms=bound, bound_by=by,
+                bound_ms_f32_cuda_cores=f32_bound,
+                k4_fwd_device_ms=None if fwd_us is None else fwd_us / 1e3)
+            if n == 0:
+                row.update(ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=bound, bound_by=by,
+                           device_ms=row["shapes"][key]["device_ms"],
+                           shape=list(shape))
+        del q, k, v, dout, out, got, again
+        torch.cuda.empty_cache()
+    for dtype in err:
+        log(f"[K4′] {dtype}: max abs err {err[dtype]:.3g}, "
+            f"{worst[dtype]:.3f} of the tolerance")
+    row.update(max_abs_err=err.get("bfloat16"),
+               max_abs_err_f32=err.get("float32"),
+               tolerance_share=worst)
+    return row
+
+
 # --------------------------------------------------------------- phase 9
 
 def lm_model(dev, cfg):
@@ -1866,18 +2116,21 @@ def attention_layers(cfg) -> tuple[int, int]:
     return dec, dec
 
 
-def fitting_depth(cfg, free: int):
+def fitting_depth(cfg, free: int, bytes_per_param: int = 2,
+                  reserve: int = SLICE8_RESERVE):
     """``cfg`` at the most layers (whole repeats of its block pattern, up to
-    its own depth) whose bf16 weights fit ``free`` bytes beside
-    ``SLICE8_RESERVE``; a layer's bytes are ``param_count``'s step."""
+    its own depth) whose ``bytes_per_param`` a parameter (2: bf16 weights;
+    12: a bf16 model's training state) fit ``free`` bytes beside
+    ``reserve``; a layer's bytes are ``param_count``'s step."""
     import dataclasses
     step = len(cfg.block_pattern)
 
     def nbytes(layers):
-        return dataclasses.replace(cfg, n_layers=layers).param_count() * 2
+        return dataclasses.replace(cfg, n_layers=layers).param_count() \
+            * bytes_per_param
     per_repeat = nbytes(2 * step) - nbytes(step)
     base = nbytes(step) - per_repeat
-    repeats = (free - SLICE8_RESERVE - base) // per_repeat
+    repeats = (free - reserve - base) // per_repeat
     layers = min(cfg.n_layers, max(1, int(repeats)) * step)
     return dataclasses.replace(cfg, n_layers=layers)
 
@@ -2284,6 +2537,387 @@ def phase_decode_f32(dev, archs=SLICE9, n=DECODE_STEPS):
 
 
 # --------------------------------------------------------------- phase 11
+
+# -------------------------------------------------------------- slice 10
+
+class PlainAttention:
+    """Within it, ``kernels/attn/attn.py::flash_attention_fwd`` (the route
+    every window-free attention takes) is K4's plain version, with its
+    own autograd: the twin of the gradient check."""
+
+    def __enter__(self):
+        from repro_torch.kernels.attn import attn as PA
+        self._pa, self._fwd = PA, PA.flash_attention_fwd
+        PA.flash_attention_fwd = PA.flash_attention_fwd_ref
+        return self
+
+    def __exit__(self, *exc):
+        self._pa.flash_attention_fwd = self._fwd
+
+
+def _named_leaves(tree, prefix=""):
+    """[(path, leaf)] in the reference's flattening order; a stacked leaf's
+    per-repeat tuple is one entry per repeat."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, v in enumerate(tree)
+                for x in _named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def leaf_rms(w) -> float:
+    """A gradient leaf's rms over its rows (last axis) that are not all
+    zero: the embedding's gradient is zero on every row whose token the
+    batch lacks, which would otherwise shrink its scale by the share of
+    the vocabulary the batch uses."""
+    rows = w.reshape(-1, w.shape[-1]) if w.dim() else w.reshape(1, 1)
+    live = rows[rows.abs().amax(dim=-1) > 0]
+    return live.pow(2).mean().sqrt().item() if live.numel() else 0.0
+
+
+def train_batch(dev, cfg, b, t, step=0):
+    """``TokenStream`` batch ``step`` (seed 0) on ``dev``."""
+    import torch
+    from repro_torch.data import DataConfig, TokenStream
+    data = TokenStream(DataConfig(global_batch=b, seq_len=t,
+                                  vocab_size=cfg.vocab_size, seed=0))
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in data.batch(step).items()}
+
+
+def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
+    """The slice's step at full width, gradient check: chatglm3-6b at
+    ``TRAIN_CHECK_LAYERS`` layers, bf16, remat on, one ``TokenStream``
+    batch: ``loss_and_grads`` through K4 and K4′ (2 and 4 launches a layer)
+    against a twin whose attention is K4's plain version with autograd
+    (``PlainAttention``), each gradient leaf's rms difference within
+    ``TRAIN_GRAD_TOL`` of its rms (``leaf_rms``); then one
+    ``make_train_step`` step on each side from the same weights: loss,
+    grad_norm and lr agree."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.training import OptConfig, make_train_step, opt_init
+    from repro_torch.training.optimizer import loss_and_grads
+    t0 = time.perf_counter()
+    cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH),
+                                     n_layers=TRAIN_CHECK_LAYERS, remat=True)
+    layers = attention_layers(cfg)[1]
+    params = lm_model(dev, cfg)
+    batch = train_batch(dev, cfg, b, t)
+    PA.FLASH_KERNEL.launches = 0
+    PA.FLASH_BWD_KERNEL.launches = 0
+    loss, _, grads = loss_and_grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    fwd, bwd = PA.FLASH_KERNEL.launches, PA.FLASH_BWD_KERNEL.launches
+    if fwd != 2 * layers or bwd != PA.BWD_PASSES * layers:
+        raise AssertionError(f"train grads: K4 {fwd} and K4′ {bwd} launches "
+                             f"for {layers} attention layers under remat")
+    with PlainAttention():
+        tloss, _, tgrads = loss_and_grads(params, batch, cfg)
+        torch.cuda.synchronize()
+    if PA.FLASH_KERNEL.launches != fwd or PA.FLASH_BWD_KERNEL.launches != bwd:
+        raise AssertionError("the plain-attention twin launched K4 or K4′")
+    if not abs(float(loss) - float(tloss)) <= TRAIN_LOSS_RTOL * abs(
+            float(tloss)):
+        raise AssertionError(f"train grads: loss {float(loss)} against the "
+                             f"twin's {float(tloss)}")
+    worst_rms, worst_max, rows, bad = 0.0, 0.0, [], []
+    counts = torch.bincount(batch["tokens"].reshape(-1).long(),
+                            minlength=cfg.vocab_size)
+    for (path, g), (_, w) in zip(_named_leaves(grads),
+                                 _named_leaves(tgrads)):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"train grads: {path} is not finite")
+        scale = leaf_rms(w)
+        d = g - w
+        r_rms = d.pow(2).mean().sqrt().item() / max(scale, 1e-30)
+        r_max = d.abs().max().item() / max(scale, 1e-30)
+        rows.append((path, r_rms, r_max))
+        if not r_rms <= TRAIN_GRAD_TOL:
+            at = int(d.abs().argmax())
+            row = at // w.shape[-1]
+            w2 = w.reshape(-1, w.shape[-1])
+            bad.append(f"{path} by rms {r_rms:.3g} of its rms {scale:.3g}, "
+                       f"max {r_max:.3g} of it at row {row} (ref "
+                       f"{w.reshape(-1)[at].item():.4g}, got "
+                       f"{g.reshape(-1)[at].item():.4g}; the row's rms "
+                       f"{w2[row].pow(2).mean().sqrt().item():.4g}"
+                       + (f", its token {int(counts[row])} times in the "
+                          "batch" if path == "/embed" else "") + ")")
+        worst_rms, worst_max = max(worst_rms, r_rms), max(worst_max, r_max)
+    for path, r_rms, r_max in sorted(rows, key=lambda r: -r[1])[:4]:
+        log(f"[train]   {path}: rms {r_rms:.4f}, max {r_max:.4f} of its rms")
+    if bad:
+        raise AssertionError("train grads: differ from the twin's: "
+                             + "; ".join(bad))
+    del grads, tgrads
+    log(f"[train] gradient check, {cfg.name} at {cfg.n_layers} layers, B = "
+        f"{b}, T = {t}, bf16: loss {float(loss):.6f} (twin "
+        f"{float(tloss):.6f}); {len(rows)} gradient leaves within the "
+        f"twin's, worst rms {worst_rms:.4f} of a leaf's rms (bound "
+        f"{TRAIN_GRAD_TOL}); the largest element's difference {worst_max:.4f}"
+        f" of its leaf's rms (printed, not bounded); K4 {fwd}, K4′ {bwd} "
+        "launches")
+    opt = OptConfig(warmup_steps=1)
+    metrics = []
+    for twin in (False, True):
+        p = params if twin else _clone(params)
+        state = opt_init(p)
+        step = make_train_step(cfg, opt)
+        if twin:
+            with PlainAttention():
+                _, _, m = step(p, state, batch)
+        else:
+            _, _, m = step(p, state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        del p, state
+    got, want = metrics
+    if got["lr"] != want["lr"] \
+            or abs(got["loss"] - want["loss"]) > TRAIN_LOSS_RTOL * abs(
+                want["loss"]) \
+            or abs(got["grad_norm"] - want["grad_norm"]) > TRAIN_NORM_RTOL \
+            * abs(want["grad_norm"]):
+        raise AssertionError(f"train step: {got} against the twin's {want}")
+    log(f"[train] one make_train_step step each: loss {got['loss']:.6f} / "
+        f"{want['loss']:.6f}, grad_norm {got['grad_norm']:.6f} / "
+        f"{want['grad_norm']:.6f}, lr {got['lr']:.3g} / {want['lr']:.3g} "
+        f"(K4 / twin); phase {time.perf_counter() - t0:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss=float(loss), twin_loss=float(tloss),
+                worst_rms_share=worst_rms, worst_max_share=worst_max,
+                step=got, twin_step=want)
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_clone(v) for v in tree)
+    return tree.clone()
+
+
+def train_step_groups(kern: dict) -> dict:
+    """A traced step's device µs by kind of kernel: K4′, K4, matrix
+    products (cuBLAS), elementwise and reductions (the update, the norms,
+    the loss), the rest."""
+    def kind(name):
+        if "bwd_" in name and "_kernel" in name:
+            return "K4′"
+        if "flash_" in name:
+            return "K4"
+        if any(x in name for x in ("gemm", "nvjet", "xmma", "cutlass",
+                                   "gemv", "splitK")):
+            return "matmul"
+        if any(x in name for x in ("elementwise", "reduce", "softmax",
+                                   "Reduce")):
+            return "elementwise"
+        return "other"
+    out = {}
+    for name, us in kern.items():
+        out[kind(name)] = out.get(kind(name), 0.0) + us
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
+    """SLICE 10'S MAIN PATH: ``make_train_step`` on chatglm3-6b at full width
+    and the fitting depth (``fitting_depth`` at 12 bytes a parameter beside
+    ``TRAIN_RESERVE``), bf16, remat on, ``OptConfig(warmup_steps=1)``,
+    ``TokenStream(global_batch=2, seq_len=2048)``, ``steps`` steps, the
+    counts zeroed just before and read just after: loss and grad_norm
+    finite at every step, K4 2 launches a layer a step (the forward and
+    remat's recompute, all on the tensor-core kernel), K4′ its 4 passes a
+    layer a step. Reports s a step, tokens/s, peak memory, one more step's
+    two halves (``loss_and_grads``, ``opt_update``) timed apart, the busy
+    share, K4′'s share and the device time by kind of a step
+    (``torch.profiler`` over one more step) and the step's bound (8 ×
+    parameters × tokens at the bf16 peak)."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.training import (OptConfig, make_train_step, opt_init,
+                                      opt_update)
+    from repro_torch.training.optimizer import loss_and_grads
+    t_phase = time.perf_counter()
+    gc.collect()              # autograd's checkpoint hooks leave cycles
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    log(f"[train] before the main path: {free / 2 ** 30:.2f} GiB free, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved by "
+        "PyTorch")
+    if cfg is None:
+        cfg = fitting_depth(dataclasses.replace(get_config(TRAIN_ARCH),
+                                                remat=True), free,
+                            TRAIN_BYTES_PER_PARAM, TRAIN_RESERVE)
+    layers = attention_layers(cfg)[1]
+    params = lm_model(dev, cfg)
+    state = opt_init(params)
+    n_params = sum(x.numel() for x in _leaves(params))
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name} at {cfg.n_layers} layers (of "
+        f"{get_config(cfg.name).n_layers}): {n_params / 1e9:.3f} B "
+        f"parameters, training state {n_params * TRAIN_BYTES_PER_PARAM / 1e9:.2f}"
+        f" GB (12 bytes a parameter) of {free / 2 ** 30:.2f} GiB free, "
+        f"reserve {TRAIN_RESERVE / 2 ** 30:.0f} GiB")
+    opt = OptConfig(warmup_steps=1)
+    step = make_train_step(cfg, opt)
+    batches = [train_batch(dev, cfg, b, t, s) for s in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    PA.FLASH_KERNEL.launches = 0
+    PA.FLASH_BWD_KERNEL.launches = 0
+    history, secs = [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[s])
+        m = {k: float(v) for k, v in m.items()}
+        secs.append(time.perf_counter() - t0)
+        history.append(m)
+    fwd, bwd = PA.FLASH_KERNEL.launches, PA.FLASH_BWD_KERNEL.launches
+    tc = PA.FLASH_TC_KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    for s, m in enumerate(history):
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"train step {s}: {m}")
+        log(f"[train] step {s}: loss {m['loss']:.4f}, grad_norm "
+            f"{m['grad_norm']:.4f}, lr {m['lr']:.3g}, {secs[s]:.3f} s")
+    if fwd != 2 * layers * steps or tc != fwd:
+        raise AssertionError(f"train: K4 launched {fwd} times ({tc} on the "
+                             f"tensor cores), not 2 x {layers} x {steps}")
+    if bwd != PA.BWD_PASSES * layers * steps:
+        raise AssertionError(f"train: K4′ launched {bwd} times, not "
+                             f"{PA.BWD_PASSES} x {layers} x {steps}")
+    # one more step in its two halves, timed apart
+    t0 = time.perf_counter()
+    _, _, grads = loss_and_grads(params, batches[1], cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt_update(opt, params, grads, state)
+    torch.cuda.synchronize()
+    split = (t1 - t0, time.perf_counter() - t1)
+    del grads
+    log(f"[train] a step's halves: loss_and_grads {split[0]:.3f} s, "
+        f"opt_update {split[1]:.3f} s")
+    wall_us, kern, count = profile_call(
+        lambda: step(params, state, batches[0]), f"train step {cfg.name} "
+        f"{cfg.n_layers} layers", warm=False)
+    busy = sum(kern.values())
+    k4b = sum(us for name, us in kern.items() if "bwd_" in name
+              and "_kernel" in name)
+    k4 = sum(us for name, us in kern.items() if "flash_tc_kernel" in name)
+    groups = train_step_groups(kern)
+    log("[train] the traced step's device time by kind: " + ", ".join(
+        f"{g} {us / 1e3:.1f} ms" for g, us in groups.items()))
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    tokens = b * t
+    bound = 8 * n_params * tokens / BF16_FLOP_PER_S
+    log(f"[train] {steps} steps: {steady:.3f} s a step (median of steps "
+        f"1-{steps - 1}; first {secs[0]:.3f} s), {tokens / steady:.0f} "
+        f"tokens/s, peak {peak / 2 ** 30:.2f} GiB; K4 {fwd} launches "
+        f"({fwd // steps} a step), K4′ {bwd} ({bwd // steps} a step); the "
+        f"traced step: busy {100 * busy / wall_us:.1f} %, K4′ "
+        f"{k4b / 1e3:.1f} ms ({100 * k4b / wall_us:.1f} % of the step), K4 "
+        f"{k4 / 1e3:.1f} ms, {count} launches; bound {bound:.3f} s (8 x "
+        f"{n_params / 1e9:.3f} B x {tokens} tokens at the bf16 peak), "
+        f"{100 * bound / steady:.1f} % of it; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del params, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, params_b=n_params / 1e9,
+                state_gb=n_params * TRAIN_BYTES_PER_PARAM / 1e9,
+                step_s=secs, step_s_median=steady,
+                tokens_per_s=tokens / steady, peak_gib=peak / 2 ** 30,
+                k4_launches=fwd, k4_bwd_launches=bwd,
+                traced_wall_ms=wall_us / 1e3, busy_share=busy / wall_us,
+                k4_bwd_share=k4b / wall_us, k4_bwd_traced_ms=k4b / 1e3,
+                k4_traced_ms=k4 / 1e3, bound_s=bound,
+                traced_ms_by_kind={g: us / 1e3 for g, us in groups.items()},
+                grads_s=split[0], update_s=split[1],
+                loss=[m["loss"] for m in history],
+                grad_norm=[m["grad_norm"] for m in history])
+
+
+def phase_train_loop(dev, steps=8):
+    """The loop end to end on the card: ``python -m
+    repro_torch.launch.train --smoke --device cuda --steps 8`` (the
+    default arch), then ``train()`` on the chatglm3-6b smoke config
+    (float32: K4 and K4′ on the CUDA-core route) with ``checkpoint_every=4``
+    uninterrupted, crashed at step 6, and restarted: the restart restores
+    step 5 and ends on the uninterrupted run's final loss within the
+    reference's rel 1e-4; whether it is bit for bit is reported."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.training import TrainLoopConfig, train
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+             "--device", "cuda", "--steps", str(steps), "--ckpt-dir",
+             os.path.join(tmp, "cli")], capture_output=True, text=True,
+            env=env, timeout=600, cwd=ROOT)
+        if r.returncode != 0:
+            raise AssertionError(f"launch.train exited {r.returncode}:\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        for line in r.stdout.strip().splitlines()[-2:]:
+            log(f"[train] launch.train: {line}")
+        cfg = get_smoke_config("chatglm3-6b")
+
+        def loop(d):
+            return TrainLoopConfig(total_steps=steps, checkpoint_every=4,
+                                   log_every=100, global_batch=4, seq_len=32,
+                                   checkpoint_dir=os.path.join(tmp, d))
+        PA.FLASH_KERNEL.launches = 0
+        PA.FLASH_BWD_KERNEL.launches = 0
+        ref = train(cfg, loop("ref"), device=dev)
+        try:
+            train(cfg, loop("ft"), device=dev, inject_failure_at=6)
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        else:
+            raise AssertionError("the injected failure did not raise")
+        resumed = train(cfg, loop("ft"), device=dev)
+        torch.cuda.synchronize()
+        got = [h["step"] for h in resumed["history"]]
+        if got != list(range(5, steps)):
+            raise AssertionError(f"the restart stepped {got}, not from 5")
+        a, b = resumed["final_loss"], ref["final_loss"]
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"the restart ended on loss {a}, the "
+                                 f"uninterrupted run on {b}")
+        bitwise = a == b and all(
+            torch.equal(x, y) for (_, x), (_, y) in zip(
+                _named_leaves(resumed["params"]), _named_leaves(ref["params"])))
+        fwd, bwd = PA.FLASH_KERNEL.launches, PA.FLASH_BWD_KERNEL.launches
+        if fwd == 0 or bwd == 0:
+            raise AssertionError(f"the smoke loop launched K4 {fwd}, K4′ "
+                                 f"{bwd} times")
+        log(f"[train] crash at 6 and restart: resumed at step 5, final loss "
+            f"{a:.6f} against {b:.6f} uninterrupted ("
+            + ("bit for bit, parameters too" if bitwise else
+               f"not bit for bit: {abs(a - b):.3g} apart") + f"); K4 {fwd}, "
+            f"K4′ {bwd} launches over the three runs; "
+            f"{time.perf_counter() - t0:.1f} s")
+        return dict(final_loss=a, uninterrupted_final_loss=b,
+                    bitwise=bitwise)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 def metro_day(cells, domains):
     """The metro day (``metro_diurnal_trace(cells, n_domains=domains)``,
@@ -3183,6 +3817,7 @@ def main() -> int:
     k2_err, k2_rounds = phase_k2(dev)
     k3_err = phase_k3(dev)
     k4_err = phase_k4(dev)
+    k4b = phase_k4_bwd(dev)
     metro_stack = phase_metro_solve(dev, metro)
     launches, serve_stack, zs = phase_serving(dev)
     eval_launches, big = phase_evaluation(dev)
@@ -3218,6 +3853,11 @@ def main() -> int:
     if sorted(decode) != sorted(SLICE9):
         raise AssertionError(f"slice 9 decoded {sorted(decode)}, not "
                              f"{sorted(SLICE9)}")
+    t0 = time.perf_counter()
+    train_grads = phase_train_grads(dev)
+    train_main = phase_train(dev)
+    train_loop = phase_train_loop(dev)
+    log(f"[train] phases 16-18: {time.perf_counter() - t0:.1f} s on {card}")
     k1 = time_k1(dev, serve_stack, metro_stack, launches, k1_err)
     k1["launches_eval"] = eval_launches["pg_solve"]
     k1["tick"] = launches["tick"]
@@ -3243,7 +3883,13 @@ def main() -> int:
     k4["launches_decode"] = {name: row["k4_launches"]
                              for name, row in decode.items()}
     k4["decode"] = dict(decode, float32=decode_f32, phase_s=phase14_s)
-    kernels = [k1, k2, k3, k4]
+    k4["launches_train"] = train_main["k4_launches"]
+    k4["device_ms_phase15"] = {key: row["k4_fwd_device_ms"]
+                               for key, row in k4b["shapes"].items()}
+    k4b["launches"] = train_main["k4_bwd_launches"]
+    k4b["train"] = dict(train_main, gradient_check=train_grads,
+                        loop=train_loop)
+    kernels = [k1, k2, k3, k4, k4b]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,6 @@
-"""Port of ``src/repro/data``: the serving plane's frame source."""
+"""Port of ``src/repro/data``: the trainer's token batches and the serving
+plane's frame source."""
 
-from .pipeline import FrameStream
+from .pipeline import DataConfig, FrameStream, TokenStream
 
-__all__ = ["FrameStream"]
+__all__ = ["DataConfig", "FrameStream", "TokenStream"]

@@ -1,4 +1,5 @@
-"""K4, the flash-attention forward of the LM prefill, and its plain version.
+"""K4, the flash-attention forward of the LM prefill and training, its
+gradient K4′, and their plain versions.
 
 Port of ``src/repro/kernels/attn/attn.py::flash_attention_fwd`` (the Pallas
 kernel with its epilogue); its plain version is the counterpart of
@@ -13,9 +14,16 @@ chosen by :func:`route`:
   head width, and every ``Dh > 256`` up to 512. f32 FMAs on the CUDA cores,
   the reference's arithmetic.
 
-:func:`flash_attention_fwd` launches the routed kernel for CUDA tensors and
-computes :func:`flash_attention_fwd_ref` for CPU tensors, at any head
-width. On the card ``Dh > 512`` raises: no kernel has a tile for it.
+:func:`flash_attention_fwd` goes through :class:`FlashAttention`, an
+autograd Function: its forward launches the routed kernel for CUDA tensors
+and computes :func:`flash_attention_fwd_ref` for CPU tensors, at any head
+width; its backward is :func:`flash_attention_bwd`, K4′, the kernel
+``csrc/flash_attn_bwd.cu`` on CUDA tensors (four passes, counted in
+``FLASH_BWD_KERNEL``) and :func:`flash_attention_bwd_ref` on CPU tensors.
+The reference has no kernel there: its training attention is the jnp
+chunked flash attention, differentiated by recompute
+(``src/repro/models/attention.py:79-174``). On the card ``Dh > 512``
+raises: no kernel has a tile for it.
 """
 
 from __future__ import annotations
@@ -26,10 +34,11 @@ import torch
 
 from .._build import CudaKernel, current_stream
 
-__all__ = ["FLASH_CORE_KERNEL", "FLASH_KERNEL", "FLASH_TC_KERNEL",
-           "MAX_HEAD_DIM", "NEG", "TC_MAX_HEAD_DIM",
-           "flash_attention_fwd", "flash_attention_fwd_ref", "launch",
-           "route", "tc_head_width"]
+__all__ = ["BWD_PASSES", "FLASH_BWD_KERNEL", "FLASH_CORE_KERNEL",
+           "FLASH_KERNEL", "FLASH_TC_KERNEL", "FlashAttention",
+           "MAX_HEAD_DIM", "NEG", "TC_MAX_HEAD_DIM", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "flash_attention_fwd",
+           "flash_attention_fwd_ref", "launch", "route", "tc_head_width"]
 
 NEG = -1e30
 
@@ -41,6 +50,12 @@ FLASH_CORE_KERNEL = CudaKernel(
 FLASH_TC_KERNEL = CudaKernel(
     "flash_attn_tc.cu", "flash_attn_tc_launch",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
+# K4′: one launcher, called once a pass (rows, dQ, dK/dV, reduce)
+FLASH_BWD_KERNEL = CudaKernel(
+    "flash_attn_bwd.cu", "flash_attn_bwd_launch",
+    [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+     _I, _I, ctypes.c_float, _I, _I, _P])
+BWD_PASSES = 4
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the widest head each kernel has a tile for: the CUDA-core kernel's widest
 # instantiation is Dh 512 (32 x 16, 135 KB of the 227 KB a block may use);
@@ -114,15 +129,23 @@ def _check(q, k, v):
         raise ValueError("q, k, v must lie on one device")
 
 
+def _acc_dtype(dtype):
+    """The plain versions' arithmetic: float32, or float64 for float64
+    inputs (``torch.autograd.gradcheck``'s)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def flash_attention_fwd_ref(q, k, v, *, causal: bool = True):
     """Plain version of K4: an unblocked masked softmax in float32 with the
     kernel's scale, NEG, padding mask, GQA map (KV head = h // G) and
-    epilogue ``acc / max(l, 1e-30)``, cast to q's type."""
+    epilogue ``acc / max(l, 1e-30)``, cast to q's type (float64 inputs
+    compute in float64)."""
     b, tq, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    qh = (q.float() * dh ** -0.5).reshape(b, tq, hkv, g, dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, k.float())
+    acc = _acc_dtype(q.dtype)
+    qh = (q.to(acc) * dh ** -0.5).reshape(b, tq, hkv, g, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, k.to(acc))
     kpos = torch.arange(tk, device=q.device)
     valid = (kpos < tk)[None, :]
     if causal:
@@ -131,10 +154,69 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True):
     s = torch.where(valid, s, torch.tensor(NEG, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    acc = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    pv = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(acc))
     l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]       # (B, Tq, Hkv, G, 1)
-    out = acc / torch.clamp(l, min=1e-30)
+    out = pv / torch.clamp(l, min=1e-30)
     return out.reshape(b, tq, hq, dh).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True):
+    """Plain version of K4′, in float32: P recomputed with K4's scale, NEG
+    and GQA map; D = rowsum(dO∘O); dV = Pᵀ dO; dS = P∘(dO Vᵀ − D);
+    dQ = scale·dS K; dK = scale·dSᵀ Q; dK and dV summed over the G query
+    heads of each KV head. Returns float32 (dq, dk, dv) (float64 for
+    float64 inputs)."""
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = dh ** -0.5
+    acc = _acc_dtype(q.dtype)
+    qf = q.to(acc).reshape(b, tq, hkv, g, dh)
+    kf, vf = k.to(acc), v.to(acc)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf * scale, kf)
+    if causal:
+        valid = torch.arange(tk, device=q.device)[None, :] \
+            <= torch.arange(tq, device=q.device)[:, None]
+        s = torch.where(valid, s, torch.tensor(NEG, device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    do = dout.to(acc).reshape(b, tq, hkv, g, dh)
+    d = (do * out.to(acc).reshape(b, tq, hkv, g, dh)).sum(-1)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vf)
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    dq = scale * torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
+    dk = scale * torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    return dq.reshape(b, tq, hq, dh), dk, dv
+
+
+def _forward(q, k, v, causal: bool):
+    if q.device.type == "cpu":
+        return flash_attention_fwd_ref(q, k, v, causal=causal)
+    return launch(route(q.dtype, q.shape[-1]), q, k, v, causal=causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 with its gradient: the forward is :func:`flash_attention_fwd`'s
+    route (the routed kernel on the card, the plain version on the host),
+    saving q, k, v and the output; the backward is
+    :func:`flash_attention_bwd` (K4′ on the card, its plain version on the
+    host). A recompute under ``torch.utils.checkpoint`` runs the forward
+    again, so a checkpointed layer launches K4 twice a step."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
@@ -145,20 +227,64 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     A CUDA tensor launches the kernel :func:`route` names (counted in
     ``FLASH_TC_KERNEL`` or ``FLASH_CORE_KERNEL``, both in
     ``FLASH_KERNEL.launches``); the tensor-core route needs 16-byte-aligned
-    q, k and v. A CPU tensor computes :func:`flash_attention_fwd_ref`,
-    with its autograd. The kernels have no backward yet, so a CUDA input
-    that requires grad under grad mode raises rather than return an output
-    that carries no gradient to it.
+    q, k and v. A CPU tensor computes :func:`flash_attention_fwd_ref`. Both
+    go through :class:`FlashAttention`, so an input that requires grad gets
+    K4′'s gradient (the kernel on the card, its plain version on the host).
     """
+    _check(q, k, v)
+    return FlashAttention.apply(q, k, v, causal)
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True):
+    """K4′: the gradient of :func:`flash_attention_fwd` → (dq, dk, dv) in
+    q's type. ``out`` is the forward's output and ``dout`` its gradient
+    (both (B, Tq, Hq, Dh), q's type).
+
+    A CUDA tensor launches ``csrc/flash_attn_bwd.cu``'s four passes (rows,
+    dQ, dK/dV, reduce; ``FLASH_BWD_KERNEL.launches`` adds one a pass), f32
+    arithmetic, Dh ≤ 512, no atomics; a CPU tensor computes
+    :func:`flash_attention_bwd_ref` and casts it to q's type (float64
+    too, for ``torch.autograd.gradcheck``)."""
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} and dout "
+                         f"{tuple(dout.shape)} {dout.dtype} must be like q "
+                         f"{tuple(q.shape)} {q.dtype}")
     if q.device.type == "cpu":
-        _check(q, k, v)
-        return flash_attention_fwd_ref(q, k, v, causal=causal)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "K4 has no backward yet (an autograd Function for it is "
-            "ROADMAP.md queue 1, item 4): call it under torch.no_grad() or "
-            "on inputs that do not require grad")
-    return launch(route(q.dtype, q.shape[-1]), q, k, v, causal=causal)
+        return tuple(t.to(q.dtype) for t in flash_attention_bwd_ref(
+            q, k, v, out, dout, causal=causal))
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"Dh={dh} > {MAX_HEAD_DIM}: K4′ has no tile for it")
+    ts = (q, k, v, out, dout)
+    if not all(t.is_contiguous() for t in ts) \
+            or any(t.device != q.device for t in ts):
+        raise ValueError("q, k, v, out and dout must be contiguous tensors "
+                         "on one device")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if min(b, tq, tk, hq) == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hq, tq), **f32)
+    delta = torch.empty((b, hq, tq), **f32)
+    dk_part = torch.empty((b, tk, hq, dh), **f32)
+    dv_part = torch.empty((b, tk, hq, dh), **f32)
+    stream = current_stream(q.get_device())
+    ptrs = [t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv, lse,
+                                   delta, dk_part, dv_part)]
+    # tiles staged 16 bytes a load where every row starts 16-byte aligned
+    vec = int(dh % (16 // q.element_size()) == 0
+              and not any(p % 16 for p in ptrs[:5]))
+    for p in range(BWD_PASSES):
+        FLASH_BWD_KERNEL(p, *ptrs, _DTYPE_CODE[q.dtype], b, tq, tk, hq, hkv,
+                         dh, dh ** -0.5, int(causal), vec, stream)
+    return dq, dk, dv
 
 
 def launch(kernel: str, q, k, v, *, causal: bool = True):

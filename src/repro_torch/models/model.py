@@ -8,20 +8,31 @@ The parameter tree is the reference's: ``embed``, ``final_ln``,
 embeddings are tied, and for an encoder-decoder ``enc_in_proj`` and
 ``enc`` (``scan.pos0`` over the encoder layers, ``final_ln``) — so
 ``repro_torch.convert.lm_params`` maps a reference tree leaf for leaf. The
-reference's ``lax.scan`` over repeats is a Python loop here. The
-training forward is without its backward, ``_maybe_remat`` and
-``param_specs`` (ROADMAP.md, queue 1).
+reference's ``lax.scan`` over repeats is a Python loop here; a stacked
+leaf is read one repeat at a time (``leaf[r]``), so the training step may
+hand in a sequence of per-repeat tensors instead
+(``training/optimizer.py::split_repeats``). The training forward's
+backward is autograd: each repeat's body is checkpointed as the reference
+wraps its scan body (``_maybe_remat``), and K4's gradient is K4′
+(``kernels/attn/attn.py::FlashAttention``). ``param_specs`` is
+``init_params`` on the ``meta`` device.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from . import blocks
 from .layers import cross_entropy, dense_init, rms_norm, softcap
 
 __all__ = ["cache_specs", "decode_step", "forward_train", "init_cache",
-           "init_params", "loss_fn", "prefill"]
+           "init_params", "loss_fn", "param_specs", "prefill"]
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -93,21 +104,82 @@ def init_params(generator, cfg, device=None):
     return params
 
 
+def param_specs(cfg):
+    """Reference ``param_specs`` (model.py:80): the parameter tree of
+    ``cfg`` as ``meta`` tensors — shapes and dtypes, nothing allocated."""
+    return init_params(torch.Generator(), cfg, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# train forward
+# ---------------------------------------------------------------------------
+
+def _repeat(stack, r: int):
+    """Repeat ``r`` of a stacked subtree: every leaf indexed ``[r]`` (a
+    stacked tensor, or a sequence of per-repeat tensors)."""
+    if isinstance(stack, dict):
+        return {k: _repeat(v, r) for k, v in stack.items()}
+    return stack[r]
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``"dots_no_batch"``: keep the 2-D matrix products (the projections
+    and FFNs, JAX's dots with no batch dimensions) and recompute the rest,
+    batched products (attention's einsums) included."""
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg):
+    """Reference ``_maybe_remat`` (model.py:90): with ``cfg.remat``, ``fn``
+    (one repeat's body) under ``torch.utils.checkpoint`` (non-reentrant),
+    so the backward recomputes it. ``remat_policy="nothing"`` saves only
+    its inputs, the layer-boundary residual stream; ``"dots_no_batch"``
+    also saves its 2-D matrix products. Without grad mode ``fn`` runs as
+    it is."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy == "dots_no_batch":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_matmuls)
+    elif cfg.remat_policy == "nothing":
+        context_fn = noop_context_fn
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    def body(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return body
+
+
 def _encode(params, enc_input, cfg):
     """Reference ``_encode`` (model.py:102): the stub frame embeddings
     through the input adapter, the bidirectional "attn" stack (RoPE,
     ``causal=False``) and the encoder's final norm."""
     x = enc_input.to(_dtype(cfg)) @ params["enc_in_proj"]
+
+    def body(h, rep):
+        return blocks.block_train(rep, h, cfg, "attn", causal=False)
+    body = _maybe_remat(body, cfg)
     stack = params["enc"]["scan"]["pos0"]
     for r in range(cfg.encoder_layers):
-        rep = _tree_map(lambda t, r=r: t[r], stack)
-        x = blocks.block_train(rep, x, cfg, "attn", causal=False)
+        x = body(x, _repeat(stack, r))
     return rms_norm(x, params["enc"]["final_ln"], cfg.norm_eps)
 
 
 def _embed(params, tokens, cfg):
-    return params["embed"].index_select(0, tokens.reshape(-1)).reshape(
-        tuple(tokens.shape) + (cfg.d_model,))
+    """The token embeddings (``jnp.take`` in the reference). Its gradient is
+    ``F.embedding``'s: each row's contributions summed in float32 in a
+    fixed order, where ``index_select``'s backward adds them with atomics
+    in the table's type (bf16 at full width, where a frequent token's row
+    sums thousands of contributions)."""
+    return F.embedding(tokens.long(), params["embed"])
 
 
 def _head(params, x, cfg):
@@ -128,28 +200,29 @@ def _frames(params, batch, cfg):
     return _encode(params, batch["enc_input"], cfg)
 
 
-# ---------------------------------------------------------------------------
-# train forward
-# ---------------------------------------------------------------------------
-
 def forward_train(params, batch, cfg):
-    """Reference ``forward_train`` (model.py:116), forward: the logits (B,
-    T, vocab) of ``batch["tokens"]`` (B, T) at every position. An
-    encoder-decoder first encodes ``batch["enc_input"]``. On one device, as
-    the reference without a mesh: an MoE FFN is the dense form."""
+    """Reference ``forward_train`` (model.py:116): the logits (B, T, vocab)
+    of ``batch["tokens"]`` (B, T) at every position, differentiable. An
+    encoder-decoder first encodes ``batch["enc_input"]``. Each repeat of
+    the block pattern is one ``_maybe_remat`` body. On one device, as the
+    reference without a mesh: an MoE FFN is the dense form."""
     enc = _frames(params, batch, cfg)
     x = _embed(params, batch["tokens"], cfg)
-    for r in range(cfg.n_repeats):
+
+    def body(h, rep):
         for i, kind in enumerate(cfg.block_pattern):
-            rep = _tree_map(lambda t, r=r: t[r], params["scan"][f"pos{i}"])
-            x = blocks.block_train(rep, x, cfg, kind, enc=enc)
+            h = blocks.block_train(rep[f"pos{i}"], h, cfg, kind, enc=enc)
+        return h
+    body = _maybe_remat(body, cfg)
+    for r in range(cfg.n_repeats):
+        x = body(x, _repeat(params["scan"], r))
     for p, kind in zip(params.get("rem", ()), cfg.remainder_kinds):
         x = blocks.block_train(p, x, cfg, kind, enc=enc)
     return _head(params, x, cfg)
 
 
 def loss_fn(params, batch, cfg):
-    """Reference ``loss_fn`` (model.py:145), forward value: the token CE of
+    """Reference ``loss_fn`` (model.py:145): the token CE of
     :func:`forward_train`'s logits against ``batch["labels"]`` → (loss,
     {"loss": loss})."""
     loss = cross_entropy(forward_train(params, batch, cfg), batch["labels"])
@@ -204,7 +277,7 @@ def prefill(params, batch, cfg, cache_len: int):
     for r in range(cfg.n_repeats):
         caches = {}
         for i, kind in enumerate(cfg.block_pattern):
-            rep = _tree_map(lambda t, r=r: t[r], params["scan"][f"pos{i}"])
+            rep = _repeat(params["scan"][f"pos{i}"], r)
             x, caches[f"pos{i}"] = blocks.block_prefill(rep, x, cfg, kind,
                                                         cache_len, enc=enc)
         per_rep.append(caches)

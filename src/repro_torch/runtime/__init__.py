@@ -1,5 +1,8 @@
-"""Port of ``src/repro/runtime``: heartbeats and straggler detection."""
+"""Port of ``src/repro/runtime``: heartbeats, straggler detection, elastic
+re-meshing and the step clock."""
 
-from .fault_tolerance import HeartbeatMonitor, StragglerMitigator
+from .fault_tolerance import (ElasticMesh, HeartbeatMonitor, StepClock,
+                              StragglerMitigator)
 
-__all__ = ["HeartbeatMonitor", "StragglerMitigator"]
+__all__ = ["ElasticMesh", "HeartbeatMonitor", "StepClock",
+           "StragglerMitigator"]

@@ -1,17 +1,28 @@
-"""Port of ``src/repro/runtime/fault_tolerance.py`` (the port's own numpy copy),
-held against it value for value by ``tests/test_torch_core.py``.
+"""Port of ``src/repro/runtime/fault_tolerance.py`` (the port's own copy),
+held against it value for value by ``tests/test_torch_core.py`` and
+``tests/test_torch_train_loop.py``.
 
-Fault tolerance for the serving plane: heartbeats and straggler detection.
+Fault tolerance for the serving plane and the trainer: heartbeats,
+straggler detection, elastic re-meshing.
 
-* :class:`HeartbeatMonitor` — cells stamp a heartbeat each tick; a cell
-  silent for `timeout_steps` is declared dead.
+* :class:`HeartbeatMonitor` — cells (or hosts) stamp a heartbeat each tick
+  (or step); one silent for `timeout_steps` is declared dead.
 * :class:`StragglerMitigator` — per-tick duration EWMA; a tick slower than
   `threshold ×` the EWMA marks the cell a straggler.
+* :class:`ElasticMesh` — given the surviving host set, the largest
+  (data × model) mesh that preserves the model axis, and the new per-host
+  batch (a plan: the port's trainer runs on one device until
+  ``distributed/`` is ported).
+* :class:`StepClock` — stamps each step's duration into both monitors.
 """
 
 from __future__ import annotations
 
-__all__ = ["HeartbeatMonitor", "StragglerMitigator"]
+import dataclasses
+import time
+
+__all__ = ["ElasticMesh", "HeartbeatMonitor", "StepClock",
+           "StragglerMitigator"]
 
 
 class HeartbeatMonitor:
@@ -71,3 +82,44 @@ class StragglerMitigator:
         """Forget a host's EWMA and flags (it was replaced/restarted)."""
         self.ewma[host] = None
         self.flagged.pop(host, None)
+
+
+@dataclasses.dataclass
+class ElasticMesh:
+    """Largest viable (data × model) mesh over the surviving hosts."""
+
+    model_degree: int            # fixed by the checkpoint's param sharding
+    chips_per_host: int
+
+    def plan(self, alive_hosts: int, global_batch: int) -> dict:
+        chips = alive_hosts * self.chips_per_host
+        data_degree = max(1, chips // self.model_degree)
+        # data axis must divide the global batch — round down to a divisor
+        while data_degree > 1 and global_batch % data_degree != 0:
+            data_degree -= 1
+        return {
+            "mesh_shape": (data_degree, self.model_degree),
+            "chips_used": data_degree * self.model_degree,
+            "chips_idle": chips - data_degree * self.model_degree,
+            "host_batch": global_batch // data_degree,
+        }
+
+
+class StepClock:
+    """Context helper stamping per-step durations into the monitors."""
+
+    def __init__(self, host: int, hb: HeartbeatMonitor,
+                 strag: StragglerMitigator):
+        self.host, self.hb, self.strag = host, hb, strag
+        self.step = 0
+
+    def __enter__(self):
+        self.t0 = time.time()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.time() - self.t0
+        self.step += 1
+        self.hb.beat(self.host, self.step)
+        self.strag.record(self.host, dt)
+        return False

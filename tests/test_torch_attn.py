@@ -35,6 +35,14 @@ _DT = {"float32": (jnp.float32, torch.float32),
        "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture
+def rng():
+    """A generator seeded in each test: ``tests/conftest.py``'s ``rng`` is
+    shared by the session, so its draws would depend on which tests ran
+    before in the same worker."""
+    return np.random.default_rng(0)
+
+
 def _qkv(rng, b, tq, tk, hq, hkv, dh, dtype):
     """Unit-normal q, k, v as (jax, torch) pairs of the same values (bf16
     values are rounded once, by JAX, and carried bit for bit)."""
@@ -213,10 +221,11 @@ def test_cross_attn_train_matches_reference(te, rng, monkeypatch):
 
 
 def test_plain_version_keeps_its_autograd_on_the_host(rng):
-    """K4's wrapper on CPU tensors that require grad is the plain version
-    with its autograd (the CUDA route refuses them until K4 has a
-    backward: ROADMAP.md queue 1, item 4): the gradients are those of the
-    same attention written out in float64."""
+    """K4's wrapper on CPU tensors that require grad: ``FlashAttention``'s
+    host route, the plain forward and K4′'s plain backward
+    (``flash_attention_bwd_ref``; the name is kept from when the host
+    route was the plain forward's own autograd): the gradients are those
+    of the same attention written out in float64."""
     (_, q), (_, k), (_, v) = _qkv(rng, 1, 6, 6, 4, 2, 8, "float32")
     ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
     flash_attention_fwd(*ins).square().sum().backward()

@@ -36,6 +36,14 @@ RTOL, ATOL = 2 ** -7, 3e-2
 BK = 64          # keys per KV tile of the tensor-core kernel
 
 
+@pytest.fixture
+def rng():
+    """A generator seeded in each test: ``tests/conftest.py``'s ``rng`` is
+    shared by the session, so its draws would depend on which tests ran
+    before in the same worker."""
+    return np.random.default_rng(0)
+
+
 def _tc_model(q, k, v, *, causal=True):
     """The tensor-core kernel's arithmetic on bf16 (B, T, H, Dh) tensors."""
     b, tq, hq, dh = q.shape

@@ -37,6 +37,14 @@ from repro_torch.core import latency as PLat  # noqa: E402
 from repro_torch.core.sfesp import _solver_tables  # noqa: E402
 
 
+@pytest.fixture
+def rng():
+    """A generator seeded in each test: ``tests/conftest.py``'s ``rng`` is
+    shared by the session, so its draws would depend on which tests ran
+    before in the same worker."""
+    return np.random.default_rng(0)
+
+
 def record(inst):
     """A reference ProblemInstance as the plain arrays ``convert`` takes."""
     p, t, c = inst.pool, inst.tasks, inst.coupling

@@ -20,6 +20,14 @@ from repro_torch.kernels.pg import pg as PK  # noqa: E402
 from repro_torch.kernels.resize import resize as PR  # noqa: E402
 
 
+@pytest.fixture
+def rng():
+    """A generator seeded in each test: ``tests/conftest.py``'s ``rng`` is
+    shared by the session, so its draws would depend on which tests ran
+    before in the same worker."""
+    return np.random.default_rng(0)
+
+
 def _random_round(rng, b, t, a, m, occupied_frac=0.5):
     grid = rng.uniform(1, 10, (a, m)).astype(np.float32)
     price = rng.uniform(0.1, 1, (b, m)).astype(np.float32)
@@ -628,9 +636,11 @@ def test_decode_on_card_matches_host(name, k4, cuda_device):
 @pytest.mark.cuda
 def test_flash_kernel_refuses_inputs_that_require_grad_on_card(cuda_device,
                                                                rng):
-    """K4 has no backward yet: a CUDA input that requires grad, under grad
-    mode, raises instead of returning an output with no gradient; under
-    ``no_grad`` it launches."""
+    """A CUDA input that requires grad, under grad mode, goes through
+    ``FlashAttention``: K4 launches once and the output carries K4′'s
+    gradient (four launches), equal to ``flash_attention_bwd``'s; under
+    ``no_grad`` K4 launches and the output needs no grad. (The name is
+    kept from before K4′, when such an input raised.)"""
     from repro_torch.kernels.attn import attn as PA
     q = torch.from_numpy(rng.standard_normal((1, 16, 4, 64)).astype(
         np.float32)).to(cuda_device).bfloat16()
@@ -639,11 +649,66 @@ def test_flash_kernel_refuses_inputs_that_require_grad_on_card(cuda_device,
         args = [q.clone(), k.clone(), k.clone()]
         args[which].requires_grad_(True)
         before = PA.FLASH_KERNEL.launches
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            PA.flash_attention_fwd(*args)
-        assert PA.FLASH_KERNEL.launches == before
+        bwd_before = PA.FLASH_BWD_KERNEL.launches
+        out = PA.flash_attention_fwd(*args)
+        assert out.requires_grad
+        dout = torch.ones_like(out)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        assert PA.FLASH_KERNEL.launches == before + 1
+        assert PA.FLASH_BWD_KERNEL.launches == bwd_before + PA.BWD_PASSES
+        want = PA.flash_attention_bwd(*(a.detach() for a in args),
+                                      out.detach(), dout)
+        assert torch.equal(args[which].grad, want[which])
         with torch.no_grad():
             out = PA.flash_attention_fwd(*args)
         torch.cuda.synchronize()
-        assert PA.FLASH_KERNEL.launches == before + 1
+        assert PA.FLASH_KERNEL.launches == before + 2
         assert not out.requires_grad
+
+
+# K4′ on the card against its plain version in float32 on the same inputs,
+# element by element within a |ref| + b rms(ref's row) + c rms(ref), as
+# chip_smoke.py's K4B_BF16_TOL and K4B_F32_TOL: bf16 (2^-7, 2^-10, 2^-16),
+# twice the outputs' rounding plus float32's order; float32 (2^-14, 2^-14,
+# 2^-14), the order alone (the c floor for rows that cancel, causal dq row 0)
+_BWD_TOL = {torch.bfloat16: (2 ** -7, 2 ** -10, 2 ** -16),
+            torch.float32: (2 ** -14, 2 ** -14, 2 ** -14)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,dh,causal", [
+    (2, 77, 77, 8, 2, 64, True), (1, 33, 33, 4, 1, 128, True),
+    (2, 40, 100, 6, 6, 64, False), (1, 130, 130, 4, 2, 256, True),
+    (1, 21, 50, 4, 4, 320, False), (1, 1, 1, 2, 1, 16, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
+                                                causal, dtype, cuda_device,
+                                                rng):
+    """K4′ (``csrc/flash_attn_bwd.cu``) against ``flash_attention_bwd_ref``
+    at Dh 16–320, G 1–4, Tq != Tk and lengths not a multiple of a tile:
+    four launches, a repeat bit for bit, within ``_BWD_TOL``."""
+    from repro_torch.kernels.attn import attn as PA
+    dt = getattr(torch, dtype)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, dt)
+    q, k, v = draw(b, tq, hq, dh), draw(b, tk, hkv, dh), draw(b, tk, hkv, dh)
+    dout = draw(b, tq, hq, dh)
+    out = PA.flash_attention_fwd(q, k, v, causal=causal)
+    before = PA.FLASH_BWD_KERNEL.launches
+    got = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+    again = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert PA.FLASH_BWD_KERNEL.launches == before + 2 * PA.BWD_PASSES
+    ref = PA.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                     out.float(), dout.float(), causal=causal)
+    a, r, c = _BWD_TOL[dt]
+    for g, g2, w, like in zip(got, again, ref, (q, k, v)):
+        assert torch.equal(g, g2)
+        assert g.dtype == dt and g.shape == like.shape
+        rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+        tol = a * w.abs() + r * rms + c * w.pow(2).mean().sqrt()
+        assert ((g.float() - w).abs() <= tol).all(), \
+            float(((g.float() - w).abs() / tol).max())

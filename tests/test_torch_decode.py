@@ -66,6 +66,14 @@ _J_PREFILL = jax.jit(j_prefill, static_argnums=(2, 3))
 _J_DECODE = jax.jit(j_decode_step, static_argnums=4)
 
 
+@pytest.fixture
+def rng():
+    """A generator seeded in each test: ``tests/conftest.py``'s ``rng`` is
+    shared by the session, so its draws would depend on which tests ran
+    before in the same worker."""
+    return np.random.default_rng(0)
+
+
 def _apart(got, want) -> float:
     got, want = _np(got), _np(want)
     assert got.shape == want.shape

@@ -35,6 +35,14 @@ from repro_torch.kernels.resize import ops as p_ops  # noqa: E402
 from repro_torch.kernels.resize import resize as PR  # noqa: E402
 
 
+@pytest.fixture
+def rng():
+    """A generator seeded in each test: ``tests/conftest.py``'s ``rng`` is
+    shared by the session, so its draws would depend on which tests ran
+    before in the same worker."""
+    return np.random.default_rng(0)
+
+
 def _random_round(rng, b, t, a, m, occupied_frac=0.5):
     """The input draw of ``tests/test_kernels_pg.py``, as numpy."""
     grid = rng.uniform(1, 10, (a, m)).astype(np.float32)

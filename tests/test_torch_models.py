@@ -58,6 +58,14 @@ HEADS = {
 ENC_LEN = 50
 
 
+@pytest.fixture
+def rng():
+    """A generator seeded in each test: ``tests/conftest.py``'s ``rng`` is
+    shared by the session, so its draws would depend on which tests ran
+    before in the same worker."""
+    return np.random.default_rng(0)
+
+
 def _port_cfg(jcfg) -> ModelConfig:
     return ModelConfig(**dataclasses.asdict(jcfg))
 

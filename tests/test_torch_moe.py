@@ -27,6 +27,14 @@ from repro_torch.models import moe as TM  # noqa: E402
 ATOL = 2e-5
 
 
+@pytest.fixture
+def rng():
+    """A generator seeded in each test: ``tests/conftest.py``'s ``rng`` is
+    shared by the session, so its draws would depend on which tests ran
+    before in the same worker."""
+    return np.random.default_rng(0)
+
+
 def _cfg(name="mixtral-8x7b", **kw):
     jcfg = dataclasses.replace(j_get_smoke(name), **kw)
     return jcfg, ModelConfig(**dataclasses.asdict(jcfg))

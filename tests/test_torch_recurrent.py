@@ -3,9 +3,11 @@ JAX reference (``repro.models.recurrent``), function by function, on the
 CPU in float32.
 
 Inputs are numpy draws from a seeded generator, handed to both packages.
-Tolerances: the conv and the coefficients within 1e-6 (the same float32
-operations); the chunked scan within 1e-5 — the port repeats the odd/even
-recursion of ``jax.lax.associative_scan`` combine for combine, but XLA may
+Tolerances: the conv within 1e-6 (the same float32 operations), the
+coefficients against a float64 evaluation of the formula within a bound
+that follows its conditioning (``_coeffs64``); the chunked scan within
+1e-5 — the port repeats the odd/even recursion of
+``jax.lax.associative_scan`` combine for combine, but XLA may
 contract ``b1 * a2 + b2`` into one FMA, so the last bits differ, and the
 states are sums of up to ~1/(1-a) terms of order 1; the whole block within
 2e-5 (its output projection sums 64 products of those).
@@ -25,6 +27,14 @@ from repro.models import recurrent as JR  # noqa: E402
 
 from repro_torch.models import ModelConfig  # noqa: E402
 from repro_torch.models import recurrent as TR  # noqa: E402
+
+
+@pytest.fixture
+def rng():
+    """A generator seeded in each test: ``tests/conftest.py``'s ``rng`` is
+    shared by the session, so its draws would depend on which tests ran
+    before in the same worker."""
+    return np.random.default_rng(0)
 
 
 def _cfg(**kw):
@@ -73,17 +83,55 @@ def test_conv_causal_matches_reference(carry, rng):
         _close(g, j, 1e-6)
 
 
-def test_rglru_coeffs_match_reference(rng):
-    """``jax.nn.softplus`` is ``logaddexp(x, 0)`` with no threshold;
+def _coeffs64(p, u):
+    """The reference's ``_rglru_coeffs`` in float64 on the same float32
+    inputs → (a, b, and b's float32 error bound). Rounding in float32 is
+    2^-24 relative an operation; two steps amplify it. The gap
+    1 - exp(2·log_a) cancels when ``r`` is small: exp's rounding near 1 is
+    a relative error of ~2^-24 / gap in the gap, half that after the
+    square root, so |Δb| ≤ ~2^-24 |i·u| / sqrt(gap). The gates' sigmoids
+    on their float32 arguments x: an argument's rounding (2^-24 |x|) is a
+    relative error of up to that in a small sigmoid, so |Δb| ≤ ~2^-24
+    (|x_i| + |x_r|) |b|. The bound is 4x the first and 2x the second."""
+    p = {k: v.astype(np.float64) for k, v in p.items()}
+    uf = u.astype(np.float64)
+    x_r = uf * p["gate_r_w"] + p["gate_r_b"]
+    x_i = uf * p["gate_i_w"] + p["gate_i_b"]
+    r = 1.0 / (1.0 + np.exp(-x_r))
+    i = 1.0 / (1.0 + np.exp(-x_i))
+    log_a = -TR._C_RGLRU * np.log1p(np.exp(p["lam"])) * r
+    gap = 1.0 - np.exp(2.0 * log_a)
+    iu = np.abs(i * uf)
+    bound = 2.0 ** -23 * iu * (2.0 / np.sqrt(gap)
+                               + (np.abs(x_i) + np.abs(x_r)) * np.sqrt(gap))
+    return np.exp(log_a), np.sqrt(np.maximum(gap, 1e-12)) * (i * uf), bound
+
+
+@pytest.mark.parametrize("seed", range(50))
+def test_rglru_coeffs_match_reference(seed):
+    """Both packages' coefficients against a float64 evaluation of the
+    reference formula, on inputs drawn in the test from its own seed.
+
+    ``jax.nn.softplus`` is ``logaddexp(x, 0)`` with no threshold;
     ``F.softplus`` returns x itself above 20. Λ lies in (0.001, 0.1), where
-    both are log1p(exp(x)), so the two agree."""
+    both are log1p(exp(x)), so the two agree. ``a`` within 1e-6. ``b =
+    sqrt(1 - exp(2·log_a))·(i·u)`` cancels when ``r`` is small: float32's
+    rounding of exp(2·log_a) near 1 (2^-24) is a relative error of
+    2^-24 / gap in the gap, so ``b`` is held within a bound that follows
+    that conditioning and the gates' (``_coeffs64``), not a flat one (a
+    flat 1e-6 fails on some seeds)."""
+    rng = np.random.default_rng(seed)
     jcfg, cfg = _cfg()
     jp, tp = _params(rng, cfg)
     u = _f32(rng, 2, 7, cfg.d_rnn, scale=2.0)
     ja, jb = JR._rglru_coeffs(jp, jnp.asarray(u))
     ta, tb = TR._rglru_coeffs(tp, torch.from_numpy(u))
+    a64, b64, bound = _coeffs64({k: v.numpy() for k, v in tp.items()}, u)
     _close(ta, ja, 1e-6)
-    _close(tb, jb, 1e-6)
+    for a, b in ((ta.numpy(), tb.numpy()), (np.asarray(ja), np.asarray(jb))):
+        assert np.abs(a - a64).max() <= 1e-6
+        assert (np.abs(b - b64) <= bound).all(), \
+            float((np.abs(b - b64) / np.maximum(bound, 1e-30)).max())
     assert float(tp["lam"].max()) < 20.0
 
 

@@ -27,6 +27,14 @@ from repro_torch.models import ModelConfig  # noqa: E402
 from repro_torch.models import rwkv as TW  # noqa: E402
 
 
+@pytest.fixture
+def rng():
+    """A generator seeded in each test: ``tests/conftest.py``'s ``rng`` is
+    shared by the session, so its draws would depend on which tests ran
+    before in the same worker."""
+    return np.random.default_rng(0)
+
+
 def _cfg(**kw):
     jcfg = dataclasses.replace(j_get_smoke("rwkv6-1.6b"), **kw)
     return jcfg, ModelConfig(**dataclasses.asdict(jcfg))

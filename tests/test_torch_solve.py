@@ -39,6 +39,14 @@ from test_torch_core import to_port  # noqa: E402
 NEG = float("-inf")
 
 
+@pytest.fixture
+def rng():
+    """A generator seeded in each test: ``tests/conftest.py``'s ``rng`` is
+    shared by the session, so its draws would depend on which tests ran
+    before in the same worker."""
+    return np.random.default_rng(0)
+
+
 def _pool9(cls, p4):
     """The m = 4 numerical pool plus five unit resources of capacity 12 (one
     with two levels): nine resources, A = 1280 · 2 = 2560."""
