@@ -85,7 +85,9 @@ hand-written kernel of those paths against its plain PyTorch version:
    same inputs (``K4_BF16_TOL``); at the whisper encoder's shape the
    tensor-core kernel with its 28-key tail tile dropped, or with the tail
    left unmasked (K and V zero-filled to a whole tile), must fail that
-   tolerance;
+   tolerance; the tensor-core kernel's second launch writes each row's
+   log-sum-exp, its output bit for bit the first's and the LSE within
+   ``K4_LSE_TOL`` (2^-8) of the plain version's;
 9. SLICE 3'S MAIN PATH: an ``EdgeServingEngine`` on the Colosseum pool
    with chatglm3-6b at full width (bf16, random weights from a seeded
    generator) registered as ``launch/serve.py`` registers its model,
@@ -112,9 +114,12 @@ hand-written kernel of those paths against its plain PyTorch version:
    breakdown of each wrapper's steps; K4 on both kernels at the LM job's
    shape, at (2, 2048) and at slice 8's qwen3-moe prefill and whisper-tiny
    encoder shapes, beside SDPA, with the tensor-core kernel's ptxas report and
-   launch configuration — and prints the ``{"kernels": [...]}`` line (K4′'s
-   row from phases 15 and 17), the card's name and power limit, and
-   finally the ``{"ok": true, ...}`` line;
+   launch configuration, and K4 writing the LSE at those shapes (output bit
+   for bit, LSE within ``K4_LSE_TOL``, its time) — and prints the
+   ``{"kernels": [...]}`` line (K4′'s two rows, one a route, from phases
+   15, 17 and 18, with the tensor-core K4′'s ptxas report and launch
+   configuration), the card's name and power limit, and finally the
+   ``{"ok": true, ...}`` line;
 11. SLICE 7'S MAIN PATH, the sharded metro solve (run after phase 7): the
    1024-cell day (``metro_diurnal_trace(1024, n_domains=64)``, 24576
    coupled rows in 1536 groups of 16, stacked group-major at Tmax 32)
@@ -185,32 +190,40 @@ hand-written kernel of those paths against its plain PyTorch version:
    global (2, 2048, 16/8, 256) causal shapes, the whisper-tiny encoder
    (2, 1500, 6/6, 64) and cross-attention (448 over 1500), non-causal, in
    bf16, and (2, 512, 8/2, 64), (2, 333, 4/4, 320) and (1, 40 over 100,
-   4/2, 320) in float32, element by element within ``K4B_BF16_TOL`` or
-   ``K4B_F32_TOL``; a repeat bit for bit; four launches a call; once
-   through ``FlashAttention``'s backward, bit for bit the direct call's;
-   at the first three shapes ms a call, device µs by pass, the plain
-   version and SDPA's backward beside the bound;
+   4/2, 320) in float32, element by element: every bf16 shape with Dh <=
+   128 on both routes — the tensor-core kernel (``csrc/
+   flash_attn_bwd_tc.cu``, the route, given K4's LSE) within
+   ``K4B_TC_TOL`` and the CUDA-core kernel within ``K4B_BF16_TOL`` — and
+   the rest on the CUDA-core kernel within ``K4B_BF16_TOL`` or
+   ``K4B_F32_TOL`` (float32 again given the plain LSE); on each route a
+   repeat bit for bit and a launch a pass (3 and 4); once through
+   ``FlashAttention``'s backward, bit for bit the direct call's given the
+   same LSE; at the first three shapes, on each route, ms a call and
+   device µs by pass, and the plain version and SDPA's backward beside
+   the bound;
 16. SLICE 10's gradient check (after phase 14): chatglm3-6b at 4 layers,
    full width, bf16, B = 2, T = 2048, remat on, ``loss_and_grads`` on a
-   ``TokenStream`` batch through K4 and K4′ (2 and 4 launches a layer)
-   against a twin whose attention is K4's plain version with autograd,
-   each gradient leaf's rms difference within ``TRAIN_GRAD_TOL`` of its
-   rms (the largest element's printed), and one ``make_train_step`` step
-   a side: loss, grad_norm and lr agree;
+   ``TokenStream`` batch through K4 and K4′ (2 and 3 launches a layer,
+   K4′'s all on its tensor-core route) against a twin whose attention is
+   K4's plain version with autograd, each gradient leaf's rms difference
+   within ``TRAIN_GRAD_TOL`` of its rms (the largest element's printed),
+   and one ``make_train_step`` step a side: loss, grad_norm and lr agree;
 17. SLICE 10'S MAIN PATH: ``make_train_step`` on chatglm3-6b at full width
    and the most layers whose 12 bytes a parameter of training state fit
    the card's free memory beside ``TRAIN_RESERVE`` (``fitting_depth``),
    bf16, remat on, ``OptConfig(warmup_steps=1)``, ``TokenStream(
    global_batch=2, seq_len=2048)``, 6 steps, counts zeroed just before and
    read just after: loss and grad_norm finite, K4 2 launches a layer a step
-   (all on the tensor-core kernel), K4′ 4; s a step, tokens/s, peak
-   memory, the busy share and K4′'s share of a traced step, the step's
-   bound (8 × parameters × tokens at the bf16 peak);
+   (all on the tensor-core kernel), K4′ 3, all on its tensor-core route;
+   s a step, tokens/s, peak memory, the busy share and K4′'s share of a
+   traced step, the step's bound (8 × parameters × tokens at the bf16
+   peak);
 18. the loop end to end: ``python -m repro_torch.launch.train --smoke
    --device cuda --steps 8``, and ``train()`` on the chatglm3-6b smoke
    config with ``checkpoint_every=4`` uninterrupted, crashed at step 6 and
    restarted: the restart resumes at step 5 and ends on the uninterrupted
-   run's final loss within rel 1e-4 (whether bit for bit is printed).
+   run's final loss within rel 1e-4 (whether bit for bit is printed); the
+   float32 smoke configs' K4′ launches all on its CUDA-core route.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -285,6 +298,11 @@ K4_WIDE_SHAPES = ((2, 77, 77, 8, 4, 320, True), (1, 40, 100, 4, 2, 320, False))
 # row averaging 1500 keys (rms ~0.04) is held as tightly as a short one
 K4_F32_ATOL = 2e-5
 K4_BF16_TOL = (2 ** -7, 2 ** -6)
+# K4's log-sum-exp (the tensor-core kernel's, written on request) against
+# the plain version's in float32 on the same inputs, absolute: the kernel's
+# l sums the bf16-rounded P it multiplied, which moves l by at most 2^-9
+# relative (one rounding a term) and so the LSE by at most 2^-9; twice that
+K4_LSE_TOL = 2 ** -8
 # slice 10, K4's gradient K4′: (B, Tq, Tk, Hq, Hkv, Dh, causal, dtype) —
 # chatglm3-6b's and gemma3-12b's global layer's training shapes, the
 # whisper-tiny encoder and its cross-attention, and float32 at Dh 64 and
@@ -309,6 +327,17 @@ K4B_SHAPES = ((2, 2048, 2048, 32, 2, 128, True, "bfloat16"),
 # failed at 4.6x on the first run, at (2, 512, 8/2, 64))
 K4B_BF16_TOL = (2 ** -7, 2 ** -10, 2 ** -16)
 K4B_F32_TOL = (2 ** -14, 2 ** -14, 2 ** -14)
+# K4′'s tensor-core route (bf16, Dh <= 128; ``csrc/flash_attn_bwd_tc.cu``),
+# the shape of K4's own bf16 check: b = 2^-6, since P^T, dS^T and dS are
+# rounded to bf16 before their products (about 2^-9.8 of a row's rms an
+# element, under 2^-7.2 at 6 sigma), and P comes from K4's LSE. c = 2^-14,
+# as for float32: the floor of 2^-16 rms(ref) first set here failed on
+# causal dq row 0 at chatglm3's shape, where the exact value is 0 (P = 1,
+# dP = D) and the f32 sums of dP and D leave ~1e-6 on both sides (SDPA's
+# backward as much); phase 15 prints each tensor-core check's share of
+# that first floor, K4B_TC_FLOOR, and the row it peaks on, unbounded
+K4B_TC_TOL = (2 ** -7, 2 ** -6, 2 ** -14)
+K4B_TC_FLOOR = (2 ** -7, 2 ** -6, 2 ** -16)
 LM_ARCH, LM_TICKS = "chatglm3-6b", 3
 PREFILL_B, PREFILL_T = 2, 2048
 # K4's prefill against its plain twin, each block of the twin on the K4
@@ -1420,13 +1449,17 @@ def phase_k4(dev, shapes=K4_SHAPES):
     CUDA-core kernel, bfloat16 on the tensor-core kernel (the route
     ``flash_attention_fwd`` takes) and, held there by ``launch``, on the
     CUDA-core kernel; a second launch on the same inputs must agree bit
-    for bit. Returns the max abs error by (kernel, dtype), against the
-    plain version in float32 on the same inputs."""
+    for bit — on the tensor-core kernel the second writes the log-sum-exp
+    too, which must lie within ``K4_LSE_TOL`` of the plain version's.
+    Returns the max abs error by (kernel, dtype), against the plain
+    version in float32 on the same inputs (the LSE's under
+    ("tensor_cores", "lse"))."""
     import numpy as np
     import torch
     from repro_torch.kernels.attn import attn as PA
     rng = np.random.default_rng(5)
     err, excess = {}, {}
+    lse_err = []
     checks = (("cuda_cores", "float32"), ("tensor_cores", "bfloat16"),
               ("cuda_cores", "bfloat16"))
 
@@ -1455,9 +1488,21 @@ def phase_k4(dev, shapes=K4_SHAPES):
                 out = PA.flash_attention_fwd(q, k, v, causal=causal)
             else:
                 out = PA.launch(kernel, q, k, v, causal=causal)
-            again = PA.launch(kernel, q, k, v, causal=causal)
+            tc = kernel == "tensor_cores"
+            # the tensor-core kernel's second launch writes the LSE: its
+            # output must still be the first's, bit for bit
+            again = PA.launch(kernel, q, k, v, causal=causal, with_lse=tc)
             ref = PA.flash_attention_fwd_ref(q.float(), k.float(), v.float(),
-                                             causal=causal)
+                                             causal=causal, with_lse=tc)
+            if tc:
+                (again, lse), (ref, lref) = again, ref
+                torch.cuda.synchronize()
+                e = (lse - lref).abs().max().item()
+                if not e <= K4_LSE_TOL:
+                    raise AssertionError(f"K4 {shape}: the LSE is {e:.3g} from "
+                                         f"the plain LSE (bound {K4_LSE_TOL})")
+                lse_err.append(e)
+                del lse, lref
             by_shape.append(check(q, out, again, ref,
                                   f"{kernel} {shape} {dtype}",
                                   (kernel, dtype)))
@@ -1466,6 +1511,13 @@ def phase_k4(dev, shapes=K4_SHAPES):
             f"Hkv, Dh, causal) within the tolerance; max abs err "
             f"{err[kernel, dtype]:.3g}; share of the tolerance by shape "
             + " ".join(f"{x:.3f}" for x in by_shape))
+        if kernel == "tensor_cores":
+            err["tensor_cores", "lse"] = max(lse_err)
+            log(f"[K4] tensor_cores bfloat16 with the LSE written: the output "
+                f"bit for bit the same at all {len(shapes)} shapes; the LSE "
+                f"within {max(lse_err):.3g} of the plain LSE (bound "
+                f"{K4_LSE_TOL}), by shape "
+                + " ".join(f"{x:.2g}" for x in lse_err))
     for dtype in ("float32", "bfloat16"):
         key = ("cuda_cores", f"{dtype} Dh=320")
         for shape in K4_WIDE_SHAPES:
@@ -1496,17 +1548,24 @@ def phase_k4(dev, shapes=K4_SHAPES):
     return err
 
 
-def k4b_excess(out, ref) -> float:
+def k4b_excess(out, ref, tol=None) -> float:
     """K4′'s error against ``ref`` (its plain version in float32 on the
-    same inputs) as a share of ``K4B_BF16_TOL`` or ``K4B_F32_TOL``: the
-    largest |out - ref| / (a |ref| + b rms(ref's row) + c rms(ref)); at
-    most 1 passes."""
+    same inputs) as a share of ``tol`` (a, b, c) — by default
+    ``K4B_BF16_TOL`` or ``K4B_F32_TOL`` by the output's type: the largest
+    |out - ref| / (a |ref| + b rms(ref's row) + c rms(ref)); at most 1
+    passes."""
+    return k4b_ratio(out, ref, tol).max().item()
+
+
+def k4b_ratio(out, ref, tol=None):
+    """|out - ref| / (a |ref| + b rms(ref's row) + c rms(ref)), element by
+    element (``k4b_excess``)."""
     import torch
-    a, b, c = K4B_F32_TOL if out.dtype == torch.float32 else K4B_BF16_TOL
+    a, b, c = tol or (K4B_F32_TOL if out.dtype == torch.float32
+                      else K4B_BF16_TOL)
     rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
     floor = c * ref.pow(2).mean().sqrt()
-    return ((out.float() - ref).abs() / (a * ref.abs() + b * rms + floor)) \
-        .max().item()
+    return (out.float() - ref).abs() / (a * ref.abs() + b * rms + floor)
 
 
 def k4b_work(shape, esize):
@@ -1519,10 +1578,18 @@ def k4b_work(shape, esize):
     return nbytes, fwd * 10 // 4
 
 
-def k4b_pass_us(fn, iters: int = 5) -> dict:
-    """Device µs a call of each of K4′'s four passes, from one
-    ``torch.profiler`` trace of ``iters`` calls (empty when the profiler
-    reports no device time)."""
+# K4′'s kernels by route, as torch.profiler names them
+K4B_PASS_NAMES = {
+    "cuda_cores": ("bwd_rows_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel",
+                   "bwd_reduce_kernel"),
+    "tensor_cores": ("bwd_tc_dq_kernel", "bwd_tc_dkdv_kernel",
+                     "bwd_tc_reduce_kernel")}
+
+
+def k4b_pass_us(fn, route="cuda_cores", iters: int = 5) -> dict:
+    """Device µs a call of each of K4′'s passes on ``route``, from
+    one ``torch.profiler`` trace of ``iters`` calls (empty when the
+    profiler reports no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1533,80 +1600,176 @@ def k4b_pass_us(fn, iters: int = 5) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.events():
-        for name in ("bwd_rows_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel",
-                     "bwd_reduce_kernel"):
+        for name in K4B_PASS_NAMES[route]:
             if name in e.name:
                 out[name] = out.get(name, 0.0) + _device_time(e) / iters
     return {k: v for k, v in out.items() if v > 0}
 
 
+def k4b_kernel(route):
+    """The launch counter of K4′'s ``route``."""
+    from repro_torch.kernels.attn import attn as PA
+    return {"tensor_cores": PA.FLASH_BWD_TC_KERNEL,
+            "cuda_cores": PA.FLASH_BWD_CORE_KERNEL}[route]
+
+
 def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=3):
-    """K4′ (``kernels/attn/attn.py::flash_attention_bwd``) against its plain
-    version ``flash_attention_bwd_ref`` in float32 on the same inputs (q, k,
-    v and dO unit normals, o K4's output) within ``K4B_BF16_TOL`` or
-    ``K4B_F32_TOL``; a repeat bit for bit; four launches a call; once
-    through ``FlashAttention``'s backward (autograd), bit for bit the
-    direct call's. The first ``timed`` shapes are timed: ms a call (CUDA
-    events), device µs by pass (``torch.profiler``), the plain version and
-    SDPA's backward (``enable_gqa``, a yardstick the port never calls),
-    beside the bound. Returns the kernels-line row."""
+    """K4′ against its plain version ``flash_attention_bwd_ref`` in float32
+    on the same inputs (q, k, v and dO unit normals, o K4's output) on both
+    routes: every bf16 shape the tensor-core route takes (Dh <= 128) on it
+    — ``flash_attention_bwd`` given K4's LSE, the path's route — within
+    ``K4B_TC_TOL``, and held on the CUDA-core kernel (``bwd_launch``)
+    within ``K4B_BF16_TOL``; the other shapes on the CUDA-core route, the
+    float32 ones within ``K4B_F32_TOL`` and once more given the plain
+    version's LSE. On each route: a repeat bit for bit, a launch a pass
+    (``BWD_PASSES``) on that route's kernel. Once through ``FlashAttention``'s
+    backward (autograd, its forward writing the LSE), bit for bit the
+    direct call given the same LSE. The first ``timed`` shapes are timed
+    on each route: ms a call (CUDA events), device µs by pass
+    (``torch.profiler``), the plain version and SDPA's backward
+    (``enable_gqa``, a yardstick the port never calls), beside the bound.
+    Returns the kernels-line rows, tensor-core route first."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attn import attn as PA
     rng = np.random.default_rng(9)
-    row = dict(name="flash_attn_bwd", route="cuda",
-               source="src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
-               replaces="src/repro/models/attention.py:79", shapes={})
+    rows = {
+        "tensor_cores": dict(
+            name="flash_attn_bwd_tc", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attn_bwd_tc.cu",
+            replaces="src/repro/models/attention.py:79",
+            k4b_route="tensor_cores", shapes={}),
+        "cuda_cores": dict(
+            name="flash_attn_bwd", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+            replaces="src/repro/models/attention.py:79",
+            k4b_route="cuda_cores", shapes={})}
     err, worst = {}, {}
     for n, shape in enumerate(shapes):
         *geo, causal, dtype = shape
         q, k, v = k4_inputs(rng, tuple(geo) + (causal,), dev, dtype)
         dout = torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(
             np.float32)).to(dev, q.dtype)
-        out = PA.flash_attention_fwd(q, k, v, causal=causal)
-        before = PA.FLASH_BWD_KERNEL.launches
-        got = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal)
-        again = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal)
-        torch.cuda.synchronize()
-        if PA.FLASH_BWD_KERNEL.launches != before + 2 * PA.BWD_PASSES:
-            n_l = PA.FLASH_BWD_KERNEL.launches - before
-            raise AssertionError(f"K4′ {shape}: {n_l} launches for two calls")
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"K4′ {shape}: a repeat differs")
+        path = PA.bwd_route(q.dtype, q.shape[3])
+        if q.dtype == torch.bfloat16:
+            out, lse = PA.launch("tensor_cores", q, k, v, causal=causal,
+                                 with_lse=True)
+        else:
+            out, lse = PA.flash_attention_fwd(q, k, v, causal=causal), None
         ref = PA.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                          out.float(), dout.float(),
                                          causal=causal)
-        shares = []
-        for what, g, r, like in zip(("dq", "dk", "dv"), got, ref, (q, k, v)):
-            if g.dtype != like.dtype or g.shape != like.shape:
-                raise AssertionError(f"K4′ {shape} {what}: {g.dtype} "
-                                     f"{tuple(g.shape)}")
-            x = k4b_excess(g, r)
-            e = (g.float() - r).abs().max().item()
-            if not x <= 1.0:
-                raise AssertionError(f"K4′ {shape} {what}: max abs err {e}, "
-                                     f"{x:.3g}x the tolerance")
-            shares.append(x)
-            err[dtype] = max(err.get(dtype, 0.0), e)
-            worst[dtype] = max(worst.get(dtype, 0.0), x)
+        routes = ("tensor_cores", "cuda_cores") if path == "tensor_cores" \
+            else ("cuda_cores",)
+        for route in routes:
+            tc = route == "tensor_cores"
+            tol = K4B_TC_TOL if tc else K4B_F32_TOL \
+                if dtype == "float32" else K4B_BF16_TOL
+            counter = k4b_kernel(route)
+            before, total = counter.launches, PA.FLASH_BWD_KERNEL.launches
+
+            def call(route=route, tc=tc):
+                if route == path:
+                    return PA.flash_attention_bwd(q, k, v, out, dout,
+                                                  causal=causal,
+                                                  lse=lse if tc else None)
+                return PA.bwd_launch(route, q, k, v, out, dout,
+                                     causal=causal)
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            n_l = counter.launches - before
+            if n_l != 2 * PA.BWD_PASSES[route] \
+                    or PA.FLASH_BWD_KERNEL.launches - total != n_l:
+                raise AssertionError(f"K4′ {shape} {route}: {n_l} launches "
+                                     "for two calls")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K4′ {shape} {route}: a repeat differs")
+            shares, where, first = [], "", []
+            for what, g, r, like in zip(("dq", "dk", "dv"), got, ref,
+                                        (q, k, v)):
+                if g.dtype != like.dtype or g.shape != like.shape:
+                    raise AssertionError(f"K4′ {shape} {what}: {g.dtype} "
+                                         f"{tuple(g.shape)}")
+                ratio = k4b_ratio(g, r, tol)
+                x = ratio.max().item()
+                e = (g.float() - r).abs().max().item()
+                at = tuple(int(i) for i in np.unravel_index(
+                    int(ratio.argmax()), ratio.shape))
+                if what == "dq":
+                    where = f"dq's worst at t = {int(at[1])}"
+                if tc:
+                    r16 = k4b_ratio(g, r, K4B_TC_FLOOR)
+                    at16 = np.unravel_index(int(r16.argmax()), r16.shape)
+                    first.append(f"{what} {r16.max().item():.3f} at t = "
+                                 f"{int(at16[1])}")
+                if not x <= 1.0:
+                    raise AssertionError(
+                        f"K4′ {shape} {route} {what}: max abs err {e}, {x:.3g}x "
+                        f"the tolerance {tol}, worst at (b, t, h, d) = "
+                        f"{at}: ref "
+                        f"{r[at].item():.4g}, got {g[at].item():.4g}, the "
+                        f"row's rms {r[at[:-1]].pow(2).mean().sqrt().item():.4g}")
+                shares.append(x)
+                key = (route, dtype)
+                err[key] = max(err.get(key, 0.0), e)
+                worst[key] = max(worst.get(key, 0.0), x)
+            log(f"[K4′] {shape} {route}{' (the route)' if route == path else ''}"
+                f": dq, dk, dv within the tolerance {tol} ("
+                + ", ".join(f"{x:.3f}" for x in shares) + f" of it; {where}),"
+                " a repeat bit for bit"
+                + (f"; of the first floor {K4B_TC_FLOOR} (unbounded): "
+                   + ", ".join(first) if first else ""))
+            if n < timed:
+                row = rows[route]
+                iters = 20 if tc else 5
+                ms = cuda_ms(call, iters=iters, warmup=1)
+                passes = k4b_pass_us(call, route)
+                dev_us = sum(passes.values()) if passes else None
+                row["shapes"]["_".join(str(x) for x in geo)
+                              + ("_causal" if causal else "")] = dict(
+                    dtype=dtype, ms=ms, pass_device_us=passes,
+                    device_ms=None if dev_us is None else dev_us / 1e3)
+                log(f"[time] K4′ {shape} {route}: {ms:.4f} ms a call (device "
+                    f"{fmt_us(dev_us)}: "
+                    + ", ".join(f"{k.split('bwd_')[1].removesuffix('_kernel')}"
+                                f" {x:.1f}" for k, x in passes.items()) + ")")
+            del got, again
+        if dtype == "float32":
+            # the CUDA-core route given the forward's LSE: its first pass
+            # then computes D only
+            _, lref = PA.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                                 with_lse=True)
+            given = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                           lse=lref)
+            xs = [k4b_excess(g, r) for g, r in zip(given, ref)]
+            if not max(xs) <= 1.0:
+                raise AssertionError(f"K4′ {shape}: given the plain LSE, "
+                                     f"{max(xs):.3g}x the tolerance")
+            log(f"[K4′] {shape} cuda_cores given the plain LSE: within the "
+                "tolerance (" + ", ".join(f"{x:.3f}" for x in xs) + " of it)")
+            del given, lref
         del ref
         if n == 0:
             ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = k4b_kernel(path).launches
             PA.flash_attention_fwd(*ins, causal=causal).backward(dout)
-            if not all(torch.equal(t.grad, g) for t, g in zip(ins, got)):
+            n_l = k4b_kernel(path).launches - before
+            want = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                          lse=lse)
+            torch.cuda.synchronize()
+            if n_l != PA.BWD_PASSES[path]:
                 raise AssertionError(f"K4′ {shape}: FlashAttention's backward "
-                                     "differs from flash_attention_bwd")
-            del ins
-        log(f"[K4′] {shape}: dq, dk, dv within the tolerance "
-            f"({', '.join(f'{x:.3f}' for x in shares)} of it), a repeat bit "
-            "for bit")
+                                     f"made {n_l} launches on the {path} route")
+            if not all(torch.equal(t.grad, g) for t, g in zip(ins, want)):
+                raise AssertionError(f"K4′ {shape}: FlashAttention's backward "
+                                     "differs from flash_attention_bwd given "
+                                     "K4's LSE")
+            log(f"[K4′] {shape}: FlashAttention's backward (its forward "
+                f"writing the LSE; {n_l} launches on the {path} route) bit for "
+                "bit the direct call's given K4's LSE")
+            del ins, want
         if n < timed:
-            ms = cuda_ms(lambda: PA.flash_attention_bwd(
-                q, k, v, out, dout, causal=causal), iters=5, warmup=1)
-            passes = k4b_pass_us(lambda: PA.flash_attention_bwd(
-                q, k, v, out, dout, causal=causal))
-            dev_us = sum(passes.values()) if passes else None
             plain = cuda_ms(lambda: PA.flash_attention_bwd_ref(
                 q, k, v, out, dout, causal=causal), iters=2, warmup=1)
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -1629,37 +1792,41 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=3):
                 else "operations"
             f32_bound = max(nbytes / HBM_BYTES_PER_S,
                             flops / F32_FLOP_PER_S) * 1e3
-            log(f"[time] K4′ {shape}: {ms:.3f} ms a call (device "
-                f"{fmt_us(dev_us)}: "
-                + ", ".join(f"{k.split('_')[1]} {x:.1f}" for k, x in
-                            passes.items())
-                + f"); plain {plain:.3f} ms; SDPA backward {lib:.3f} ms; "
+            key = "_".join(str(x) for x in geo) + ("_causal" if causal
+                                                   else "")
+            mss = {r: rows[r]["shapes"][key]["ms"] for r in routes}
+            log(f"[time] K4′ {shape}: "
+                + ", ".join(f"{r} {m:.4f} ms" for r, m in mss.items())
+                + f"; plain {plain:.3f} ms; SDPA backward {lib:.3f} ms; "
                 f"K4 forward device {fmt_us(fwd_us)}; "
                 f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB: bound "
                 f"{bound:.4f} ms ({by}), f32 CUDA-core bound "
                 f"{f32_bound:.3f} ms")
-            key = "_".join(str(x) for x in geo) + ("_causal" if causal
-                                                   else "")
-            row["shapes"][key] = dict(
-                dtype=dtype, ms=ms, device_ms=None if dev_us is None
-                else dev_us / 1e3, pass_device_us=passes, plain_ms=plain,
-                library_ms=lib, bound_ms=bound, bound_by=by,
-                bound_ms_f32_cuda_cores=f32_bound,
-                k4_fwd_device_ms=None if fwd_us is None else fwd_us / 1e3)
-            if n == 0:
-                row.update(ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=bound, bound_by=by,
-                           device_ms=row["shapes"][key]["device_ms"],
-                           shape=list(shape))
-        del q, k, v, dout, out, got, again
+            for r in routes:
+                row = rows[r]
+                row["shapes"][key].update(
+                    plain_ms=plain, library_ms=lib, bound_ms=bound,
+                    bound_by=by, bound_ms_f32_cuda_cores=f32_bound,
+                    k4_fwd_device_ms=None if fwd_us is None
+                    else fwd_us / 1e3)
+                if "ms" not in row:
+                    row.update({x: row["shapes"][key][x] for x in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "device_ms")}, shape=list(shape))
+        del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
-    for dtype in err:
-        log(f"[K4′] {dtype}: max abs err {err[dtype]:.3g}, "
-            f"{worst[dtype]:.3f} of the tolerance")
-    row.update(max_abs_err=err.get("bfloat16"),
-               max_abs_err_f32=err.get("float32"),
-               tolerance_share=worst)
-    return row
+    for (route, dtype), x in sorted(worst.items()):
+        log(f"[K4′] {route} {dtype}: max abs err {err[route, dtype]:.3g}, "
+            f"{x:.3f} of the tolerance")
+    for route, row in rows.items():
+        row.update(max_abs_err=err.get((route, "bfloat16")),
+                   tolerance_share={d: x for (r, d), x in worst.items()
+                                    if r == route})
+    rows["cuda_cores"]["max_abs_err_f32"] = err.get(("cuda_cores", "float32"))
+    rows["tensor_cores"]["tolerance"] = list(K4B_TC_TOL)
+    rows["cuda_cores"]["tolerance"] = dict(bfloat16=list(K4B_BF16_TOL),
+                                           float32=list(K4B_F32_TOL))
+    return rows
 
 
 # --------------------------------------------------------------- phase 9
@@ -2590,8 +2757,9 @@ def train_batch(dev, cfg, b, t, step=0):
 def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     """The slice's step at full width, gradient check: chatglm3-6b at
     ``TRAIN_CHECK_LAYERS`` layers, bf16, remat on, one ``TokenStream``
-    batch: ``loss_and_grads`` through K4 and K4′ (2 and 4 launches a layer)
-    against a twin whose attention is K4's plain version with autograd
+    batch: ``loss_and_grads`` through K4 and K4′ (2 launches a layer, and
+    K4′'s passes on its route for the config: the tensor cores, 3, given
+    K4's LSE) against a twin whose attention is K4's plain version with autograd
     (``PlainAttention``), each gradient leaf's rms difference within
     ``TRAIN_GRAD_TOL`` of its rms (``leaf_rms``); then one
     ``make_train_step`` step on each side from the same weights: loss,
@@ -2606,6 +2774,7 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH),
                                      n_layers=TRAIN_CHECK_LAYERS, remat=True)
     layers = attention_layers(cfg)[1]
+    route = PA.bwd_route(torch.bfloat16, cfg.d_head)
     params = lm_model(dev, cfg)
     batch = train_batch(dev, cfg, b, t)
     PA.FLASH_KERNEL.launches = 0
@@ -2613,9 +2782,12 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     loss, _, grads = loss_and_grads(params, batch, cfg)
     torch.cuda.synchronize()
     fwd, bwd = PA.FLASH_KERNEL.launches, PA.FLASH_BWD_KERNEL.launches
-    if fwd != 2 * layers or bwd != PA.BWD_PASSES * layers:
+    if fwd != 2 * layers or bwd != PA.BWD_PASSES[route] * layers \
+            or k4b_kernel(route).launches != bwd:
         raise AssertionError(f"train grads: K4 {fwd} and K4′ {bwd} launches "
-                             f"for {layers} attention layers under remat")
+                             f"({k4b_kernel(route).launches} on the {route} "
+                             f"route) for {layers} attention layers under "
+                             "remat")
     with PlainAttention():
         tloss, _, tgrads = loss_and_grads(params, batch, cfg)
         torch.cuda.synchronize()
@@ -2662,7 +2834,7 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
         f"twin's, worst rms {worst_rms:.4f} of a leaf's rms (bound "
         f"{TRAIN_GRAD_TOL}); the largest element's difference {worst_max:.4f}"
         f" of its leaf's rms (printed, not bounded); K4 {fwd}, K4′ {bwd} "
-        "launches")
+        f"launches (all on its {route} route)")
     opt = OptConfig(warmup_steps=1)
     metrics = []
     for twin in (False, True):
@@ -2692,7 +2864,7 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     torch.cuda.empty_cache()
     return dict(loss=float(loss), twin_loss=float(tloss),
                 worst_rms_share=worst_rms, worst_max_share=worst_max,
-                step=got, twin_step=want)
+                step=got, twin_step=want, k4b_route=route)
 
 
 def _clone(tree):
@@ -2732,9 +2904,9 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
     ``TokenStream(global_batch=2, seq_len=2048)``, ``steps`` steps, the
     counts zeroed just before and read just after: loss and grad_norm
     finite at every step, K4 2 launches a layer a step (the forward and
-    remat's recompute, all on the tensor-core kernel), K4′ its 4 passes a
-    layer a step. Reports s a step, tokens/s, peak memory, one more step's
-    two halves (``loss_and_grads``, ``opt_update``) timed apart, the busy
+    remat's recompute, all on the tensor-core kernel, writing the LSE), K4′
+    its passes a layer a step, all on its tensor-core route (3). Reports s
+    a step, tokens/s, peak memory, one more step's two halves (``loss_and_grads``, ``opt_update``) timed apart, the busy
     share, K4′'s share and the device time by kind of a step
     (``torch.profiler`` over one more step) and the step's bound (8 ×
     parameters × tokens at the bf16 peak)."""
@@ -2759,6 +2931,7 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
                                                 remat=True), free,
                             TRAIN_BYTES_PER_PARAM, TRAIN_RESERVE)
     layers = attention_layers(cfg)[1]
+    route = PA.bwd_route(torch.bfloat16, cfg.d_head)
     params = lm_model(dev, cfg)
     state = opt_init(params)
     n_params = sum(x.numel() for x in _leaves(params))
@@ -2784,6 +2957,7 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
         history.append(m)
     fwd, bwd = PA.FLASH_KERNEL.launches, PA.FLASH_BWD_KERNEL.launches
     tc = PA.FLASH_TC_KERNEL.launches
+    bwd_routes = {r: k4b_kernel(r).launches for r in PA.BWD_PASSES}
     peak = torch.cuda.max_memory_allocated()
     for s, m in enumerate(history):
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
@@ -2793,9 +2967,11 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
     if fwd != 2 * layers * steps or tc != fwd:
         raise AssertionError(f"train: K4 launched {fwd} times ({tc} on the "
                              f"tensor cores), not 2 x {layers} x {steps}")
-    if bwd != PA.BWD_PASSES * layers * steps:
-        raise AssertionError(f"train: K4′ launched {bwd} times, not "
-                             f"{PA.BWD_PASSES} x {layers} x {steps}")
+    if bwd != PA.BWD_PASSES[route] * layers * steps \
+            or bwd_routes[route] != bwd:
+        raise AssertionError(f"train: K4′ launched {bwd_routes} times, not "
+                             f"{PA.BWD_PASSES[route]} x {layers} x {steps} "
+                             f"on its {route} route")
     # one more step in its two halves, timed apart
     t0 = time.perf_counter()
     _, _, grads = loss_and_grads(params, batches[1], cfg)
@@ -2823,7 +2999,8 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
     log(f"[train] {steps} steps: {steady:.3f} s a step (median of steps "
         f"1-{steps - 1}; first {secs[0]:.3f} s), {tokens / steady:.0f} "
         f"tokens/s, peak {peak / 2 ** 30:.2f} GiB; K4 {fwd} launches "
-        f"({fwd // steps} a step), K4′ {bwd} ({bwd // steps} a step); the "
+        f"({fwd // steps} a step), K4′ {bwd} ({bwd // steps} a step; by "
+        f"route {bwd_routes}); the "
         f"traced step: busy {100 * busy / wall_us:.1f} %, K4′ "
         f"{k4b / 1e3:.1f} ms ({100 * k4b / wall_us:.1f} % of the step), K4 "
         f"{k4 / 1e3:.1f} ms, {count} launches; bound {bound:.3f} s (8 x "
@@ -2838,6 +3015,7 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
                 step_s=secs, step_s_median=steady,
                 tokens_per_s=tokens / steady, peak_gib=peak / 2 ** 30,
                 k4_launches=fwd, k4_bwd_launches=bwd,
+                k4_bwd_launches_by_route=bwd_routes, k4b_route=route,
                 traced_wall_ms=wall_us / 1e3, busy_share=busy / wall_us,
                 k4_bwd_share=k4b / wall_us, k4_bwd_traced_ms=k4b / 1e3,
                 k4_traced_ms=k4 / 1e3, bound_s=bound,
@@ -2904,17 +3082,20 @@ def phase_train_loop(dev, steps=8):
             torch.equal(x, y) for (_, x), (_, y) in zip(
                 _named_leaves(resumed["params"]), _named_leaves(ref["params"])))
         fwd, bwd = PA.FLASH_KERNEL.launches, PA.FLASH_BWD_KERNEL.launches
-        if fwd == 0 or bwd == 0:
+        bwd_routes = {r: k4b_kernel(r).launches for r in PA.BWD_PASSES}
+        # float32: the CUDA-core route of both
+        if fwd == 0 or bwd == 0 or bwd_routes["cuda_cores"] != bwd:
             raise AssertionError(f"the smoke loop launched K4 {fwd}, K4′ "
-                                 f"{bwd} times")
+                                 f"{bwd_routes} times")
         log(f"[train] crash at 6 and restart: resumed at step 5, final loss "
             f"{a:.6f} against {b:.6f} uninterrupted ("
             + ("bit for bit, parameters too" if bitwise else
                f"not bit for bit: {abs(a - b):.3g} apart") + f"); K4 {fwd}, "
-            f"K4′ {bwd} launches over the three runs; "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"K4′ {bwd} launches over the three runs (by route "
+            f"{bwd_routes}); {time.perf_counter() - t0:.1f} s")
         return dict(final_loss=a, uninterrupted_final_loss=b,
-                    bitwise=bitwise)
+                    bitwise=bitwise, k4_launches=fwd,
+                    k4_bwd_launches_by_route=bwd_routes)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3684,10 +3865,43 @@ def tc_report(log_text: str | None):
     return report
 
 
+def bwd_tc_report(log_text: str | None):
+    """The tensor-core K4′'s ptxas lines (when this run built it) and the
+    launch configuration of its dQ and dK/dV kernels, from the library."""
+    import ctypes
+    from repro_torch.kernels.attn import attn as PA
+    for line in (log_text or "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[ptxas] flash_attn_bwd_tc.cu: {line.strip()[:160]}")
+    fn = PA.FLASH_BWD_TC_KERNEL.library().flash_attn_bwd_tc_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    report = {}
+    for p, what in ((0, "dq"), (1, "dkdv")):
+        for dh in (64, 128):
+            code = fn(p, dh, out)
+            if code != 0:
+                raise RuntimeError(f"flash_attn_bwd_tc_info({p}, {dh}): CUDA "
+                                   f"error {code}")
+            report[f"{what}_{dh}"] = dict(threads=out[0], smem_bytes=out[1],
+                                          registers=out[2],
+                                          spill_bytes=out[3], stages=out[4])
+            log(f"[ptxas] bwd_tc_{what}_kernel for Dh <= {dh}: {out[0]} "
+                f"threads, {out[1]} B dynamic shared memory, {out[2]} "
+                f"registers at launch (setmaxnreg: producer "
+                f"{24 if p == 0 else 40}, consumers {160 if p == 0 else 232}), "
+                f"{out[3]} B local (spills), {out[4]} stages")
+    return report
+
+
 def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
     """K4 at the engine's LM job shape and at the 2048-token prefill: the
     tensor-core kernel (the path's), the CUDA-core kernel on the same bf16
-    inputs (the old design) and in float32, its plain version and SDPA."""
+    inputs (the old design) and in float32, its plain version and SDPA;
+    then the tensor-core kernel writing the LSE (as a training forward
+    does): its output bit for bit the path's, the LSE within
+    ``K4_LSE_TOL`` of the plain version's, and its time."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3700,6 +3914,7 @@ def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
                launches=launches["flash_attn_tc"],
                launches_prefill_2048=prefill_launches,
                max_abs_err=err["tensor_cores", "bfloat16"],
+               lse_max_abs_err=err["tensor_cores", "lse"],
                max_abs_err_f32=err["cuda_cores", "float32"],
                max_abs_err_bf16_cuda_cores=err["cuda_cores", "bfloat16"],
                cuda_core_source="src/repro_torch/kernels/csrc/flash_attn.cu",
@@ -3773,6 +3988,26 @@ def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
                     f"{pre}cuda_core_f32_device_ms": ms_of(core32_us)})
         if what == "prefill":
             row.update(bound_by=by, bound_ms_f32_cuda_cores=f32_bound)
+        # the training forward's launch: the same output, and the LSE
+        out_l, lse = PA.launch("tensor_cores", q, k, v, causal=causal,
+                               with_lse=True)
+        _, lref = PA.flash_attention_fwd_ref(qf, kf, vf, causal=causal,
+                                             with_lse=True)
+        lse_err = (lse - lref).abs().max().item()
+        if not torch.equal(out_l, tc(q, k, v, causal=causal)) \
+                or not lse_err <= K4_LSE_TOL:
+            raise AssertionError(f"K4 {what} {shape}: with the LSE written "
+                                 "the output differs, or the LSE is "
+                                 f"{lse_err:.3g} from the plain LSE")
+        del out_l, lse, lref
+        lse_ms = cuda_ms(lambda: PA.launch("tensor_cores", q, k, v,
+                                           causal=causal, with_lse=True),
+                         iters=iters)
+        log(f"[time] K4 {what} {shape}: writing the LSE {lse_ms * 1e3:.1f} "
+            f"us per call (without {ms * 1e3:.1f}); the output bit for bit "
+            f"the same, the LSE within {lse_err:.3g} of the plain LSE (bound "
+            f"{K4_LSE_TOL})")
+        row.update({f"{pre}lse_ms": lse_ms, f"{pre}lse_max_abs_err": lse_err})
         del q, k, v, qt, kt, vt, qf, kf, vf
     return row
 
@@ -3817,7 +4052,7 @@ def main() -> int:
     k2_err, k2_rounds = phase_k2(dev)
     k3_err = phase_k3(dev)
     k4_err = phase_k4(dev)
-    k4b = phase_k4_bwd(dev)
+    k4b_rows = phase_k4_bwd(dev)
     metro_stack = phase_metro_solve(dev, metro)
     launches, serve_stack, zs = phase_serving(dev)
     eval_launches, big = phase_evaluation(dev)
@@ -3884,12 +4119,25 @@ def main() -> int:
                              for name, row in decode.items()}
     k4["decode"] = dict(decode, float32=decode_f32, phase_s=phase14_s)
     k4["launches_train"] = train_main["k4_launches"]
-    k4["device_ms_phase15"] = {key: row["k4_fwd_device_ms"]
-                               for key, row in k4b["shapes"].items()}
-    k4b["launches"] = train_main["k4_bwd_launches"]
+    k4["device_ms_phase15"] = {
+        key: row["k4_fwd_device_ms"]
+        for key, row in k4b_rows["cuda_cores"]["shapes"].items()}
+    # K4′'s rows: each route's launches on the path that runs it — the
+    # tensor cores on the 28-layer training step (phase 17), the CUDA cores
+    # on the float32 smoke loop (phase 18)
+    k4b, k4b_core = k4b_rows["tensor_cores"], k4b_rows["cuda_cores"]
+    k4b["tc_kernel"] = bwd_tc_report(
+        built.get("flash_attn_bwd_tc.cu", {}).get("log"))
+    k4b["launches"] = train_main["k4_bwd_launches_by_route"]["tensor_cores"]
+    k4b["launches_path"] = "phase 17, the training step"
     k4b["train"] = dict(train_main, gradient_check=train_grads,
                         loop=train_loop)
-    kernels = [k1, k2, k3, k4, k4b]
+    k4b_core["launches"] = \
+        train_loop["k4_bwd_launches_by_route"]["cuda_cores"]
+    k4b_core["launches_path"] = "phase 18, the float32 smoke loop"
+    k4b_core["launches_train_step"] = \
+        train_main["k4_bwd_launches_by_route"]["cuda_cores"]
+    kernels = [k1, k2, k3, k4, k4b, k4b_core]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

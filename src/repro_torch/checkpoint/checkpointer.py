@@ -13,10 +13,13 @@ The reference's contract:
 
 Leaves are torch tensors, flattened in the reference's order (dict keys
 sorted, tuples in order) as ``leaf<i>`` of the npz. A bfloat16 leaf, which
-numpy has no type for, is stored as its 16-bit patterns and the manifest's
-``dtypes`` names it; a checkpoint without ``dtypes`` (the reference's)
-restores by the arrays' own types, so a float32 checkpoint the reference
-wrote restores here.
+numpy has no type for, is stored widened to float32 (exact) and the
+manifest's ``dtypes`` names it: the port narrows it back bit for bit, and
+the reference's ``restore`` (``data[leaf].astype(like.dtype)``) reads the
+right values. A checkpoint without ``dtypes`` (the reference's) restores by
+the arrays' own types, so a float32 checkpoint the reference wrote restores
+here; a port checkpoint that stored bf16 leaves as 16-bit patterns
+(``uint16``) still restores here.
 """
 
 from __future__ import annotations
@@ -70,15 +73,16 @@ def _unflatten(like, leaves):
 
 
 def _host_array(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A host copy of ``t`` as numpy, and the name of its type."""
+    """A host copy of ``t`` as numpy (bfloat16 widened to float32, which
+    is exact), and the name of its type."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16).copy(), "bfloat16"
+        return t.float().numpy(), "bfloat16"
     return t.numpy().copy(), str(t.dtype).removeprefix("torch.")
 
 
 def _tensor(a: np.ndarray, dtype_name: str, like: torch.Tensor):
-    if dtype_name == "bfloat16":
+    if dtype_name == "bfloat16" and a.dtype == np.uint16:
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)

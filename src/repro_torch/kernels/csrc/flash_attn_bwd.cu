@@ -1,6 +1,8 @@
-// K4': the gradient of K4 (causal or non-causal GQA flash attention) for the
-// training backward: dQ, dK and dV from q, k, v, the forward's output o and
-// its incoming gradient dO.
+// K4', CUDA-core route: the gradient of K4 (causal or non-causal GQA flash
+// attention) for the training backward: dQ, dK and dV from q, k, v, the
+// forward's output o and its incoming gradient dO. It takes float32, bf16
+// of widths the tensor-core route (flash_attn_bwd_tc.cu: bf16, Dh % 8 == 0,
+// Dh <= 128) does not, and every Dh up to 512.
 //
 // Replaces the reference's gradient of its training attention, which is the
 // recompute VJP of the jnp chunked flash attention
@@ -20,11 +22,12 @@
 // with --fmad=false).
 //
 // Passes, each a launch, no atomics (a repeat is bit for bit):
-//   0 rows: one block per (b, query head, query tile): each row's
-//     log-sum-exp lse = m + log(max(l, 1e-30)) from Q and K, as the forward
-//     computes m and l, and D = rowsum(dO o o), into f32 scratch (B, Hq, Tq).
-//     So the forward kernels stay as they are (and bitwise with their
-//     checks); having the forward write the LSE is later work.
+//   0 rows: one block per (b, query head, query tile): D = rowsum(dO o o)
+//     into f32 (B, Hq, Tq) and, unless the caller gives the forward's
+//     (lse_in), each row's log-sum-exp lse = m + log(max(l, 1e-30)) from Q
+//     and K, as the forward computes m and l. The tensor-core K4 writes the
+//     LSE (flash_attn_tc.cu); the CUDA-core K4 (flash_attn.cu) does not, so
+//     a float32 backward recomputes it here.
 //   1 dQ: one block per (b, query head, query tile), looping over the key
 //     tiles it can see (causal: up to the diagonal): recompute S and
 //     dP = dO V^T, P = exp(S - lse), dS in shared memory, dQ += dS K.
@@ -46,7 +49,7 @@
 // written, bf16) are 88 MB, 26 us. This design recomputes S in every pass
 // and dP in two (16 Dh flops a visible (query, key) pair against the
 // function's 10 Dh), so its own f32 floor is ~4.1 ms. Operations bound it:
-// moving it to wgmma with the forward writing the LSE is the next design.
+// bf16 at Dh <= 128 takes the wgmma design of flash_attn_bwd_tc.cu.
 //
 // Tiles (BQ query rows x BK keys, 256 threads as a 16 x 16 grid, every
 // operand in shared memory as f32 at a pitch of Dh + 4 floats, so the
@@ -175,7 +178,7 @@ __device__ __forceinline__ void stage(float* dst, int ld, int n,
 struct Geometry {
   int Tq, Tk, Hq, Hkv, dh;
   float scale;
-  int causal, vec;
+  int causal, vec, lse_in;
 };
 
 // ---------------------------------------------------------------- pass 0
@@ -217,7 +220,9 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_s[tid] = 0.f;
   }
 
-  const int k_end = g.causal ? min(g.Tk, min(g.Tq, q0 + BQ)) : g.Tk;
+  // with the caller's LSE only D is computed
+  const int k_end = g.lse_in ? 0
+                    : g.causal ? min(g.Tk, min(g.Tq, q0 + BQ)) : g.Tk;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();
     stage<DHMAX>(Ks, L::LD, BK, k, kv_base, kv_row, k0,
@@ -290,7 +295,7 @@ bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
       acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (lane == 0) {
       const int64_t i = (static_cast<int64_t>(b) * g.Hq + hq) * g.Tq + row;
-      lse[i] = m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
+      if (!g.lse_in) lse[i] = m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
       delta[i] = acc;
     }
   }
@@ -686,17 +691,19 @@ int dispatch(int pass, const Args& a, const Geometry& g, cudaStream_t s) {
 // 1 = bfloat16); lse and delta f32 (B, Hq, Tq); dk_part and dv_part f32
 // (B, Tk, Hq, dh). 1 <= dh <= 512, Hq % Hkv == 0, every dimension >= 1.
 // vec: q, k, v, o and dout 16-byte aligned and dh a multiple of 8 (bf16)
-// or 4 (f32), so tiles are staged 16 bytes a load.
+// or 4 (f32), so tiles are staged 16 bytes a load. lse_in: lse holds the
+// forward's log-sum-exp, which pass 0 then leaves as it is.
 extern "C" int flash_attn_bwd_launch(
     int pass, const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
     float* dk_part, float* dv_part, int dtype, int B, int Tq, int Tk, int Hq,
-    int Hkv, int dh, float scale, int causal, int vec, void* stream) {
+    int Hkv, int dh, float scale, int causal, int vec, int lse_in,
+    void* stream) {
   if (pass < 0 || pass > 3 || dh < 1 || dh > 512 || Hkv < 1 || Hq % Hkv != 0
       || B < 1 || Tq < 1 || Tk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, dout, dq, dk, dv, lse, delta, dk_part, dv_part, B};
-  const Geometry g{Tq, Tk, Hq, Hkv, dh, scale, causal, vec};
+  const Geometry g{Tq, Tk, Hq, Hkv, dh, scale, causal, vec, lse_in};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(pass, a, g, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(pass, a, g, s);

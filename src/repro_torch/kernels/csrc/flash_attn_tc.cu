@@ -45,7 +45,17 @@
 //   P V; the two consumer warpgroups interleave on their own. Once a row's
 //   max settles the O rescale is skipped (alpha = 1 for the whole warp).
 // - Epilogue: acc / max(l, 1e-30), rounded to bf16, stored into (B, Tq, Hq,
-//   Dh).
+//   Dh). On request (a non-null lse, f32 (B, Hq, Tq)) each row's
+//   log-sum-exp m c' + log(max(l, 1e-30)) as well, c' = Dh^-0.5, in natural
+//   log units of the scaled scores: what the reference's Pallas kernel
+//   returns beside acc as m and l (attn.py:88-115), and what K4' takes to
+//   recompute P (flash_attn_bwd_tc.cu). m is the max of the raw S, and l is
+//   the kernel's own sum of the bf16-rounded P it multiplied, the l that
+//   acc was divided by: exp(S c' - lse) then gives each key the weight the
+//   output was normalised with (up to P's own bf16 rounding), so the rows
+//   of the backward's P sum to 1 as the forward's did. The exact sum differs from it
+//   by at most 2^-9 relative (one bf16 rounding a term), 2^-9 in the LSE.
+//   The write is after the output's and changes no value of it.
 //
 // Shared memory (dynamic, above the 48 KB default; the launcher raises the
 // limit): Dh <= 64: Q 16 KB + 4 stages of K+V 64 KB; Dh <= 128: 32 KB +
@@ -59,12 +69,11 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "tc_ptx.cuh"
 
 namespace {
 
-constexpr int kRow = 128;            // bytes of one swizzled row (64 bf16)
 constexpr float kNeg = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DP, int NWG>
 struct Cfg {
@@ -82,283 +91,15 @@ struct Cfg {
   static constexpr int kSmem = 1024 + kBarOff + 2 * kStages * 8;
 };
 
-// ----------------------------------------------------------------- PTX
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// waits for the phase of `parity` to complete; a wait of ~10 s (2^34
-// cycles) can only be a lost arrival, and traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-// one 4-D TMA box (coordinates innermost first) into shared memory
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, int c2, int c3,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// waits until at most N committed groups are pending (the older ones are
-// done: groups complete in order)
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from touching accumulator registers across the
-// asynchronous product: every later use depends on this point
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-// ... and the A fragments a product in flight still reads
-template <int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][4]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-
-// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-         | 1ull << 62;
-}
-
-// K-major operand (rows x 64-element chunks, chunk stride `chunk` bytes):
-// the 16-deep slice kk starts 32 bytes further along the swizzled row; 8-row
-// groups are 1024 bytes apart
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t base, int chunk,
-                                                 int kk) {
-  return smem_desc(base + (kk / 4) * chunk + (kk % 4) * 32, 16, 1024);
-}
-
-// MN-major operand (V: keys x 64-element chunks along Dh, chunk stride
-// `chunk` bytes): the 16-key slice kk starts 16 rows down; the leading
-// offset steps to the next 64 columns, the stride offset to the next 8 keys
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t base, int chunk,
-                                                  int kk) {
-  return smem_desc(base + kk * 16 * kRow, chunk, 8 * kRow);
-}
-
-// byte offset of the 16-byte unit u (of 8 bf16) of row r in a swizzled
-// region of rows x 64 columns per chunk (chunk stride `chunk` bytes)
-__device__ __forceinline__ uint32_t swz(int r, int u, int chunk) {
-  return (u / 8) * chunk + r * kRow + (((u % 8) ^ (r % 8)) << 4);
-}
-
-// 2^x, the MUFU approximation (relative error ~2^-22; results below
-// 2^-126 flush to zero)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi,
-                                              float& sum) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  sum += __low2float(p);
-  sum += __high2float(p);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// wgmma.mma_async m64nNk16, f32 += bf16 x bf16. wgmma_ss: A and B from
-// shared memory, both K-major (S = Q K^T). wgmma_rs: A from registers, B
-// MN-major from shared memory (O += P V). Inline asm names every
-// accumulator register.
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[32],
-                                         uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[128],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Rows of one (b, KV head) flattened head-major: row r is query head
-// hk * G + r / Tq at position t = r % Tq.
-struct Rows {
-  int total, Tq;
-  // the largest and smallest t among rows [r0, r1] (r1 < total)
-  __device__ __forceinline__ int t_max(int r0, int r1) const {
-    return r0 / Tq == r1 / Tq ? r1 % Tq : Tq - 1;
-  }
-  __device__ __forceinline__ int t_min(int r0, int r1) const {
-    return r0 / Tq == r1 / Tq ? r0 % Tq : 0;
-  }
-};
 
 template <int DP, int NWG>
 __global__ void __launch_bounds__(384, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
                 const __nv_bfloat16* __restrict__ q,
-                __nv_bfloat16* __restrict__ o, int B, int Tq, int Tk,
-                int Hq, int Hkv, int dh, float scale_log2, int causal) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int B, int Tq, int Tk, int Hq, int Hkv, int dh,
+                float scale_log2, float scale, int causal) {
   using C = Cfg<DP, NWG>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -604,62 +345,20 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap k_map,
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * h] / l[h], acc[4 * j + 2 * h + 1] / l[h]);
     }
+    // the row's log-sum-exp, once a quad (its four threads share m and l)
+    if (lse != nullptr && tq == 0)
+      lse[(static_cast<int64_t>(b) * Hq + hk * G + row / Tq) * Tq + t_of[h]] =
+          m[h] * scale + logf(l[h]);
   }
 }
 
 // ----------------------------------------------------------------- host
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 4-D map over a contiguous (B, T, H, dh) bf16 tensor, box (64, 1, bk, 1)
-// under the 128-byte swizzle; out-of-range elements read as zeros
-int encode_map(CUtensorMap* map, const void* ptr, int B, int T, int H,
-               int dh, int bk) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(T > 0 ? T : 1),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2ull * dh, 2ull * dh * H,
-                                 2ull * dh * H * (T > 0 ? T : 1)};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(bk), 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
 
 template <int DP, int NWG>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Tq, int Tk, int Hq, int Hkv, int dh, float scale, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Tq, int Tk, int Hq, int Hkv, int dh, float scale,
+           int causal, cudaStream_t stream) {
   using C = Cfg<DP, NWG>;
   CUtensorMap km, vm;
   int code = encode_map(&km, k, B, Tk, Hkv, dh, C::kBK);
@@ -676,8 +375,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int n_tiles = ((Hq / Hkv) * Tq + C::kBQ - 1) / C::kBQ;
   kern<<<n_tiles * Hkv * B, C::kThreads, C::kSmem, stream>>>(
       km, vm, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(o), B, Tq, Tk, Hq, Hkv, dh, scale * kLog2e,
-      causal);
+      static_cast<__nv_bfloat16*>(o), lse, B, Tq, Tk, Hq, Hkv, dh,
+      scale * kLog2e, scale, causal);
   return repro_last_error();
 }
 
@@ -710,21 +409,23 @@ extern "C" int flash_attn_tc_info(int dh, int* out) {
 }
 
 // q (B, Tq, Hq, dh), k and v (B, Tk, Hkv, dh), o like q: contiguous bf16,
-// 16-byte aligned. dh % 8 == 0, 8 <= dh <= 256, Hq % Hkv == 0.
+// 16-byte aligned. dh % 8 == 0, 8 <= dh <= 256, Hq % Hkv == 0. lse: null,
+// or f32 (B, Hq, Tq) for each row's log-sum-exp.
 extern "C" int flash_attn_tc_launch(const void* q, const void* k,
-                                    const void* v, void* o, int B, int Tq,
-                                    int Tk, int Hq, int Hkv, int dh,
-                                    float scale, int causal, void* stream) {
+                                    const void* v, void* o, float* lse,
+                                    int B, int Tq, int Tk, int Hq, int Hkv,
+                                    int dh, float scale, int causal,
+                                    void* stream) {
   if (dh < 8 || dh > 256 || dh % 8 != 0 || Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Tq == 0 || Hq == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (dh <= 64)
-    return launch<64, 2>(q, k, v, o, B, Tq, Tk, Hq, Hkv, dh, scale, causal,
-                         s);
+    return launch<64, 2>(q, k, v, o, lse, B, Tq, Tk, Hq, Hkv, dh, scale,
+                         causal, s);
   if (dh <= 128)
-    return launch<128, 2>(q, k, v, o, B, Tq, Tk, Hq, Hkv, dh, scale, causal,
-                          s);
-  return launch<256, 1>(q, k, v, o, B, Tq, Tk, Hq, Hkv, dh, scale, causal,
-                        s);
+    return launch<128, 2>(q, k, v, o, lse, B, Tq, Tk, Hq, Hkv, dh, scale,
+                          causal, s);
+  return launch<256, 1>(q, k, v, o, lse, B, Tq, Tk, Hq, Hkv, dh, scale,
+                        causal, s);
 }

@@ -19,7 +19,9 @@ The one-token decode (``attn_decode``, ``cross_attn_decode``) is the
 reference's plain einsums with float32 accumulation, outside any Pallas
 kernel there and any hand-written kernel here; it returns a new cache and
 leaves the caller's unchanged, as the reference's functional update does.
-The training forward is without its backward (ROADMAP.md queue 1).
+The training forward's backward is autograd, through K4's gradient K4′
+(``kernels/attn/attn.py::FlashAttention``) on the full-attention route
+and PyTorch's own on the plain paths.
 """
 
 from __future__ import annotations

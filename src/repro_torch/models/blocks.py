@@ -5,8 +5,8 @@ Kinds "attn" (full attention), "local" (sliding window), "rec" (RG-LRU)
 and "rwkv" (RWKV-6 time and channel mix); the FFN of the attention and
 "rec" kinds is the MoE FFN in an MoE config. The encoder-decoder adds
 cross-attention with ``cross=True``. Each kind has the reference's uniform
-cache interface; the training forward is without its backward
-(ROADMAP.md queue 1).
+cache interface; the training forward's backward is autograd (K4′ on the
+full-attention route, ``kernels/attn/attn.py::FlashAttention``).
 """
 
 from __future__ import annotations

@@ -637,43 +637,60 @@ def test_decode_on_card_matches_host(name, k4, cuda_device):
 def test_flash_kernel_refuses_inputs_that_require_grad_on_card(cuda_device,
                                                                rng):
     """A CUDA input that requires grad, under grad mode, goes through
-    ``FlashAttention``: K4 launches once and the output carries K4′'s
-    gradient (four launches), equal to ``flash_attention_bwd``'s; under
+    ``FlashAttention``: K4 launches once (writing the LSE) and the output
+    carries K4′'s gradient (three launches on its tensor-core route, bf16
+    at Dh 64), equal to ``flash_attention_bwd``'s given K4's LSE; under
     ``no_grad`` K4 launches and the output needs no grad. (The name is
     kept from before K4′, when such an input raised.)"""
     from repro_torch.kernels.attn import attn as PA
     q = torch.from_numpy(rng.standard_normal((1, 16, 4, 64)).astype(
         np.float32)).to(cuda_device).bfloat16()
     k = q[:, :, :2].contiguous()
+    route = PA.bwd_route(q.dtype, q.shape[-1])
+    assert route == "tensor_cores"
     for which in range(3):
         args = [q.clone(), k.clone(), k.clone()]
         args[which].requires_grad_(True)
         before = PA.FLASH_KERNEL.launches
-        bwd_before = PA.FLASH_BWD_KERNEL.launches
+        bwd_before = PA.FLASH_BWD_TC_KERNEL.launches
         out = PA.flash_attention_fwd(*args)
         assert out.requires_grad
         dout = torch.ones_like(out)
         out.backward(dout)
         torch.cuda.synchronize()
         assert PA.FLASH_KERNEL.launches == before + 1
-        assert PA.FLASH_BWD_KERNEL.launches == bwd_before + PA.BWD_PASSES
-        want = PA.flash_attention_bwd(*(a.detach() for a in args),
-                                      out.detach(), dout)
+        assert PA.FLASH_BWD_TC_KERNEL.launches \
+            == bwd_before + PA.BWD_PASSES[route]
+        plain = [a.detach() for a in args]
+        _, lse = PA.launch("tensor_cores", *plain, with_lse=True)
+        want = PA.flash_attention_bwd(*plain, out.detach(), dout, lse=lse)
         assert torch.equal(args[which].grad, want[which])
         with torch.no_grad():
             out = PA.flash_attention_fwd(*args)
         torch.cuda.synchronize()
-        assert PA.FLASH_KERNEL.launches == before + 2
+        assert PA.FLASH_KERNEL.launches == before + 3
         assert not out.requires_grad
 
 
 # K4′ on the card against its plain version in float32 on the same inputs,
 # element by element within a |ref| + b rms(ref's row) + c rms(ref), as
-# chip_smoke.py's K4B_BF16_TOL and K4B_F32_TOL: bf16 (2^-7, 2^-10, 2^-16),
-# twice the outputs' rounding plus float32's order; float32 (2^-14, 2^-14,
-# 2^-14), the order alone (the c floor for rows that cancel, causal dq row 0)
+# chip_smoke.py's K4B_BF16_TOL, K4B_F32_TOL and K4B_TC_TOL: the CUDA-core
+# route in bf16 (2^-7, 2^-10, 2^-16), twice the outputs' rounding plus
+# float32's order; float32 (2^-14, 2^-14, 2^-14), the order alone (the c
+# floor for rows that cancel, causal dq row 0); the tensor-core route
+# (2^-7, 2^-6, 2^-14), its P and dS rounded to bf16 before their products
 _BWD_TOL = {torch.bfloat16: (2 ** -7, 2 ** -10, 2 ** -16),
             torch.float32: (2 ** -14, 2 ** -14, 2 ** -14)}
+_BWD_TC_TOL = (2 ** -7, 2 ** -6, 2 ** -14)
+
+
+def _bwd_within(got, ref, tol):
+    a, r, c = tol
+    for g, w in zip(got, ref):
+        rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+        bound = a * w.abs() + r * rms + c * w.pow(2).mean().sqrt()
+        assert ((g.float() - w).abs() <= bound).all(), \
+            float(((g.float() - w).abs() / bound).max())
 
 
 @pytest.mark.cuda
@@ -685,9 +702,12 @@ _BWD_TOL = {torch.bfloat16: (2 ** -7, 2 ** -10, 2 ** -16),
 def test_flash_bwd_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
                                                 causal, dtype, cuda_device,
                                                 rng):
-    """K4′ (``csrc/flash_attn_bwd.cu``) against ``flash_attention_bwd_ref``
-    at Dh 16–320, G 1–4, Tq != Tk and lengths not a multiple of a tile:
-    four launches, a repeat bit for bit, within ``_BWD_TOL``."""
+    """K4′ against ``flash_attention_bwd_ref`` at Dh 16–320, G 1–4,
+    Tq != Tk and lengths not a multiple of a tile, on the route
+    ``flash_attention_bwd`` takes (bf16 at Dh 16, 64 and 128:
+    ``csrc/flash_attn_bwd_tc.cu``, given K4's LSE; the rest
+    ``csrc/flash_attn_bwd.cu``): a launch a pass on that route's kernel, a
+    repeat bit for bit, within ``_BWD_TC_TOL`` or ``_BWD_TOL``."""
     from repro_torch.kernels.attn import attn as PA
     dt = getattr(torch, dtype)
 
@@ -696,19 +716,123 @@ def test_flash_bwd_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
             np.float32)).to(cuda_device, dt)
     q, k, v = draw(b, tq, hq, dh), draw(b, tk, hkv, dh), draw(b, tk, hkv, dh)
     dout = draw(b, tq, hq, dh)
-    out = PA.flash_attention_fwd(q, k, v, causal=causal)
-    before = PA.FLASH_BWD_KERNEL.launches
-    got = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal)
-    again = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+    route = PA.bwd_route(dt, dh)
+    lse = None
+    if route == "tensor_cores":
+        out, lse = PA.launch("tensor_cores", q, k, v, causal=causal,
+                             with_lse=True)
+    else:
+        out = PA.flash_attention_fwd(q, k, v, causal=causal)
+    counter = PA.FLASH_BWD_TC_KERNEL if route == "tensor_cores" \
+        else PA.FLASH_BWD_CORE_KERNEL
+    before, total = counter.launches, PA.FLASH_BWD_KERNEL.launches
+    got = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal, lse=lse)
+    again = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                   lse=lse)
     torch.cuda.synchronize()
-    assert PA.FLASH_BWD_KERNEL.launches == before + 2 * PA.BWD_PASSES
+    assert counter.launches == before + 2 * PA.BWD_PASSES[route]
+    assert PA.FLASH_BWD_KERNEL.launches == total + 2 * PA.BWD_PASSES[route]
     ref = PA.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                      out.float(), dout.float(), causal=causal)
-    a, r, c = _BWD_TOL[dt]
-    for g, g2, w, like in zip(got, again, ref, (q, k, v)):
+    for g, g2, like in zip(got, again, (q, k, v)):
         assert torch.equal(g, g2)
         assert g.dtype == dt and g.shape == like.shape
-        rms = w.pow(2).mean(-1, keepdim=True).sqrt()
-        tol = a * w.abs() + r * rms + c * w.pow(2).mean().sqrt()
-        assert ((g.float() - w).abs() <= tol).all(), \
-            float(((g.float() - w).abs() / tol).max())
+    _bwd_within(got, ref, _BWD_TC_TOL if route == "tensor_cores"
+                else _BWD_TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,dh,causal", [
+    (2, 256, 256, 16, 2, 128, True), (2, 77, 77, 8, 2, 64, True),
+    (1, 130, 130, 4, 2, 120, True), (2, 40, 100, 6, 6, 64, False),
+    (1, 1, 1, 2, 1, 16, True)])
+def test_flash_bwd_tc_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
+                                                   causal, cuda_device, rng):
+    """The tensor-core K4′ (``csrc/flash_attn_bwd_tc.cu``) given K4's LSE
+    against the plain version within ``_BWD_TC_TOL``, and the CUDA-core
+    kernel held on the same bf16 inputs (``bwd_launch``) within
+    ``_BWD_TOL`` — without the LSE and given the plain version's. K4's
+    output is bit for bit the same with its LSE written or not, and the
+    LSE within 2^-8 of the plain LSE. ``FlashAttention``'s backward is bit
+    for bit the direct call given the same LSE."""
+    from repro_torch.kernels.attn import attn as PA
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = draw(b, tq, hq, dh), draw(b, tk, hkv, dh), draw(b, tk, hkv, dh)
+    dout = draw(b, tq, hq, dh)
+    assert PA.bwd_route(q.dtype, dh) == "tensor_cores"
+    out, lse = PA.launch("tensor_cores", q, k, v, causal=causal,
+                         with_lse=True)
+    assert torch.equal(out, PA.launch("tensor_cores", q, k, v,
+                                      causal=causal))
+    _, ref_lse = PA.flash_attention_fwd_ref(
+        q.float(), k.float(), v.float(), causal=causal, with_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, tq)
+    assert (lse - ref_lse).abs().max().item() <= 2 ** -8
+    ref = PA.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                     out.float(), dout.float(), causal=causal)
+    _bwd_within(PA.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                       lse=lse), ref, _BWD_TC_TOL)
+    _bwd_within(PA.bwd_launch("cuda_cores", q, k, v, out, dout,
+                              causal=causal), ref, _BWD_TOL[torch.bfloat16])
+    _bwd_within(PA.bwd_launch("cuda_cores", q, k, v, out, dout,
+                              causal=causal, lse=ref_lse), ref,
+                _BWD_TOL[torch.bfloat16])
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    PA.flash_attention_fwd(*ins, causal=causal).backward(dout)
+    want = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal, lse=lse)
+    torch.cuda.synchronize()
+    for t, w in zip(ins, want):
+        assert torch.equal(t.grad, w)
+
+
+_FIRST_BACKWARD = """
+import threading
+import numpy as np
+import torch
+from repro_torch.kernels.attn import attn as PA
+rng = np.random.default_rng(0)
+q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .cuda().bfloat16() for s in ((1, 64, 4, 64), (1, 64, 2, 64),
+                                               (1, 64, 2, 64), (1, 64, 4, 64)))
+out, lse = PA.launch("tensor_cores", q, k, v, with_lse=True)
+# cached blocks for every tensor the backward allocates, so that its thread
+# makes no runtime call before the launcher's own
+blocks = [torch.empty(1 << 15, device="cuda") for _ in range(32)]
+del blocks
+torch.cuda.synchronize()
+got = {}
+def body():
+    got["grads"] = PA.flash_attention_bwd(q, k, v, out, dout, lse=lse)
+t = threading.Thread(target=body)
+t.start()
+t.join()
+ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+PA.flash_attention_fwd(*ins).backward(dout)
+want = PA.flash_attention_bwd(q, k, v, out, dout, lse=lse)
+torch.cuda.synchronize()
+assert PA.FLASH_BWD_TC_KERNEL.launches == 3 * PA.BWD_PASSES["tensor_cores"]
+assert all(torch.equal(a, w) for a, w in zip(got["grads"], want))
+assert all(torch.equal(x.grad, w) for x, w in zip(ins, want))
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+def test_tc_backward_first_on_autograds_thread_on_card(cuda_device):
+    """In a fresh process, the tensor-core K4′ as the first CUDA work of a
+    new thread and of autograd's device thread (its first pass encodes TMA
+    maps, which needs a context current on that thread; the allocator is
+    warmed so that nothing else binds one first): both run, on its route,
+    bit for bit the direct call's."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    r = subprocess.run([sys.executable, "-c", _FIRST_BACKWARD], env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]

@@ -61,9 +61,9 @@ def _state(rng):
 
 
 def test_roundtrip(tmp_path):
-    """Every leaf back with its type and shape: float32, int32, a 0-d
-    leaf in a tuple, and bfloat16 stored as its 16-bit patterns (named
-    in the manifest)."""
+    """Every leaf back with its type and shape, bit for bit: float32,
+    int32, a 0-d leaf in a tuple, and bfloat16 (stored widened to float32,
+    named in the manifest)."""
     state = _state(np.random.default_rng(0))
     ck = Checkpointer(str(tmp_path))
     ck.save(3, state, blocking=True)
@@ -151,6 +151,29 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path):
     for g, w in zip(_leaves(got), jax.tree_util.tree_leaves(state)):
         assert g.dtype == getattr(torch, np.asarray(w).dtype.name)
         assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def test_port_bf16_checkpoint_restores_in_the_reference(tmp_path):
+    """A bfloat16 leaf the port saved restores in the reference's
+    Checkpointer (``data[leaf].astype(like.dtype)``) to its values, not its
+    bit patterns, and the port's own round trip stays bit for bit."""
+    import jax.numpy as jnp
+    w = (torch.arange(1, 7) / 3).reshape(2, 3).bfloat16()
+    state = {"w": w, "n": torch.tensor(3, dtype=torch.int32)}
+    Checkpointer(str(tmp_path)).save(2, state, blocking=True)
+    like = {"w": jnp.zeros((2, 3), jnp.bfloat16), "n": jnp.int32(0)}
+    step, got = JCheckpointer(str(tmp_path)).restore_latest(like)
+    assert step == 2
+    assert got["w"].dtype == jnp.bfloat16
+    assert np.array_equal(np.asarray(got["w"], np.float32),
+                          w.float().numpy())
+    assert np.allclose(np.asarray(got["w"], np.float32),
+                       np.arange(1, 7).reshape(2, 3) / 3, rtol=2 ** -8)
+    assert int(got["n"]) == 3
+    mine = Checkpointer(str(tmp_path)).restore(2, state)
+    assert mine["w"].dtype == torch.bfloat16
+    assert torch.equal(mine["w"].view(torch.int16), w.view(torch.int16))
+    assert torch.equal(mine["n"], state["n"])
 
 
 def _loop(d, **kw):
