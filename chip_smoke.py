@@ -75,7 +75,8 @@ hand-written kernel of those paths against its plain PyTorch version:
    shapes with Tq != Tk, and slice 8's: the whisper-tiny encoder (2, 1500,
    6, 6, 64, non-causal), its cross-attention (Tq 448 over Tk 1500,
    non-causal) and decoder (2, 448, causal), and qwen3-moe's (2, 2048, 64,
-   4, 128), on unit normals, on both kernels (and Dh = 320,
+   4, 128), and slice 12's ``train_lm --params-100m --full-attention``
+   (8, 256, 12, 4, 64, causal), on unit normals, on both kernels (and Dh = 320,
    which the route sends to the CUDA-core kernel in both types; Dh = 520
    must raise): float32 on the
    CUDA-core kernel (``csrc/flash_attn.cu``, within 2e-5: sums in another
@@ -189,8 +190,9 @@ hand-written kernel of those paths against its plain PyTorch version:
    same inputs at chatglm3-6b's (2, 2048, 32/2, 128) and gemma3-12b's
    global (2, 2048, 16/8, 256) causal shapes, the whisper-tiny encoder
    (2, 1500, 6/6, 64) and cross-attention (448 over 1500), non-causal, in
-   bf16, and (2, 512, 8/2, 64), (2, 333, 4/4, 320) and (1, 40 over 100,
-   4/2, 320) in float32, element by element: every bf16 shape with Dh <=
+   bf16, and (2, 512, 8/2, 64), (2, 333, 4/4, 320), (1, 40 over 100,
+   4/2, 320) and slice 12's ``train_lm`` (8, 256, 12/4, 64, causal) in
+   float32, element by element: every bf16 shape with Dh <=
    128 on both routes — the tensor-core kernel (``csrc/
    flash_attn_bwd_tc.cu``, the route, given K4's LSE) within
    ``K4B_TC_TOL`` and the CUDA-core kernel within ``K4B_BF16_TOL`` — and
@@ -223,7 +225,35 @@ hand-written kernel of those paths against its plain PyTorch version:
    config with ``checkpoint_every=4`` uninterrupted, crashed at step 6 and
    restarted: the restart resumes at step 5 and ends on the uninterrupted
    run's final loss within rel 1e-4 (whether bit for bit is printed); the
-   float32 smoke configs' K4′ launches all on its CUDA-core route.
+   float32 smoke configs' K4′ launches all on its CUDA-core route;
+19. SLICE 12, THE EXAMPLES on the card, in-process through their ``main``,
+   each with the counts zeroed just before and read just after:
+   ``quickstart`` (K2's round launched; its six algorithms decide bit for
+   bit as the same driver on the CPU), ``slicing_demo`` (the re-slice's K1
+   and the frames' K3 launched), ``serve_edge --arch chatglm3-6b`` (K1,
+   K3 and K4, each K4 call held against its plain version on its own
+   inputs, ``K4Checked``), then ``train_lm --params-100m --steps 300``
+   with and without ``--full-attention`` (the loss's last value below its
+   first and the mean of its last 10 below that of its first 10; K4 and
+   K4′ launched in the full-attention run; its first loss and last-10
+   mean within ``EXAMPLE_FIRST_TOL`` and ``EXAMPLE_LAST10_TOL`` of the
+   banded run's), and the full-attention run crashed at step 150 and
+   resumed from its checkpoint, every K4 and K4′ call of the two held
+   against its plain version on its own inputs as it returns
+   (``K4Checked``, ``K4BChecked``; phase 8's and 15's tolerances), ending
+   on the uninterrupted run's final loss bit for bit; first loss, last-10
+   mean and ms a step printed beside the card's name and power limit;
+20. SLICE 12, THE MESH FORMS on a one-rank NCCL group (``DeviceMesh``
+   (1, 1) over ``data`` and ``model``, TCPStore on 127.0.0.1): two mesh
+   train steps of chatglm3-6b at full width and 4 layers in bf16 (B = 2,
+   T = 2048) with the compute and ZeRO layouts (``param_shardings(...,
+   extra_batch_dim=True)``) against the meshless step on the same weights
+   and batches (loss, grad norm and parameters bit for bit, K4 and K4′
+   launched as often); one qwen3-moe MoE layer at full width through the
+   ``ep`` and ``tp`` forms (``psum_late`` on and off) within 1e-2 of the
+   output's rms of ``_moe_local`` (the share within 1e-4 of ``_moe_dense``
+   printed); ``ef_allreduce`` over chatglm3's gradient leaves bit for bit
+   ``decompress(*compress(g, 0)[:2])``; each part's wall time printed.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -285,7 +315,9 @@ K4_SHAPES = ((8, 16, 16, 32, 2, 128, True), (2, 2048, 2048, 32, 2, 128, True),
              # whisper's decoder over a 416-token prompt, not a whole number
              # of 64-row tiles, on itself and on its 1500 frames
              (2, 2048, 2048, 16, 8, 256, True), (2, 416, 416, 6, 6, 64, True),
-             (2, 416, 1500, 6, 6, 64, False))
+             (2, 416, 1500, 6, 6, 64, False),
+             # slice 12: train_lm --params-100m --full-attention (B 8, T 256)
+             (8, 256, 256, 12, 4, 64, True))
 # K4 heads wider than the tensor-core tiles (route: the CUDA-core kernel's
 # Dh <= 512 tile, in both types)
 K4_WIDE_SHAPES = ((2, 77, 77, 8, 4, 320, True), (1, 40, 100, 4, 2, 320, False))
@@ -313,7 +345,9 @@ K4B_SHAPES = ((2, 2048, 2048, 32, 2, 128, True, "bfloat16"),
               (2, 448, 1500, 6, 6, 64, False, "bfloat16"),
               (2, 512, 512, 8, 2, 64, True, "float32"),
               (2, 333, 333, 4, 4, 320, True, "float32"),
-              (1, 40, 100, 4, 2, 320, False, "float32"))
+              (1, 40, 100, 4, 2, 320, False, "float32"),
+              # slice 12: train_lm --params-100m --full-attention
+              (8, 256, 256, 12, 4, 64, True, "float32"))
 # K4′ against its plain version in float32 on the same inputs, element by
 # element: |out - ref| <= a |ref| + b rms(ref's row over Dh) + c rms(ref).
 # bfloat16 (a, b, c) = (2^-7, 2^-10, 2^-16): a is twice the outputs'
@@ -338,6 +372,19 @@ K4B_F32_TOL = (2 ** -14, 2 ** -14, 2 ** -14)
 # that first floor, K4B_TC_FLOOR, and the row it peaks on, unbounded
 K4B_TC_TOL = (2 ** -7, 2 ** -6, 2 ** -14)
 K4B_TC_FLOOR = (2 ** -7, 2 ** -6, 2 ** -16)
+# K4′ on a training run's own inputs (``K4BChecked``): its dq and dk
+# cancel far more than unit normals' (train_lm's are ~1400x smaller than
+# the terms summed into them, and dq is exactly 0 on causal row 0), so
+# float32 leaves more than the floor c rms(ref) in both the kernel and the
+# plain version (dq row 0: 9.0e-11 each, 125x that floor; both within
+# 1.3 u of the terms). Each call is held against the plain version in
+# float64 within phase 15's tolerance plus K4B_TERMS times the magnitude
+# of the terms of each element (``k4b_terms``): float32's rounding of
+# them, with a margin of 16 over the 2^-24 a float32 operation adds
+K4B_TERMS = 2 ** -20
+# the most score elements a K4 call's plain reference computes in one call
+# (``k4_call_excess``; 256 MB of float32)
+K4_REF_WHOLE = 1 << 26
 LM_ARCH, LM_TICKS = "chatglm3-6b", 3
 PREFILL_B, PREFILL_T = 2, 2048
 # K4's prefill against its plain twin, each block of the twin on the K4
@@ -392,6 +439,17 @@ DECODE_CLAMP_TOL = 1e-4
 # pieces), and allocator slack
 TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "chatglm3-6b", 2, 2048, 6
 TRAIN_BYTES_PER_PARAM, TRAIN_RESERVE = 12, 6 * 2 ** 30
+# slice 12: the examples' training run (the reference's own driver and
+# step count), crashed halfway and resumed; the mesh train step's depth
+EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 300, 150
+# train_lm at T = 256 under a window of 256: the banded run and the
+# full-attention run (K4, K4′) compute the same function on the same
+# weights, so their first losses agree within EXAMPLE_FIRST_TOL and their
+# last-10 means within EXAMPLE_LAST10_TOL (the predictions written before
+# their first card run, PERF.md; it measured 0 and 0.0018)
+EXAMPLE_FIRST_TOL, EXAMPLE_LAST10_TOL = 1e-4, 0.05
+MESH_LAYERS, MESH_STEPS = 4, 2
+MOE_ARCH, MOE_OUT_TOL = "qwen3-moe-235b-a22b", 1e-2
 # the gradient check: 4 layers, K4 and K4′ against a twin whose attention is
 # K4's plain version with autograd, on the same card and batch. Each
 # gradient leaf as a share of its rms: rms(diff) <= 0.02 rms(ref), rms(ref)
@@ -2174,11 +2232,15 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T, k4=None):
 
 def k4_call_excess(q, k, v, causal, out) -> float:
     """One K4 call against the plain version in float32 on its inputs, as
-    a share of the phase-8 tolerance (``k4_excess``). A KV head of a batch
-    row at a time: float32 scores of one head group (0.27 GB at qwen3's 16
-    query heads a KV head, T = 2048)."""
+    a share of the phase-8 tolerance (``k4_excess``). In one call where its
+    scores have at most ``K4_REF_WHOLE`` elements, else a KV head of a
+    batch row at a time: float32 scores of one head group (0.27 GB at
+    qwen3's 16 query heads a KV head, T = 2048)."""
     import torch
     from repro_torch.kernels.attn import attn as PA
+    if q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1] <= K4_REF_WHOLE:
+        return k4_excess(out, PA.flash_attention_fwd_ref(
+            q.float(), k.float(), v.float(), causal=causal))
     ref = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     g = q.shape[2] // k.shape[2]
     for b in range(q.shape[0]):
@@ -2234,6 +2296,116 @@ class K4Checked:
         if self.worst > 1.0:
             raise AssertionError(f"{what}: a K4 call differs from its plain "
                                  f"version by {self.worst:.3g}x the "
+                                 "tolerance")
+        return self.worst
+
+
+def k4b_terms(q, k, v, out, dout, causal):
+    """The magnitude of the terms K4′ sums into each element, in float64:
+    (dq, dk, dv) of the plain version (``flash_attention_bwd_ref``) with
+    every product of its sums taken in absolute value, |dS| =
+    P∘(|dO| |V|ᵀ + rowsum(|dO|∘|O|)); float32 rounds an element by about
+    2^-24 of its terms a step, however far they cancel."""
+    import torch
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.double().reshape(b, tq, hkv, g, dh)
+    kf, vf = k.double(), v.double()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf * dh ** -0.5, kf)
+    if causal:
+        valid = torch.arange(tk, device=q.device)[None, :] \
+            <= torch.arange(tq, device=q.device)[:, None]
+        s = s.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    do = dout.double().abs().reshape(b, tq, hkv, g, dh)
+    d = (do * out.double().abs().reshape(b, tq, hkv, g, dh)).sum(-1)
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", do, vf.abs())
+              + d.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf.abs()) * dh ** -0.5
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf.abs()) * dh ** -0.5
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    return dq.reshape(q.shape), dk, dv
+
+
+def k4b_terms_excess(out, ref64, terms, tol) -> float:
+    """K4′'s error against ``ref64`` (its plain version in float64) as a
+    share of ``tol`` (a, b, c) plus ``K4B_TERMS`` of the element's
+    ``terms`` (``k4b_terms``): the largest |out - ref64| / (a |ref64| + b
+    rms(ref64's row) + c rms(ref64) + K4B_TERMS terms); at most 1
+    passes."""
+    a, b, c = tol
+    rms = ref64.pow(2).mean(-1, keepdim=True).sqrt()
+    bound = a * ref64.abs() + b * rms + c * ref64.pow(2).mean().sqrt() \
+        + K4B_TERMS * terms
+    return ((out.double() - ref64).abs() / bound).max().item()
+
+
+class K4BChecked:
+    """K4′ as autograd calls it (``FlashAttention``'s backward), each call
+    checked as it returns against ``flash_attention_bwd_ref`` on its own
+    inputs and dropped: in float64, within phase 15's tolerance for the
+    route it took (``K4B_TC_TOL``, ``K4B_BF16_TOL`` or ``K4B_F32_TOL``)
+    plus ``K4B_TERMS`` of the magnitude of each element's terms
+    (``k4b_terms_excess``). ``phase15`` is the largest share of phase
+    15's tolerance against the float32 plain version, as phase 15 holds
+    unit normals (reported, not held), and ``over`` the calls beyond it.
+    The references materialize a call's scores: for the small training
+    shapes of the examples. ``calls``, ``worst`` and ``check_s`` as in
+    :class:`K4Checked`; ``launches`` the kernel passes the checked calls
+    made (``BWD_PASSES`` a call on its route)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.attn import attn as PA
+        self._pa, self._bwd = PA, PA.flash_attention_bwd
+        self.calls, self.launches, self.worst, self.check_s = 0, 0, 0.0, 0.0
+        self.phase15, self.over = 0.0, 0
+
+        def checked(q, k, v, out, dout, *, causal=True, lse=None):
+            got = self._bwd(q, k, v, out, dout, causal=causal, lse=lse)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            route = PA.bwd_route(q.dtype, q.shape[-1])
+            tol = K4B_TC_TOL if route == "tensor_cores" else K4B_F32_TOL \
+                if q.dtype == torch.float32 else K4B_BF16_TOL
+            ins = (q, k, v, out, dout)
+            plain = PA.flash_attention_bwd_ref(*(t.float() for t in ins),
+                                               causal=causal)
+            ref64 = PA.flash_attention_bwd_ref(*(t.double() for t in ins),
+                                               causal=causal)
+            old = max(k4b_excess(g, p, tol) for g, p in zip(got, plain))
+            self.phase15 = max(self.phase15, old)
+            self.over += old > 1.0
+            terms = k4b_terms(*ins, causal)
+            self.worst = max([self.worst] + [
+                k4b_terms_excess(g, r, m, tol)
+                for g, r, m in zip(got, ref64, terms)])
+            del plain, ref64, terms
+            self.check_s += time.perf_counter() - t0
+            self.calls += 1
+            self.launches += PA.BWD_PASSES[route]
+            return got
+        PA.flash_attention_bwd = checked
+        return self
+
+    def __exit__(self, *exc):
+        self._pa.flash_attention_bwd = self._bwd
+
+    def held(self, what: str) -> float:
+        """Logs the checked calls of ``what`` and fails if one was beyond
+        the tolerance. Returns the largest share of it."""
+        if self.calls:
+            log(f"[train] {what}: each of its {self.calls} K4′ calls within "
+                f"{self.worst:.3f} of the tolerance (phase 15's plus "
+                f"{K4B_TERMS:.3g} of each element's terms) of the plain "
+                "version in float64 on the call's own "
+                f"inputs; against the float32 plain version, {self.over} "
+                f"beyond phase 15's tolerance alone, the worst at "
+                f"{self.phase15:.3f} of it")
+        if self.worst > 1.0:
+            raise AssertionError(f"{what}: a K4′ call differs from its "
+                                 f"plain version by {self.worst:.3g}x the "
                                  "tolerance")
         return self.worst
 
@@ -2374,12 +2546,12 @@ def phase_slice8(dev, archs=SLICE8, decode=None):
 def decode_layers(cfg, params):
     """The decoder's blocks in call order: (parameters, kind) for each
     repeat of the pattern, then the remainder layers."""
-    from repro_torch.models.model import _tree_map
+    from repro_torch.tree import tree_map
     out = []
     for r in range(cfg.n_repeats):
         for i, kind in enumerate(cfg.block_pattern):
-            out.append((_tree_map(lambda t, r=r: t[r],
-                                  params["scan"][f"pos{i}"]), kind))
+            out.append((tree_map(lambda t, r=r: t[r],
+                                 params["scan"][f"pos{i}"]), kind))
     out += list(zip(params.get("rem", ()), cfg.remainder_kinds))
     return out
 
@@ -3098,6 +3270,317 @@ def phase_train_loop(dev, steps=8):
                     k4_bwd_launches_by_route=bwd_routes)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -------------------------------------------------------------- slice 12
+
+def kernel_counts() -> dict:
+    """Every kernel's launch count, by the kernel's id."""
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.kernels.pg import pg
+    from repro_torch.kernels.resize import resize as PR
+    return {"K1": pg.SOLVE_KERNEL.launches, "K2": pg.ADMIT_KERNEL.launches,
+            "K3": PR.RESIZE_KERNEL.launches, "K4": PA.FLASH_KERNEL.launches,
+            "K4′": PA.FLASH_BWD_KERNEL.launches}
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.kernels.pg import pg
+    from repro_torch.kernels.resize import resize as PR
+    for k in (pg.SOLVE_KERNEL, pg.ADMIT_KERNEL, PR.RESIZE_KERNEL,
+              PA.FLASH_KERNEL, PA.FLASH_BWD_KERNEL):
+        k.launches = 0
+
+
+def launched(what: str, need) -> dict:
+    """The counts since :func:`zero_counts`; fails unless each kernel of
+    ``need`` launched."""
+    got = kernel_counts()
+    missing = [k for k in need if got[k] == 0]
+    if missing:
+        raise AssertionError(f"{what} launched no {missing}: {got}")
+    return got
+
+
+def run_train_lm(dev, card, ckpt, *args):
+    """``train_lm --params-100m --steps EXAMPLE_STEPS`` with ``args``; →
+    its output and a summary row."""
+    from repro_torch.examples import train_lm
+    out = train_lm.main(["--device", dev.type, "--params-100m", "--steps",
+                         str(EXAMPLE_STEPS), "--ckpt-dir", ckpt, *args])
+    losses = [h["loss"] for h in out["history"]]
+    secs = sorted(h["step_time_s"] for h in out["history"])
+    row = dict(first_loss=losses[0], final_loss=out["final_loss"],
+               first10_mean=sum(losses[:10]) / 10,
+               last10_mean=sum(losses[-10:]) / 10,
+               ms_per_step_median=1e3 * secs[len(secs) // 2],
+               steps=len(losses))
+    if not row["last10_mean"] < row["first10_mean"]:
+        raise AssertionError(f"train_lm {args}: the last 10 losses' mean "
+                             f"{row['last10_mean']} is not below the first "
+                             f"10's {row['first10_mean']}")
+    log(f"[examples] train_lm --params-100m {' '.join(args)}: loss "
+        f"{row['first_loss']:.4f} -> {row['final_loss']:.4f} (last-10 mean "
+        f"{row['last10_mean']:.4f}, first-10 mean {row['first10_mean']:.4f}), "
+        f"{row['ms_per_step_median']:.1f} ms a step (median) on {card}")
+    return out, row
+
+
+def every_call_held(what: str, counts: dict, fwd, bwd=None) -> dict:
+    """Fails unless ``fwd`` (:class:`K4Checked`) and ``bwd``
+    (:class:`K4BChecked`) checked every K4 and K4′ launch of ``counts``
+    and held each within its tolerance; → the checks' summary."""
+    got = dict(k4_calls=fwd.calls, k4_worst=fwd.held(what))
+    if fwd.calls != counts["K4"]:
+        raise AssertionError(f"{what}: {fwd.calls} K4 calls checked of "
+                             f"{counts['K4']} launches")
+    if bwd is not None:
+        got.update(k4b_calls=bwd.calls, k4b_worst=bwd.held(what))
+        if bwd.launches != counts["K4′"]:
+            raise AssertionError(f"{what}: {bwd.launches} K4′ launches "
+                                 f"checked of {counts['K4′']}")
+    return got
+
+
+def phase_examples(dev, card):
+    """SLICE 12: the four examples on the card through their ``main``, each
+    with the counts zeroed just before and read just after (docstring
+    item 19)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.examples import quickstart, serve_edge, slicing_demo
+    t_phase = time.perf_counter()
+    out = {}
+    zero_counts()
+    gpu = quickstart.main(["--device", dev.type])
+    out["quickstart"] = launched("quickstart", ["K2"])
+    cpu = quickstart.main(["--device", "cpu"])
+    for name, sol in gpu.items():
+        ref = cpu[name]
+        if (sol.num_allocated, sol.num_satisfied, sol.objective) != (
+                ref.num_allocated, ref.num_satisfied, ref.objective) or not (
+                np.array_equal(sol.admitted, ref.admitted)
+                and np.array_equal(sol.alloc, ref.alloc)
+                and np.array_equal(sol.z, ref.z)):
+            raise AssertionError(f"quickstart {name} decides otherwise on "
+                                 "the card than on the CPU")
+    zero_counts()
+    slicing_demo.main(["--device", dev.type])
+    out["slicing_demo"] = launched("slicing_demo", ["K1", "K3"])
+    zero_counts()
+    with K4Checked() as fwd:
+        serve_edge.main(["--device", dev.type, "--ticks", "3", "--arch",
+                         "chatglm3-6b"])
+    out["serve_edge"] = launched("serve_edge", ["K1", "K3", "K4"])
+    every_call_held("serve_edge", out["serve_edge"], fwd)
+    log(f"[examples] launches: {out} ({time.perf_counter() - t_phase:.1f} "
+        "s)")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_examples_")
+    try:
+        zero_counts()
+        _, out["train_lm"] = run_train_lm(dev, card, f"{tmp}/local")
+        out["train_lm"]["launches"] = kernel_counts()
+        shutil.rmtree(f"{tmp}/local")
+        zero_counts()
+        whole, out["train_lm_full_attention"] = run_train_lm(
+            dev, card, f"{tmp}/full", "--full-attention")
+        out["train_lm_full_attention"]["launches"] = launched(
+            "train_lm --full-attention", ["K4", "K4′"])
+        shutil.rmtree(f"{tmp}/full")
+        banded, full = out["train_lm"], out["train_lm_full_attention"]
+        first_gap = abs(full["first_loss"] - banded["first_loss"])
+        last_gap = abs(full["last10_mean"] - banded["last10_mean"])
+        log(f"[examples] full attention against banded (T = window): first "
+            f"losses {first_gap:.3g} apart (at most {EXAMPLE_FIRST_TOL}), "
+            f"last-10 means {last_gap:.3g} (at most {EXAMPLE_LAST10_TOL})")
+        if not (first_gap <= EXAMPLE_FIRST_TOL
+                and last_gap <= EXAMPLE_LAST10_TOL):
+            raise AssertionError("train_lm with K4 and K4′ does not train "
+                                 "as the banded plain path does")
+        # the same run again, crashed and resumed, with every K4 and K4′
+        # call held against its plain version on its own inputs
+        zero_counts()
+        with K4Checked() as fwd, K4BChecked() as bwd:
+            try:
+                run_train_lm(dev, card, f"{tmp}/crash", "--full-attention",
+                             "--inject-failure-at", str(EXAMPLE_FAIL_AT))
+            except RuntimeError as e:
+                if "injected failure" not in str(e):
+                    raise
+            else:
+                raise AssertionError("the injected failure did not raise")
+            resumed, row = run_train_lm(dev, card, f"{tmp}/crash",
+                                        "--full-attention")
+        counts = launched("train_lm --full-attention, crashed and resumed",
+                          ["K4", "K4′"])
+        out["train_lm_checked"] = every_call_held(
+            "train_lm --full-attention, crashed and resumed", counts, fwd,
+            bwd)
+        if row["final_loss"] != whole["final_loss"]:
+            raise AssertionError(f"the resumed run ended on loss "
+                                 f"{row['final_loss']!r}, the uninterrupted "
+                                 f"one on {whole['final_loss']!r}")
+        out["train_lm_resumed"] = dict(
+            resumed_at=resumed["history"][0]["step"],
+            final_loss=row["final_loss"])
+        log(f"[examples] crashed at step {EXAMPLE_FAIL_AT}, resumed at step "
+            f"{resumed['history'][0]['step']}: final loss "
+            f"{row['final_loss']!r}, bit for bit the uninterrupted run's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[examples] phase 19: {out['phase_s']:.1f} s on {card}")
+    return out
+
+
+def one_rank_mesh(dev):
+    """A (1, 1) ``data × model`` ``DeviceMesh`` on a one-rank group of the
+    card's backend, its store on 127.0.0.1."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    return init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+
+
+def phase_mesh(dev, card, b=TRAIN_B, t=TRAIN_T, cfg=None, moe_cfg=None,
+               moe_t=TRAIN_T):
+    """SLICE 12: the mesh forms on a one-rank group (docstring item 20)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import grad_compression as G
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models import moe as M
+    from repro_torch.models import param_specs
+    from repro_torch.training import OptConfig, make_train_step, opt_init
+    from repro_torch.training.optimizer import loss_and_grads
+    t_phase = time.perf_counter()
+    out = {}
+    mesh = one_rank_mesh(dev)
+    try:
+        # the train step: mesh (compute + ZeRO layouts) against meshless
+        t0 = time.perf_counter()
+        cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH),
+                                         n_layers=MESH_LAYERS, remat=True)
+        specs = param_specs(cfg)
+        osh = S.compute_shardings(specs, mesh, cfg)
+        zsh = S.param_shardings(specs, mesh, cfg, extra_batch_dim=True)
+        base = lm_model(dev, cfg)
+        mesh_p = _clone(base)
+        mesh_s = opt_init(mesh_p, zero_shardings=zsh, out_shardings=osh)
+        opt = OptConfig(warmup_steps=1)
+        mesh_step = make_train_step(cfg, opt, mesh=mesh, grad_shardings=zsh,
+                                    param_out_shardings=osh)
+        plain_s = opt_init(base)
+        plain_step = make_train_step(cfg, opt)
+        rows = []
+        for i in range(MESH_STEPS):
+            batch = train_batch(dev, cfg, b, t, i)
+            zero_counts()
+            t1 = time.perf_counter()
+            mesh_p, mesh_s, mm = mesh_step(mesh_p, mesh_s, batch)
+            torch.cuda.synchronize()
+            mesh_ms = 1e3 * (time.perf_counter() - t1)
+            mesh_n = kernel_counts()
+            zero_counts()
+            t1 = time.perf_counter()
+            base, plain_s, pm = plain_step(base, plain_s, batch)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t1)
+            plain_n = kernel_counts()
+            same = all(torch.equal(x, y) for x, y in zip(
+                _leaves(mesh_p), _leaves(base)))
+            row = dict(loss=float(mm["loss"]), grad_norm=float(
+                mm["grad_norm"]), meshless_loss=float(pm["loss"]),
+                meshless_grad_norm=float(pm["grad_norm"]),
+                params_bit_for_bit=same, launches=mesh_n, ms=mesh_ms,
+                meshless_ms=plain_ms)
+            rows.append(row)
+            if mesh_n != plain_n or mesh_n["K4"] == 0 or mesh_n["K4′"] == 0:
+                raise AssertionError(f"mesh step {i}: launches {mesh_n}, "
+                                     f"meshless {plain_n}")
+            if not (same and row["loss"] == row["meshless_loss"]
+                    and row["grad_norm"] == row["meshless_grad_norm"]):
+                raise AssertionError(f"mesh step {i} is not the meshless "
+                                     f"step bit for bit: {row}")
+        moments = sum(x.numel() for x in _leaves(mesh_s["m"]))
+        out["train_step"] = dict(steps=rows, moment_elements=moments,
+                                 s=time.perf_counter() - t0)
+        log(f"[mesh] {cfg.name} at {cfg.n_layers} layers, B = {b}, T = {t}: "
+            f"{MESH_STEPS} mesh steps (ZeRO layout) bit for bit the meshless "
+            f"steps (losses {[r['loss'] for r in rows]}), launches "
+            f"{rows[-1]['launches']} a step as meshless; ms a step "
+            f"{[round(r['ms'], 1) for r in rows]} against meshless "
+            f"{[round(r['meshless_ms'], 1) for r in rows]}; "
+            f"{out['train_step']['s']:.1f} s")
+
+        # ef_allreduce over the gradient leaves of the first batch
+        t0 = time.perf_counter()
+        _, _, grads = loss_and_grads(base, train_batch(dev, cfg, b, t), cfg)
+        leaves = _leaves(grads)
+        del mesh_p, mesh_s, plain_s
+        mean, _ = G.ef_allreduce(leaves, G.init_error(leaves), mesh, "data")
+        for g, got in zip(leaves, mean):
+            q, sc, _ = G.compress(g, torch.zeros((), device=g.device))
+            if not torch.equal(got, G.decompress(q, sc)):
+                raise AssertionError("ef_allreduce on one rank is not the "
+                                     "local decompress")
+        out["ef_allreduce"] = dict(leaves=len(leaves), elements=sum(
+            g.numel() for g in leaves), s=time.perf_counter() - t0)
+        log(f"[mesh] ef_allreduce over {len(leaves)} gradient leaves "
+            f"({out['ef_allreduce']['elements'] / 1e9:.3f} B elements): bit "
+            f"for bit the local decompress; {out['ef_allreduce']['s']:.1f} s")
+        del base, grads, leaves, mean
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one MoE layer at full width through ep and tp
+        t0 = time.perf_counter()
+        mcfg = moe_cfg or get_config(MOE_ARCH)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        p = M.moe_init(gen, mcfg, getattr(torch, mcfg.param_dtype),
+                       device=dev)
+        x = (torch.randn((b, moe_t, mcfg.d_model), generator=gen,
+                         device=dev)).to(p["w_gate"].dtype)
+        local = M._moe_local(p, x, mcfg)
+        dense = M._moe_dense(p, x, mcfg)
+        rms = local.float().pow(2).mean().sqrt().item()
+        moe = {}
+        for impl, late in (("ep", False), ("tp", False), ("tp", True)):
+            got = M.moe_apply(p, x, dataclasses.replace(mcfg, moe_impl=impl),
+                              impl=impl, mesh=mesh, psum_late=late)
+            err = (got.float() - local.float()).abs().max().item()
+            share = ((got.float() - dense.float()).abs() < 1e-4).float() \
+                .mean().item()
+            key = impl + ("_late" if late else "")
+            moe[key] = dict(max_abs_err=err, rms=rms, dense_share=share,
+                            bit_for_bit=bool(torch.equal(got, local)))
+            if not err <= MOE_OUT_TOL * rms:
+                raise AssertionError(f"MoE {key}: {err} from _moe_local, "
+                                     f"rms {rms}")
+            log(f"[mesh] {mcfg.name} MoE layer {key} (B = {b}, T = {moe_t}, "
+                f"{x.dtype}): max |diff| to _moe_local {err:.3g} (rms "
+                f"{rms:.3g}; bit for bit: {moe[key]['bit_for_bit']}); share "
+                f"within 1e-4 of _moe_dense {share:.4f}")
+        moe["s"] = time.perf_counter() - t0
+        out["moe"] = moe
+        del p, x, local, dense
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase 20: {out['phase_s']:.1f} s on {card}")
+    return out
 
 
 def metro_day(cells, domains):
@@ -4093,6 +4576,10 @@ def main() -> int:
     train_main = phase_train(dev)
     train_loop = phase_train_loop(dev)
     log(f"[train] phases 16-18: {time.perf_counter() - t0:.1f} s on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = phase_examples(dev, card)
+    mesh = phase_mesh(dev, card)
     k1 = time_k1(dev, serve_stack, metro_stack, launches, k1_err)
     k1["launches_eval"] = eval_launches["pg_solve"]
     k1["tick"] = launches["tick"]
@@ -4137,6 +4624,23 @@ def main() -> int:
     k4b_core["launches_path"] = "phase 18, the float32 smoke loop"
     k4b_core["launches_train_step"] = \
         train_main["k4_bwd_launches_by_route"]["cuda_cores"]
+    # slice 12's launches: the examples (phase 19) and the mesh step (20)
+    k1["launches_examples"] = {k: v["K1"] for k, v in examples.items()
+                               if isinstance(v, dict) and "K1" in v}
+    k2["launches_examples"] = {"quickstart": examples["quickstart"]["K2"]}
+    k3["launches_examples"] = {k: v["K3"] for k, v in examples.items()
+                               if isinstance(v, dict) and "K3" in v}
+    k4["launches_examples"] = {
+        "serve_edge": examples["serve_edge"]["K4"],
+        "train_lm_full_attention":
+            examples["train_lm_full_attention"]["launches"]["K4"]}
+    k4["launches_mesh_step"] = mesh["train_step"]["steps"][-1][
+        "launches"]["K4"]
+    k4b_core["launches_train_lm_full_attention"] = \
+        examples["train_lm_full_attention"]["launches"]["K4′"]
+    k4b["launches_mesh_step"] = mesh["train_step"]["steps"][-1][
+        "launches"]["K4′"]
+    k4b["slice12"] = dict(examples=examples, mesh=mesh)
     kernels = [k1, k2, k3, k4, k4b, k4b_core]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,7 @@ The reference's contract:
   * a ``manifest.json`` with the step, the tree's structure and the leaf
     count is committed LAST via atomic rename — a crash mid-save never
     corrupts the previous checkpoint (restore reads the newest *complete*
-    manifest),
+    step: its manifest and every host's file; one host removes old steps),
   * ``restore_latest`` + the deterministic data pipeline (step in the
     manifest) give exactly-once training semantics across restarts,
   * saves run on a background thread so the train loop never blocks on I/O.
@@ -150,6 +150,8 @@ class Checkpointer:
         self._gc()
 
     def _gc(self):
+        if self.host_id != 0:          # one host removes old steps
+            return
         steps = sorted(self.list_steps())
         for s in steps[:-self.keep]:
             d = os.path.join(self.dir, f"step_{s:09d}")
@@ -162,8 +164,11 @@ class Checkpointer:
         self.wait()                    # drain in-flight commits before reading
         steps = []
         for name in os.listdir(self.dir):
-            if name.startswith("step_") and os.path.exists(
-                    os.path.join(self.dir, name, "manifest.json")):
+            d = os.path.join(self.dir, name)
+            if name.startswith("step_") and all(
+                    os.path.exists(os.path.join(d, f)) for f in
+                    ["manifest.json"] + [f"host{h}.npz"
+                                         for h in range(self.n_hosts)]):
                 steps.append(int(name.split("_")[1]))
         return sorted(steps)
 

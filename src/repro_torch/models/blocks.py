@@ -39,12 +39,14 @@ def _ffn_init(generator, cfg, dtype, device):
                     device=device)
 
 
-def _ffn_apply(params, x, cfg):
-    """Reference ``_ffn_apply`` (blocks.py:30) on one device: an MoE FFN
-    takes ``moe_apply``'s dense form, as the reference's does without a
-    mesh and as its decode asks (``moe_impl="dense"``)."""
+def _ffn_apply(params, x, cfg, mesh=None, moe_impl=None):
+    """Reference ``_ffn_apply`` (blocks.py:30): an MoE FFN takes
+    ``moe_apply``'s form ``moe_impl`` over ``mesh``, the dense form with
+    no mesh (prefill and decode pass none, as the reference's decode asks
+    for ``moe_impl="dense"``)."""
     if cfg.is_moe:
-        return moe_mod.moe_apply(params, x, cfg)
+        return moe_mod.moe_apply(params, x, cfg, impl=moe_impl, mesh=mesh,
+                                 psum_late=cfg.moe_psum_late)
     return mlp_apply(params, x, cfg.mlp_kind)
 
 
@@ -71,10 +73,11 @@ def block_init(generator, cfg, kind: str, dtype, *, cross: bool = False,
     return p
 
 
-def block_train(params, x, cfg, kind: str, *, enc=None,
-                causal: bool = True):
+def block_train(params, x, cfg, kind: str, *, mesh=None, moe_impl=None,
+                enc=None, causal: bool = True):
     """Reference ``block_train`` (blocks.py:57), forward: x (B, T, d) →
-    (B, T, d). ``causal=False`` is the encoder's bidirectional "attn"."""
+    (B, T, d). ``causal=False`` is the encoder's bidirectional "attn";
+    ``mesh`` and ``moe_impl`` go to an MoE FFN."""
     _kind(kind)
     eps = cfg.norm_eps
     if kind in ("attn", "local"):
@@ -87,13 +90,13 @@ def block_train(params, x, cfg, kind: str, *, enc=None,
                 cfg)
             x = x + c
         return x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                              cfg)
+                              cfg, mesh, moe_impl)
     if kind == "rec":
         h, _ = rec.rglru_train(params["rec"], rms_norm(x, params["ln1"], eps),
                                cfg)
         x = x + h
         return x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                              cfg)
+                              cfg, mesh, moe_impl)
     h, _ = rwkv_mod.rwkv_time_mix(params, rms_norm(x, params["ln1"], eps), cfg)
     x = x + h
     h, _ = rwkv_mod.rwkv_channel_mix(params, rms_norm(x, params["ln2"], eps),

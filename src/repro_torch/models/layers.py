@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_init", "rms_norm", "mlp_init", "mlp_apply",
-           "rotary_cos_sin", "apply_rotary", "softcap", "cross_entropy"]
+           "rotary_cos_sin", "apply_rotary", "softcap", "cross_entropy",
+           "cross_entropy_sums"]
 
 
 def dense_init(generator, shape, scale: float | None = None,
@@ -109,14 +110,22 @@ def softcap(logits, cap: float):
     return logits
 
 
-def cross_entropy(logits, labels, ignore_id: int = -100):
-    """Reference ``cross_entropy`` (layers.py:89): token-level CE in float32,
-    the mean over the labels that are not ``ignore_id`` (0 when all are).
-    The gold logit is the reference's mask reduction over the vocabulary,
-    so a label outside it reads 0 rather than raising."""
+def cross_entropy_sums(logits, labels, ignore_id: int = -100):
+    """The two sums of :func:`cross_entropy`: (the token CE summed over the
+    labels that are not ``ignore_id``, their count), float32 0-d. A
+    data-parallel step sums both over its ranks."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     vocab = torch.arange(logits.shape[-1], device=logits.device)
     gold = torch.where(vocab == labels[..., None], logits, 0.0).sum(-1)
     mask = (labels != ignore_id).float()
-    return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits, labels, ignore_id: int = -100):
+    """Reference ``cross_entropy`` (layers.py:89): token-level CE in float32,
+    the mean over the labels that are not ``ignore_id`` (0 when all are).
+    The gold logit is the reference's mask reduction over the vocabulary,
+    so a label outside it reads 0 rather than raising."""
+    total, count = cross_entropy_sums(logits, labels, ignore_id)
+    return total / torch.clamp(count, min=1.0)

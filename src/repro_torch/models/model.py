@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from ..tree import tree_map
 from . import blocks
 from .layers import cross_entropy, dense_init, rms_norm, softcap
 
@@ -37,15 +38,6 @@ __all__ = ["cache_specs", "decode_step", "forward_train", "init_cache",
 
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
-
-
-def _tree_map(fn, *trees):
-    t = trees[0]
-    if isinstance(t, dict):
-        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
-    if isinstance(t, (tuple, list)):
-        return tuple(_tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
 
 
 # ---------------------------------------------------------------------------
@@ -63,9 +55,9 @@ def _stack_init(generator, cfg, kinds, dtype, n: int, device, *,
                                             cross=cross, device=device)
                for i, kind in enumerate(kinds)}
         if stacked is None:
-            stacked = _tree_map(
+            stacked = tree_map(
                 lambda t: t.new_empty((n,) + tuple(t.shape)), rep)
-        _tree_map(lambda dst, src, r=r: dst[r].copy_(src), stacked, rep)
+        tree_map(lambda dst, src, r=r: dst[r].copy_(src), stacked, rep)
     return stacked
 
 
@@ -200,32 +192,37 @@ def _frames(params, batch, cfg):
     return _encode(params, batch["enc_input"], cfg)
 
 
-def forward_train(params, batch, cfg):
+def forward_train(params, batch, cfg, *, mesh=None, moe_impl=None):
     """Reference ``forward_train`` (model.py:116): the logits (B, T, vocab)
     of ``batch["tokens"]`` (B, T) at every position, differentiable. An
     encoder-decoder first encodes ``batch["enc_input"]``. Each repeat of
-    the block pattern is one ``_maybe_remat`` body. On one device, as the
-    reference without a mesh: an MoE FFN is the dense form."""
+    the block pattern is one ``_maybe_remat`` body. With no mesh an MoE
+    FFN is the dense form, as the reference's on one device; over a
+    ``DeviceMesh`` ``params`` and ``batch`` are this rank's shards and an
+    MoE FFN takes the form ``moe_impl`` (``models/moe.py::moe_apply``)."""
     enc = _frames(params, batch, cfg)
     x = _embed(params, batch["tokens"], cfg)
 
     def body(h, rep):
         for i, kind in enumerate(cfg.block_pattern):
-            h = blocks.block_train(rep[f"pos{i}"], h, cfg, kind, enc=enc)
+            h = blocks.block_train(rep[f"pos{i}"], h, cfg, kind, mesh=mesh,
+                                   moe_impl=moe_impl, enc=enc)
         return h
     body = _maybe_remat(body, cfg)
     for r in range(cfg.n_repeats):
         x = body(x, _repeat(params["scan"], r))
     for p, kind in zip(params.get("rem", ()), cfg.remainder_kinds):
-        x = blocks.block_train(p, x, cfg, kind, enc=enc)
+        x = blocks.block_train(p, x, cfg, kind, mesh=mesh, moe_impl=moe_impl,
+                               enc=enc)
     return _head(params, x, cfg)
 
 
-def loss_fn(params, batch, cfg):
+def loss_fn(params, batch, cfg, *, mesh=None, moe_impl=None):
     """Reference ``loss_fn`` (model.py:145): the token CE of
     :func:`forward_train`'s logits against ``batch["labels"]`` → (loss,
     {"loss": loss})."""
-    loss = cross_entropy(forward_train(params, batch, cfg), batch["labels"])
+    loss = cross_entropy(forward_train(params, batch, cfg, mesh=mesh,
+                                       moe_impl=moe_impl), batch["labels"])
     return loss, {"loss": loss}
 
 
@@ -241,7 +238,7 @@ def cache_specs(cfg, batch: int, cache_len: int, *, enc_len: int = 0):
     cross_len = enc_len if cfg.is_encdec else 0
 
     def stack(spec):
-        return _tree_map(lambda s: type(s)((cfg.n_repeats,) + s.shape,
+        return tree_map(lambda s: type(s)((cfg.n_repeats,) + s.shape,
                                            s.dtype), spec)
 
     cache = {"scan": {
@@ -261,7 +258,7 @@ def init_cache(cfg, batch: int, cache_len: int, *, enc_len: int = 0,
                device="cuda"):
     """Reference ``init_cache`` (model.py:178): the zero cache."""
     specs = cache_specs(cfg, batch, cache_len, enc_len=enc_len)
-    return _tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                            device=device), specs)
 
 
@@ -281,7 +278,7 @@ def prefill(params, batch, cfg, cache_len: int):
             x, caches[f"pos{i}"] = blocks.block_prefill(rep, x, cfg, kind,
                                                         cache_len, enc=enc)
         per_rep.append(caches)
-    cache = {"scan": _tree_map(lambda *xs: torch.stack(xs), *per_rep)}
+    cache = {"scan": tree_map(lambda *xs: torch.stack(xs), *per_rep)}
     if params.get("rem"):
         rem_caches = []
         for p, kind in zip(params["rem"], cfg.remainder_kinds):
@@ -303,13 +300,13 @@ def decode_step(params, cache, tokens, pos: int, cfg):
     for r in range(cfg.n_repeats):
         new = {}
         for i, kind in enumerate(cfg.block_pattern):
-            rep, rc = _tree_map(lambda t, r=r: t[r],
+            rep, rc = tree_map(lambda t, r=r: t[r],
                                 (params["scan"][f"pos{i}"],
                                  cache["scan"][f"pos{i}"]))
             x, new[f"pos{i}"] = blocks.block_decode(rep, x, rc, pos, cfg,
                                                     kind)
         per_rep.append(new)
-    new_cache = {"scan": _tree_map(lambda *xs: torch.stack(xs), *per_rep)}
+    new_cache = {"scan": tree_map(lambda *xs: torch.stack(xs), *per_rep)}
     if params.get("rem"):
         rem_new = []
         for p, kind, c in zip(params["rem"], cfg.remainder_kinds,

@@ -1,19 +1,29 @@
 """Port of ``src/repro/models/moe.py``: the Mixture-of-Experts FFN with
-token-choice top-k routing, on one device.
+token-choice top-k routing, in its three forms.
 
 * ``dense`` (:func:`_moe_dense`): every expert computes every token, and
   the outputs are gate-weighted. ``moe_apply`` with no mesh takes it, as
   the reference does on one device; it is the main path of both MoE
-  configs.
-* the sort-based dispatch of the reference's ``tp`` and ``ep`` forms on
-  one shard (:func:`_moe_local` with no collective): a stable sort by
-  expert into fixed-capacity buckets, one batched SwiGLU over the
-  buckets, and a combine. Tokens over a bucket's capacity drop to zero.
+  configs there.
+* ``ep`` over a mesh: expert parallelism. Tokens are split over the
+  ``model`` axis by sequence, each rank dispatches its own into
+  fixed-capacity per-expert buckets, an ``all_to_all`` hands each rank
+  its local experts' buckets from every peer, and a second one returns
+  the outputs; then the sequence is gathered back.
+* ``tp`` over a mesh: tensor parallelism over the expert FFN's hidden
+  dimension, with local dispatch and a sum over the ``model`` axis of the
+  down-projection's partial products, before the combine or after it
+  (``psum_late``).
 
-The reference computes all of it in jnp, outside any Pallas kernel, so
-the port's counterpart is plain PyTorch with ``torch.matmul`` for the
-products. The mesh forms (``all_to_all`` and ``psum`` over a training
-mesh) wait for ``distributed/``: ROADMAP.md queue 1.
+The dispatch is the reference's sort: a stable sort by expert into
+fixed-capacity buckets, one batched SwiGLU over the buckets, and a
+combine; tokens over a bucket's capacity drop to zero. The reference's
+``shard_map`` bodies run here on each rank's local shards; the
+collectives are ``distributed/collectives.py``'s, which carry autograd,
+so the train step differentiates through them as ``jax.value_and_grad``
+does through ``shard_map``. The reference computes all of it in jnp,
+outside any Pallas kernel, so the port's counterpart is plain PyTorch
+with ``torch.matmul`` for the products.
 """
 
 from __future__ import annotations
@@ -23,12 +33,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives as C
 from .layers import dense_init
 
 __all__ = ["moe_init", "moe_apply"]
-
-MESH_WAITS = ("the MoE's expert- and tensor-parallel forms over a mesh "
-              "wait for distributed/: ROADMAP.md queue 1, item 6")
 
 
 def moe_init(generator, cfg, dtype=torch.float32, device=None):
@@ -110,12 +118,19 @@ def _scatter_combine(x_flat, gates_flat, tok_flat, order, e_sorted, slot,
     return out
 
 
-def _moe_local(params, x, cfg, *, capacity_scale: float = 1.0):
-    """Reference ``_moe_local`` (moe.py:95) on one shard
-    (``psum_axis=None``, ``ep_axis=None``): sort-based dispatch into
+def _moe_local(params, x, cfg, *, capacity_scale: float = 1.0, mesh=None,
+               psum_axis=None, ep_axis=None, n_ep: int = 1,
+               psum_late: bool = False):
+    """Reference ``_moe_local`` (moe.py:95): sort-based dispatch into
     buckets of capacity ``max(8, ceil(n_tok · top_k · capacity_factor ·
-    capacity_scale / E))``, the expert FFN on the buckets, and the
-    combine."""
+    capacity_scale / E))`` of this shard's tokens, the expert FFN on the
+    buckets, and the combine. With ``psum_axis`` (``tp``) the expert
+    weights are this rank's slice of the hidden dimension and the partial
+    outputs are summed over that axis of ``mesh``: on the buckets, or with
+    ``psum_late`` on the combined (n_tok, d) output, which moves fewer
+    bytes (the combine is linear in the expert outputs). With ``ep_axis``
+    (``ep``) the weights are this rank's ``E / n_ep`` experts and the
+    buckets are exchanged over that axis."""
     b, t, d = x.shape
     n_tok = b * t
     e = cfg.n_experts
@@ -126,15 +141,34 @@ def _moe_local(params, x, cfg, *, capacity_scale: float = 1.0):
     tok_flat = torch.arange(n_tok, device=x.device).repeat_interleave(
         cfg.top_k)
     order, e_sorted, slot, valid = _dispatch_sort(e_flat, e, capacity)
+    w = (params["w_gate"], params["w_up"], params["w_down"])
 
-    def expert_fn(xb):
-        return _expert_ffn(params["w_gate"], params["w_up"],
-                           params["w_down"], xb)
+    if ep_axis is None:
+        def expert_fn(xb):
+            y = _expert_ffn(*w, xb)
+            if psum_axis is not None and not psum_late:
+                y = C.all_reduce(y, mesh, psum_axis)
+            return y
+    else:
+        e_loc = e // n_ep
+
+        def expert_fn(xb):
+            # (E, C, d) → each rank holds its local experts' buckets from
+            # every peer, rows grouped as (src, E_loc, C, d)
+            recv = C.all_to_all(xb, mesh, ep_axis)
+            recv = recv.reshape(n_ep, e_loc, capacity, d).transpose(0, 1) \
+                .reshape(e_loc, n_ep * capacity, d)
+            y = _expert_ffn(*w, recv)
+            y = y.reshape(e_loc, n_ep, capacity, d).transpose(0, 1) \
+                .reshape(e, capacity, d)
+            return C.all_to_all(y, mesh, ep_axis)
 
     out = _scatter_combine(x.reshape(n_tok, d),
                            gates.reshape(n_tok * cfg.top_k), tok_flat,
                            order, e_sorted, slot, valid, e, capacity,
                            expert_fn)
+    if psum_axis is not None and psum_late:
+        out = C.all_reduce(out, mesh, psum_axis)
     return out.reshape(b, t, d)
 
 
@@ -161,14 +195,40 @@ def _moe_dense(params, x, cfg):
     return out.to(x.dtype).reshape(b, t, d)
 
 
-def moe_apply(params, x, cfg, *, impl: str | None = None, mesh=None):
+def moe_apply(params, x, cfg, *, impl: str | None = None, mesh=None,
+              model_axis: str = "model", psum_late: bool = False):
     """Reference ``moe_apply`` (moe.py:159). With ``impl == "dense"`` or
     no mesh this is :func:`_moe_dense`, as the reference computes on one
-    device. A mesh with the ``tp`` or ``ep`` form raises: those forms wait
-    for ``distributed/`` (ROADMAP.md queue 1, item 6)."""
+    device. With a ``DeviceMesh`` it is the reference's ``shard_map`` body
+    on this rank's shards: ``x`` is this rank's batch rows (split over the
+    data axes, whole over ``model_axis``) and the expert weights are its
+    slice as ``distributed.sharding.compute_shardings`` lays them out
+    (``ep``: ``E / n`` experts; ``tp``: ``d_expert / n`` of the hidden
+    dimension). The output is x's shape, whole over ``model_axis``."""
     impl = impl or cfg.moe_impl
     if impl == "dense" or mesh is None:
         return _moe_dense(params, x, cfg)
-    if impl in ("tp", "ep"):
-        raise NotImplementedError(MESH_WAITS)
+    n = C.axis_size(mesh, model_axis)
+    local = params["w_gate"].shape
+    if impl == "ep":
+        # tokens are sequence-split over the model axis for the dispatch, so
+        # every rank routes a unique token shard
+        if cfg.n_experts % n or x.shape[1] % n:
+            raise ValueError(f"ep needs E ({cfg.n_experts}) and T "
+                             f"({x.shape[1]}) divisible by the {n}-way "
+                             f"{model_axis!r} axis")
+        if local[0] * n != cfg.n_experts:
+            raise ValueError(f"ep: the rank holds {local[0]} experts, not "
+                             f"{cfg.n_experts} // {n}")
+        t = x.shape[1] // n
+        mine = x.narrow(1, C.axis_index(mesh, model_axis) * t, t)
+        y = _moe_local(params, mine, cfg, mesh=mesh, ep_axis=model_axis,
+                       n_ep=n)
+        return C.all_gather(y, mesh, model_axis, dim=1)
+    if impl == "tp":
+        if local[-1] * n != cfg.d_expert:
+            raise ValueError(f"tp: the rank holds {local[-1]} of the FFN's "
+                             f"{cfg.d_expert} hidden units, not 1/{n}")
+        return _moe_local(params, x, cfg, mesh=mesh, psum_axis=model_axis,
+                          psum_late=psum_late)
     raise ValueError(impl)

@@ -11,8 +11,9 @@ straggler detection, elastic re-meshing.
   `threshold ×` the EWMA marks the cell a straggler.
 * :class:`ElasticMesh` — given the surviving host set, the largest
   (data × model) mesh that preserves the model axis, and the new per-host
-  batch (a plan: the port's trainer runs on one device until
-  ``distributed/`` is ported).
+  batch (a plan: the port's mesh trainer, ``training/train_loop.py``,
+  runs on the ``DeviceMesh`` its caller builds, and nothing re-meshes a
+  running job).
 * :class:`StepClock` — stamps each step's duration into both monitors.
 """
 

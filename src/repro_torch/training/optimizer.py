@@ -12,9 +12,16 @@ of a whole stack exists, the counterpart of the reference's "no
 full-size fp32 transient". The gradient comes one repeat at a time too
 (:func:`split_repeats`).
 
-The reference's ``zero_shardings``, ``out_shardings``, ``mesh`` and
-``grad_shardings`` arguments (ZeRO-1/2 over a device mesh) wait for the
-port's ``distributed/``; this step runs on one device.
+Over a ``DeviceMesh`` the step is data-parallel over the data axes
+(``pod``, ``data``), each rank taking its rows of the batch, and the
+``model`` axis carries the MoE's ``ep`` and ``tp`` forms; every other
+leaf is whole on every rank (``distributed.sharding.compute_shardings``).
+Each rank's gradient is its share, and the shares are summed over the
+ranks that hold the leaf whole. With ``grad_shardings`` (the reference's
+ZeRO layout, ``param_shardings(..., extra_batch_dim=True)``) that sum is
+a reduce-scatter into the layout, once a microbatch (ZeRO-2); the
+float32 moments live as those shards and AdamW runs on them (ZeRO-1),
+and only the result, in the parameter's type, is gathered back.
 """
 
 from __future__ import annotations
@@ -23,6 +30,10 @@ import dataclasses
 import math
 
 import torch
+
+from ..distributed.collectives import (all_gather, axis_index, axis_size,
+                                       reduce_scatter, sum_over)
+from ..tree import leaves, rebuild, tree_map
 
 __all__ = ["OptConfig", "global_norm", "loss_and_grads", "lr_schedule",
            "make_train_step", "opt_init", "opt_update", "split_repeats"]
@@ -41,16 +52,6 @@ class OptConfig:
     min_lr_ratio: float = 0.1
 
 
-def _leaves(tree) -> list:
-    """The leaves of a tree in the reference's flattening order: dict keys
-    sorted, tuples and lists in order."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
 def _param_leaves(params, grads, stacked=False) -> list:
     """(leaf, ``grads``' node at that leaf, stacked) for each leaf of
     ``params`` in the flattening order; ``stacked`` for the leaves under a
@@ -63,15 +64,6 @@ def _param_leaves(params, grads, stacked=False) -> list:
         return [x for p, g in zip(params, grads)
                 for x in _param_leaves(p, g, stacked)]
     return [(params, grads, stacked)]
-
-
-def _map(fn, *trees):
-    t = trees[0]
-    if isinstance(t, dict):
-        return {k: _map(fn, *(x[k] for x in trees)) for k in t}
-    if isinstance(t, (tuple, list)):
-        return tuple(_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
 
 
 # float32 elements a transient of the update may hold at once (256 MB)
@@ -109,26 +101,123 @@ def lr_schedule(opt: OptConfig, step):
     return opt.lr * torch.where(step < opt.warmup_steps, warm, cos)
 
 
+def _squares(g) -> list:
+    """The float32 sum of squares of each piece of ``g``."""
+    return [torch.sum(torch.square(g[idx].float()))
+            for idx in _pieces(tuple(g.shape))]
+
+
+def _sum_in_order(parts):
+    total = parts[0]
+    for x in parts[1:]:
+        total = total + x
+    return total
+
+
 def global_norm(tree):
     """Reference ``global_norm`` (optimizer.py:48): the float32 L2 norm of
     every leaf together (a tuple of per-repeat gradients is leaves too),
     summed a piece of at most 2^26 elements at a time."""
-    total = None
-    for g in _leaves(tree):
-        for idx in _pieces(tuple(g.shape)):
-            sq = torch.sum(torch.square(g[idx].float()))
-            total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return torch.sqrt(_sum_in_order([sq for g in leaves(tree)
+                                     for sq in _squares(g)]))
 
 
-def opt_init(params):
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """Where one parameter leaf's gradient and moments live on a mesh, for
+    one unit of it (a repeat of a stacked leaf, else the leaf): the axes
+    over which the ranks' gradient shares are summed, the (dim, axis)
+    splits of the ZeRO shard beyond the compute layout (major first), and
+    the axes over which the shards tile the unit. Axes of one rank are
+    left out of all three: a one-rank mesh moves and copies nothing."""
+
+    mesh: object
+    sum_axes: tuple
+    zero: tuple
+    tiled: tuple
+
+    def shard(self, t):
+        """This rank's ZeRO block of the unit ``t`` (a view)."""
+        from ..distributed.sharding import block
+        for dim, ax in self.zero:
+            t = block(t, self.mesh, dim, ax)
+        return t
+
+    def reduce(self, g):
+        """The sum of the ranks' gradient shares, this rank's block of it
+        (a reduce-scatter over the ZeRO axes, a sum over the others)."""
+        split = {ax for _, ax in self.zero}
+        g = sum_over(g, self.mesh, [a for a in self.sum_axes
+                                    if a not in split])
+        for dim, ax in self.zero:
+            g = reduce_scatter(g, self.mesh, ax, dim)
+        return g
+
+    def gather_(self, p):
+        """Write every rank's updated block of the unit ``p`` into it,
+        gathering in ``p``'s type."""
+        from ..distributed.sharding import block
+        views = [p]
+        for dim, ax in self.zero:
+            views.append(block(views[-1], self.mesh, dim, ax))
+        for (dim, ax), outer, inner in reversed(list(zip(
+                self.zero, views[:-1], views[1:]))):
+            outer.copy_(all_gather(inner, self.mesh, ax, dim))
+
+
+def _layouts(params, zero_shardings, out_shardings) -> list:
+    """One :class:`_Layout` a leaf of ``params``, in the flattening order.
+    ``out_shardings`` is the compute layout (whole on every rank where
+    None), ``zero_shardings`` the ZeRO layout (the compute layout where
+    None); both trees of ``distributed.sharding.NamedSharding``."""
+    from ..distributed.sharding import mesh_shape, spec_axes
+    zsh = leaves(zero_shardings if zero_shardings is not None
+                  else out_shardings)
+    osh = leaves(out_shardings) if out_shardings is not None \
+        else [None] * len(zsh)
+    out = []
+    for (p, _, stacked), z, o in zip(_param_leaves(params, params), zsh, osh):
+        zspec = z.spec
+        ospec = o.spec if o is not None else (None,) * len(zspec)
+        if stacked and (zspec[0] is not None or ospec[0] is not None):
+            raise ValueError("the step splits a stacked leaf within each "
+                             f"repeat, not over repeats: {zspec}")
+        skip = 1 if stacked else 0
+        held = {a for e in ospec for a in spec_axes(e)}
+        names = tuple(a for a, n in mesh_shape(z.mesh).items() if n > 1)
+        zero = tuple((d - skip, a) for d, e in enumerate(zspec)
+                     for a in spec_axes(e) if a not in held and a in names)
+        tiled = held | {a for e in zspec for a in spec_axes(e)}
+        out.append(_Layout(z.mesh, tuple(a for a in names if a not in held),
+                           zero, tuple(a for a in names if a in tiled)))
+    return out
+
+
+def _units(p, stacked):
+    return [p[r] for r in range(p.shape[0])] if stacked else [p]
+
+
+def opt_init(params, *, zero_shardings=None, out_shardings=None):
     """Reference ``opt_init`` (optimizer.py:54): float32 zero moments like
-    every leaf, and the step count (an int32 0-d tensor)."""
+    every leaf, and the step count (an int32 0-d tensor). With
+    ``zero_shardings`` (ZeRO-1) each moment is this rank's shard of the
+    leaf as ``params`` holds it in ``out_shardings``' layout."""
     def zeros(t):
         return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-    first = _leaves(params)[0]
-    return {"m": _map(zeros, params), "v": _map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+    first = leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if zero_shardings is None:
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                "step": step}
+    shards = [torch.zeros(((p.shape[0],) if st else ())
+                          + tuple(lay.shard(p[0] if st else p).shape),
+                          dtype=torch.float32, device=p.device)
+              for (p, _, st), lay in zip(
+                  _param_leaves(params, params),
+                  _layouts(params, zero_shardings, out_shardings))]
+    return {"m": rebuild(params, shards),
+            "v": rebuild(params, [x.clone() for x in shards]),
+            "step": step}
 
 
 def _adamw_(opt: OptConfig, p, g, m, v, scale, lr, bc1, bc2):
@@ -143,7 +232,30 @@ def _adamw_(opt: OptConfig, p, g, m, v, scale, lr, bc1, bc2):
     p.copy_(p.float() - lr * delta)
 
 
-def opt_update(opt: OptConfig, params, grads, state):
+def _sharded_norm(params, grads, layouts):
+    """:func:`global_norm` of a gradient held as ZeRO shards: each piece's
+    sum of squares summed over the axes its leaf's shards tile, one
+    collective an axis, then the pieces added in the flattening order
+    (on one rank exactly :func:`global_norm`)."""
+    parts, axes = [], []
+    for (p, g, stacked), lay in zip(_param_leaves(params, grads), layouts):
+        units = list(g) if isinstance(g, (tuple, list)) \
+            else _units(g, stacked)
+        for unit in units:
+            sq = _squares(unit)
+            parts += sq
+            axes += [lay.tiled] * len(sq)
+    mesh = layouts[0].mesh
+    for ax in dict.fromkeys(a for t in axes for a in t):
+        where = [i for i, t in enumerate(axes) if ax in t]
+        vec = sum_over(torch.stack([parts[i] for i in where]), mesh, (ax,))
+        for j, i in enumerate(where):
+            parts[i] = vec[j]
+    return torch.sqrt(_sum_in_order(parts))
+
+
+def opt_update(opt: OptConfig, params, grads, state, *, zero_shardings=None,
+               out_shardings=None):
     """Reference ``opt_update`` (optimizer.py:60), in place: ``params`` and
     ``state``'s moments are updated where they lie and returned with the
     metrics ``{"lr", "grad_norm"}`` (float32 0-d tensors). ``grads`` has
@@ -151,26 +263,39 @@ def opt_update(opt: OptConfig, params, grads, state):
     its per-repeat gradients, as :func:`loss_and_grads` gives it. Every
     leaf is updated a piece at a time: a stacked one a repeat at a time,
     and any piece cut to at most 2^26 elements, so no float32 transient
-    of a whole stack exists. The reference's ZeRO shardings wait for
-    ``distributed/``."""
+    of a whole stack exists.
+
+    With ``zero_shardings`` (ZeRO-1; a tree of
+    ``distributed.sharding.NamedSharding``) ``grads`` and the moments are
+    this rank's shards of that layout, ``params`` is held in the layout
+    ``out_shardings`` (whole where None): AdamW runs on the shard, on a
+    view of the parameter's block, and the blocks are gathered back in
+    the parameter's type. The gradient norm sums the shards' squares over
+    the ranks."""
     step = state["step"] + 1
     lr = lr_schedule(opt, step)
-    gnorm = global_norm(grads)
+    layouts = None if zero_shardings is None else _layouts(
+        params, zero_shardings, out_shardings)
+    gnorm = global_norm(grads) if layouts is None \
+        else _sharded_norm(params, grads, layouts)
     scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     stepf = step.to(torch.float32)
     bc1 = 1 - _f32(opt.b1, stepf) ** stepf
     bc2 = 1 - _f32(opt.b2, stepf) ** stepf
     with torch.no_grad():
-        for (p, g, stacked), m, v in zip(_param_leaves(params, grads),
-                                         _leaves(state["m"]),
-                                         _leaves(state["v"])):
+        for i, ((p, g, stacked), m, v) in enumerate(zip(
+                _param_leaves(params, grads), leaves(state["m"]),
+                leaves(state["v"]))):
             units = [(p[r], g[r], m[r], v[r]) for r in range(p.shape[0])] \
                 if stacked else [(p, g, m, v)]
             for pu, gu, mu, vu in units:
-                for idx in _pieces(tuple(pu.shape)):
-                    _adamw_(opt, pu[idx], gu[idx], mu[idx], vu[idx], scale,
-                            lr, bc1, bc2)
+                block = pu if layouts is None else layouts[i].shard(pu)
+                for idx in _pieces(tuple(block.shape)):
+                    _adamw_(opt, block[idx], gu[idx], mu[idx], vu[idx],
+                            scale, lr, bc1, bc2)
+                if layouts is not None:
+                    layouts[i].gather_(pu)
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}
 
@@ -197,20 +322,6 @@ def split_repeats(params):
     return walk(params, False)
 
 
-def _rebuild(tree, leaves):
-    """``tree``'s structure with its leaves replaced, in the flattening
-    order, by ``leaves``."""
-    it = iter(leaves)
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        if isinstance(t, (tuple, list)):
-            return tuple(walk(v) for v in t)
-        return next(it)
-    return walk(tree)
-
-
 def loss_and_grads(params, batch, cfg):
     """The reference's ``jax.value_and_grad(models.loss_fn, has_aux=True)``
     by autograd: → (loss, metrics, grads). ``loss`` is a float32 0-d
@@ -221,9 +332,9 @@ def loss_and_grads(params, batch, cfg):
     split = split_repeats(params)
     with torch.enable_grad():
         loss, metrics = loss_fn(split, batch, cfg)
-        grads = torch.autograd.grad(loss, _leaves(split))
+        grads = torch.autograd.grad(loss, leaves(split))
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-        _rebuild(split, grads)
+        rebuild(split, grads)
 
 
 def _micro(batch, m: int, i: int):
@@ -231,8 +342,51 @@ def _micro(batch, m: int, i: int):
             for k, v in batch.items()}
 
 
-def make_train_step(cfg, opt: OptConfig, *, n_microbatches: int = 1,
-                    accum_dtype=torch.float32):
+def _data_rows(batch, mesh):
+    """This rank's rows of the global ``batch``, split over the data axes
+    (``pod`` major), as the reference's batch sharding places them."""
+    from ..distributed.sharding import batch_axes
+    k, n = 0, 1
+    for ax in batch_axes(mesh):
+        k = k * axis_size(mesh, ax) + axis_index(mesh, ax)
+        n *= axis_size(mesh, ax)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"a batch of {rows} rows does not split over "
+                         f"{n} data ranks")
+    return _micro(batch, n, k)
+
+
+def _mesh_loss_and_grads(params, batch, cfg, mesh, moe_impl=None):
+    """:func:`loss_and_grads` of one rank of a ``DeviceMesh``: ``params``
+    and ``batch`` are its shards → (the loss of the whole batch, this
+    rank's gradient shares). The loss is the sum of the CE terms over the
+    data ranks over their count; every rank outside the data axes
+    computes the same loss, so each weighs its gradient by one over
+    their number, and a leaf's shares summed over the ranks that hold it
+    whole are its gradient."""
+    from ..distributed.sharding import batch_axes, mesh_shape
+    from ..models import forward_train
+    from ..models.layers import cross_entropy_sums
+    data = batch_axes(mesh)
+    copies = math.prod(n for a, n in mesh_shape(mesh).items()
+                       if a not in data)
+    split = split_repeats(params)
+    with torch.enable_grad():
+        logits = forward_train(split, batch, cfg, mesh=mesh,
+                               moe_impl=moe_impl)
+        total, count = cross_entropy_sums(logits, batch["labels"])
+        loss = total / torch.clamp(sum_over(count.detach(), mesh, data),
+                                   min=1.0)
+        grads = torch.autograd.grad(
+            loss, leaves(split),
+            grad_outputs=torch.full_like(loss, 1.0 / copies))
+    return sum_over(loss.detach(), mesh, data), rebuild(split, grads)
+
+
+def make_train_step(cfg, opt: OptConfig, *, mesh=None, moe_impl=None,
+                    n_microbatches: int = 1, grad_shardings=None,
+                    param_out_shardings=None, accum_dtype=torch.float32):
     """Reference ``make_train_step`` (optimizer.py:109): the train step
     (loss → grads → clip → AdamW) ``step(params, opt_state, batch) ->
     (params, opt_state, metrics)`` with metrics ``loss``, ``lr`` and
@@ -242,9 +396,58 @@ def make_train_step(cfg, opt: OptConfig, *, n_microbatches: int = 1,
     ``n_microbatches > 1`` accumulates the gradients of that many slices of
     the batch in ``accum_dtype`` (float32 by default), then takes their
     mean in float32, and the loss is the mean of the slices' losses, as the
-    reference's scan does. The reference's ``mesh``, ``moe_impl``,
-    ``grad_shardings`` and ``param_out_shardings`` wait for the port's
-    ``distributed/``: on one device an MoE FFN is the dense form."""
+    reference's scan does. With no mesh an MoE FFN is the dense form.
+
+    Over a ``DeviceMesh`` ``mesh`` each rank passes the global batch and
+    its own shards: ``params`` in the layout ``param_out_shardings``
+    (``distributed.sharding.compute_shardings`` of ``moe_impl`` by
+    default) and ``opt_state`` from ``opt_init`` with the same shardings.
+    The step takes the rank's rows of the batch (:func:`_data_rows`). With
+    ``grad_shardings`` (ZeRO-2; the reference's ``param_shardings(...,
+    extra_batch_dim=True)``) each microbatch's gradient shares are
+    reduce-scattered into that layout and accumulated there, and
+    ``opt_update`` runs ZeRO-1 on it; without, the shares are summed
+    whole (data parallelism) and the moments are whole."""
+    if mesh is None:
+        return _train_step(cfg, opt, n_microbatches, accum_dtype)
+    if param_out_shardings is None:
+        from ..distributed.sharding import compute_shardings
+        from ..models import param_specs
+        param_out_shardings = compute_shardings(param_specs(cfg), mesh, cfg,
+                                                moe_impl)
+    zero = grad_shardings if grad_shardings is not None \
+        else param_out_shardings
+    m = n_microbatches
+
+    def train_step(params, opt_state, batch):
+        layouts = _layouts(params, zero, param_out_shardings)
+        rows = _data_rows(batch, mesh)
+        gacc, losses = None, []
+        for i in range(m):
+            loss_i, g = _mesh_loss_and_grads(
+                params, rows if m == 1 else _micro(rows, m, i), cfg, mesh,
+                moe_impl)
+            red = [tuple(lay.reduce(u) for u in node)
+                   if isinstance(node, tuple) else lay.reduce(node)
+                   for (_, node, _), lay in zip(_param_leaves(params, g),
+                                                layouts)]
+            if m > 1:
+                gacc = tree_map(lambda x: x.to(accum_dtype), red) \
+                    if gacc is None else tree_map(
+                        lambda a, x: a + x.to(accum_dtype), gacc, red)
+            losses.append(loss_i)
+        if m > 1:
+            red = tree_map(lambda a: a.float() / m, gacc)
+        loss = losses[0] if m == 1 else torch.stack(losses).mean()
+        params, opt_state, opt_metrics = opt_update(
+            opt, params, rebuild(params, red), opt_state,
+            zero_shardings=zero, out_shardings=param_out_shardings)
+        return params, opt_state, {"loss": loss, **opt_metrics}
+    return train_step
+
+
+def _train_step(cfg, opt, n_microbatches, accum_dtype):
+    """The train step on one device."""
     def train_step(params, opt_state, batch):
         if n_microbatches == 1:
             loss, metrics, grads = loss_and_grads(params, batch, cfg)
@@ -254,10 +457,11 @@ def make_train_step(cfg, opt: OptConfig, *, n_microbatches: int = 1,
             for i in range(m):
                 loss_i, _, g = loss_and_grads(params, _micro(batch, m, i),
                                               cfg)
-                gacc = _map(lambda x: x.to(accum_dtype), g) if gacc is None \
-                    else _map(lambda a, x: a + x.to(accum_dtype), gacc, g)
+                gacc = tree_map(lambda x: x.to(accum_dtype), g) \
+                    if gacc is None else tree_map(
+                        lambda a, x: a + x.to(accum_dtype), gacc, g)
                 losses.append(loss_i)
-            grads = _map(lambda a: a.float() / m, gacc)
+            grads = tree_map(lambda a: a.float() / m, gacc)
             loss = torch.stack(losses).mean()
             metrics = {"loss": loss}
         params, opt_state, opt_metrics = opt_update(opt, params, grads,

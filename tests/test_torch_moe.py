@@ -151,18 +151,42 @@ def test_moe_local_matches_dense_without_drops(rng):
 
 
 def test_moe_apply_is_dense_without_a_mesh_and_refuses_mesh_forms(rng):
-    jcfg, cfg = _cfg()
+    """With no mesh (or a mesh with ``impl="dense"``) ``moe_apply`` is the
+    reference's dense form. Over a one-rank gloo ``DeviceMesh`` the ``ep``
+    and ``tp`` forms (``psum_late`` on and off) are the capacity form
+    ``_moe_local`` (the collectives are identities on one rank) and, with
+    room for every assignment, the dense form. (The name dates from when
+    the mesh forms raised; tests/test_torch_mesh_programs.py holds them on
+    eight ranks.)"""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from test_torch_mesh_programs import free_port
+
+    jcfg, cfg = _cfg(capacity_factor=4.0)
     jp, tp = _both(_params(rng, cfg))
-    jx, tx = _x(rng, 1, 7, cfg.d_model)
+    jx, tx = _x(rng, 1, 8, cfg.d_model)
     want = JM.moe_apply(jp, jx, jcfg, impl="tp")
     for impl in (None, "dense", "tp", "ep"):
         _close(TM.moe_apply(tp, tx, cfg, impl=impl), want)
-    mesh = make_cells_mesh(2, devices=["cpu"])
-    _close(TM.moe_apply(tp, tx, cfg, impl="dense", mesh=mesh), want)
-    for impl in ("tp", "ep"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, "
-                           "item 6"):
-            TM.moe_apply(tp, tx, cfg, impl=impl, mesh=mesh)
+    cells = make_cells_mesh(2, devices=["cpu"])
+    _close(TM.moe_apply(tp, tx, cfg, impl="dense", mesh=cells), want)
+    dist.init_process_group("gloo", world_size=1, rank=0,
+                            init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        local = TM._moe_local(tp, tx, cfg)
+        for impl, late in (("ep", False), ("tp", False), ("tp", True)):
+            got = TM.moe_apply(tp, tx, cfg, impl=impl, mesh=mesh,
+                               psum_late=late)
+            assert torch.equal(got, local), (impl, late)
+            _close(got, want)
+        # weights that are not the rank's slice of the experts
+        with pytest.raises(ValueError, match="the rank holds 4 experts"):
+            TM.moe_apply(tp, tx, dataclasses.replace(cfg, n_experts=8),
+                         impl="ep", mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_moe_init_keeps_a_float32_router_and_the_reference_fan_in():
