@@ -6,9 +6,11 @@ slices on the card — the multi-cell serving tick, the paper's
 single-instance evaluation, the serving engine's LM-service jobs, the
 metro-scale sharded solve with its mesh-resident serving session, the
 MoE, RG-LRU, RWKV-6 and encoder-decoder prefills of the other five LM
-configs, the decode that continues a prefill, and training (K4's
-gradient K4′, the train step and the checkpointed loop) — and holds every
-hand-written kernel of those paths against its plain PyTorch version:
+configs, the decode that continues a prefill, training (K4's gradient
+K4′, the train step and the checkpointed loop), the examples, the mesh
+forms, and dense tensor parallelism over processes that share the card,
+with the dry run's count held against it — and holds every hand-written
+kernel of those paths against its plain PyTorch version:
 
 1. prints the card (``nvidia-smi``) and builds every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
@@ -253,7 +255,36 @@ hand-written kernel of those paths against its plain PyTorch version:
    ``ep`` and ``tp`` forms (``psum_late`` on and off) within 1e-2 of the
    output's rms of ``_moe_local`` (the share within 1e-4 of ``_moe_dense``
    printed); ``ef_allreduce`` over chatglm3's gradient leaves bit for bit
-   ``decompress(*compress(g, 0)[:2])``; each part's wall time printed.
+   ``decompress(*compress(g, 0)[:2])``; each part's wall time printed;
+21. SLICE 13, DENSE TENSOR PARALLELISM over processes that share the
+   card: 2 and then 4 processes (``chip_smoke.py --tp-worker``), a gloo
+   group each (its store on 127.0.0.1; gloo carries sums on CUDA
+   tensors, which is all the split forms need), a (1, tp) ``data ×
+   model`` mesh. chatglm3-6b at full width and depth in bf16, each rank
+   drawing the seeded weights in turn and keeping its shards in the
+   compute layout (``compute_shardings``): ``prefill(..., mesh=)`` at B =
+   2, T = 2048, counts zeroed just before and read just after (K4 28
+   launches a rank, all on the tensor-core kernel, on 16 and 8 local
+   heads), every K4 call held against its plain version on its own
+   inputs (``K4Checked``); rank 0 runs the meshless prefill of the whole
+   weights beside it: logits within ``PREFILL_LOGIT_TOL``, and each
+   block, fed the mesh run's input to it (``BlockLog``), within
+   ``PREFILL_BLOCK_TOL`` of the mesh run's output; then 4 ``decode_step``s
+   with ``mesh=`` against meshless within ``PREFILL_LOGIT_TOL``. At tp = 2
+   (2 KV heads: no rank cuts one) chatglm3-6b at ``MESH_LAYERS`` layers,
+   remat on: one ``make_train_step(mesh=)`` step (K4 2 and K4′ 3 launches
+   a layer, all on the tensor-core routes; rank 0's peak memory and, in
+   a traced warm step, its product device time), and on fresh shards the
+   loss within ``TRAIN_LOSS_RTOL`` and each leaf's reduced gradient
+   within ``TRAIN_GRAD_TOL`` of its rms of the meshless
+   ``loss_and_grads``. Prefill, decode and step times are printed beside
+   the meshless ones, labelled as processes sharing one card over gloo:
+   not a multi-card number;
+22. THE DRY RUN AGAINST THE CARD: ``launch/dryrun.py::count_train_step``
+   in a fresh process (a ``fake`` group of 2 ranks, ``meta`` tensors)
+   counts rank 0 of phase 21's train step; its predicted peak must lie
+   within 0.8–1.25× of rank 0's measured ``max_memory_allocated``, and its
+   counted flops are printed beside the measured product device time.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -317,7 +348,12 @@ K4_SHAPES = ((8, 16, 16, 32, 2, 128, True), (2, 2048, 2048, 32, 2, 128, True),
              (2, 2048, 2048, 16, 8, 256, True), (2, 416, 416, 6, 6, 64, True),
              (2, 416, 1500, 6, 6, 64, False),
              # slice 12: train_lm --params-100m --full-attention (B 8, T 256)
-             (8, 256, 256, 12, 4, 64, True))
+             (8, 256, 256, 12, 4, 64, True),
+             # slice 13: chatglm3-6b's heads on a rank of phase 21's model
+             # axis — tp = 2 (its 2 KV heads split, one a rank; the train
+             # step's LSE too) and tp = 4 (one whole KV head a rank)
+             (2, 2048, 2048, 16, 1, 128, True),
+             (2, 2048, 2048, 8, 1, 128, True))
 # K4 heads wider than the tensor-core tiles (route: the CUDA-core kernel's
 # Dh <= 512 tile, in both types)
 K4_WIDE_SHAPES = ((2, 77, 77, 8, 4, 320, True), (1, 40, 100, 4, 2, 320, False))
@@ -347,7 +383,9 @@ K4B_SHAPES = ((2, 2048, 2048, 32, 2, 128, True, "bfloat16"),
               (2, 333, 333, 4, 4, 320, True, "float32"),
               (1, 40, 100, 4, 2, 320, False, "float32"),
               # slice 12: train_lm --params-100m --full-attention
-              (8, 256, 256, 12, 4, 64, True, "float32"))
+              (8, 256, 256, 12, 4, 64, True, "float32"),
+              # slice 13: phase 21's tp = 2 train step on each rank
+              (2, 2048, 2048, 16, 1, 128, True, "bfloat16"))
 # K4′ against its plain version in float32 on the same inputs, element by
 # element: |out - ref| <= a |ref| + b rms(ref's row over Dh) + c rms(ref).
 # bfloat16 (a, b, c) = (2^-7, 2^-10, 2^-16): a is twice the outputs'
@@ -449,6 +487,9 @@ EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 300, 150
 # their first card run, PERF.md; it measured 0 and 0.0018)
 EXAMPLE_FIRST_TOL, EXAMPLE_LAST10_TOL = 1e-4, 0.05
 MESH_LAYERS, MESH_STEPS = 4, 2
+# phase 21: tensor parallelism over processes that share the card (a gloo
+# group each); the train part at the first size; a rank's join limit
+TP_SIZES, TP_DECODE_STEPS, TP_JOIN_S = (2, 4), 4, 600
 MOE_ARCH, MOE_OUT_TOL = "qwen3-moe-235b-a22b", 1e-2
 # the gradient check: 4 layers, K4 and K4′ against a twin whose attention is
 # K4's plain version with autograd, on the same card and batch. Each
@@ -2830,8 +2871,8 @@ def phase_decode_f32(dev, archs=SLICE9, n=DECODE_STEPS):
         calls = []
         attn_decode = MA.attn_decode
 
-        def seen(p, x, c, pos, cfg_, kind):
-            y, new = attn_decode(p, x, c, pos, cfg_, kind)
+        def seen(p, x, c, pos, cfg_, kind, *rest):
+            y, new = attn_decode(p, x, c, pos, cfg_, kind, *rest)
             calls.append((p, x, c, pos, kind, y, new))
             return y, new
         MA.attn_decode = seen
@@ -3580,6 +3621,446 @@ def phase_mesh(dev, card, b=TRAIN_B, t=TRAIN_T, cfg=None, moe_cfg=None,
         dist.destroy_process_group()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[mesh] phase 20: {out['phase_s']:.1f} s on {card}")
+    return out
+
+
+# ------------------------------------------------------------ phases 21-22
+
+def tp_shards(whole, mesh, cfg):
+    """This rank's parameters in the compute layout, cut from ``whole``
+    (fresh tensors)."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models import param_specs
+    from repro_torch.tree import tree_map
+    osh = S.compute_shardings(param_specs(cfg), mesh, cfg)
+    return tree_map(lambda t, sh: S.shard_of(t, sh).clone(), whole, osh), osh
+
+
+def tp_draw(dev, cfg, mesh, rank, world, keep: bool):
+    """Each rank in turn draws ``cfg``'s whole seeded parameters on the
+    card (``lm_model``) and cuts its shards, so that one whole copy exists
+    at a time; → (shards, their layout, the whole copy if ``keep``)."""
+    import torch
+    import torch.distributed as dist
+    whole = local = osh = None
+    for r in range(world):
+        if r == rank:
+            whole = lm_model(dev, cfg)
+            local, osh = tp_shards(whole, mesh, cfg)
+            if not keep:
+                whole = None
+                gc.collect()
+                torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        dist.barrier()
+    return local, osh, whole
+
+
+def tp_lockstep_ms(fn, reps: int = 1) -> float:
+    """The median ms of ``fn`` over ``reps`` runs (after a warm one), every
+    rank starting together (a barrier before each)."""
+    import torch
+    import torch.distributed as dist
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def tp_serving(dev, mesh, rank, world, b=PREFILL_B, t=PREFILL_T,
+               steps=TP_DECODE_STEPS):
+    """Phase 21's serving part on one rank: chatglm3-6b's prefill at (b, t)
+    and ``steps`` decode steps over the (1, world) mesh, every K4 call of
+    the prefill checked on its own inputs (``K4Checked``); rank 0 holds
+    the whole model too and runs the meshless prefill (free-running, and
+    block by block on the mesh run's block inputs, ``BlockLog``) and
+    decode beside it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, prefill
+    cfg = get_config(TRAIN_ARCH)
+    local, _, whole = tp_draw(dev, cfg, mesh, rank, world, keep=rank == 0)
+    batch = prefill_batch(dev, cfg, b, t)
+    cache_len = t + steps
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (steps, b), dtype=np.int32)).to(dev)
+
+    def run():
+        return prefill(local, batch, cfg, cache_len, mesh=mesh)
+    zero_counts()
+    with BlockLog() as blocks, K4Checked() as checked:
+        logits, cache = run()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    per_call = checked.held(f"tp={world} rank {rank} prefill")
+    out = dict(k4_launches=counts["K4"], k4_calls_checked=checked.calls,
+               k4_worst_share=per_call,
+               heads_local=cfg.n_heads // world)
+    from repro_torch.kernels.attn import attn as PA
+    if counts["K4"] != cfg.n_layers or checked.calls != cfg.n_layers \
+            or PA.FLASH_TC_KERNEL.launches != cfg.n_layers:
+        raise AssertionError(f"tp={world} rank {rank}: the prefill launched "
+                             f"K4 {counts['K4']} times ({checked.calls} "
+                             f"checked); {cfg.n_layers} on the tensor "
+                             "cores expected")
+    out["prefill_ms"] = tp_lockstep_ms(run)
+    dec = []
+    c = cache
+    for j in range(steps):
+        lg, c = decode_step(local, c, toks[j], t + j, cfg, mesh=mesh)
+        dec.append(lg)
+
+    def decode_run():
+        cc = cache
+        for j in range(steps):
+            _, cc = decode_step(local, cc, toks[j], t + j, cfg, mesh=mesh)
+    out["decode_ms_per_step"] = tp_lockstep_ms(decode_run) / steps
+    if rank == 0:
+        def meshless():
+            return prefill(whole, batch, cfg, cache_len)
+        plogits, pcache = meshless()
+        out["meshless_prefill_ms"] = sorted(
+            _timed(meshless) for _ in range(3))[1]
+        with BlockLog(force=blocks) as twin:
+            meshless()
+        out["block_max_diff"] = blocks.apart(twin)
+        del twin
+        out["logit_max_diff"] = (logits.float() - plogits.float()).abs() \
+            .max().item()
+        out["logit_abs_max"] = plogits.float().abs().max().item()
+        pdec, pc = [], pcache
+        for j in range(steps):
+            lg, pc = decode_step(whole, pc, toks[j], t + j, cfg)
+            pdec.append(lg)
+
+        def meshless_decode():
+            cc = pcache
+            for j in range(steps):
+                _, cc = decode_step(whole, cc, toks[j], t + j, cfg)
+        out["meshless_decode_ms_per_step"] = sorted(
+            _timed(meshless_decode) for _ in range(3))[1] / steps
+        out["decode_logit_max_diff"] = max(
+            (a.float() - p.float()).abs().max().item()
+            for a, p in zip(dec, pdec))
+        out["top1_equal"] = int((logits.argmax(-1)
+                                 == plogits.argmax(-1)).sum())
+        finite = all(torch.isfinite(x.float()).all() for x in dec + [logits])
+        if not finite or logits.shape != (b, cfg.vocab_size):
+            raise AssertionError("tp prefill logits are not finite of shape "
+                                 f"{(b, cfg.vocab_size)}")
+        for key, tol in (("logit_max_diff", PREFILL_LOGIT_TOL),
+                         ("decode_logit_max_diff", PREFILL_LOGIT_TOL),
+                         ("block_max_diff", PREFILL_BLOCK_TOL)):
+            if not out[key] <= tol:
+                raise AssertionError(f"tp={world}: {key} {out[key]:.4g} "
+                                     f"beyond {tol}")
+    del local, whole, cache, logits, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _timed(fn) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def tp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
+    """Phase 21's training part on one rank: chatglm3-6b at
+    ``MESH_LAYERS`` layers over the (1, world) mesh. One train step
+    (``make_train_step(mesh=)``; no ZeRO layout: gloo carries only sums on
+    CUDA tensors) on freshly cut shards, its peak memory (from the shards,
+    their moments and the batch), launches and ms; a traced warm step's
+    product time on rank 0; then on fresh shards of the same draw, the
+    loss and each leaf's reduced gradient (the split leaves' own, the
+    whole leaves' shares summed over ``model``) against the meshless
+    ``loss_and_grads``, and the meshless step's ms on rank 0."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as S
+    from repro_torch.training import OptConfig, make_train_step, opt_init
+    from repro_torch.training import optimizer as O
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_LAYERS,
+                              remat=True)
+    opt = OptConfig(warmup_steps=1)
+    local, osh, _ = tp_draw(dev, cfg, mesh, rank, world, keep=False)
+    state = opt_init(local)
+    batch = train_batch(dev, cfg, b, t)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    local, state, m = step(local, state, batch)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    counts = kernel_counts()
+    from repro_torch.kernels.attn import attn as PA
+    out = dict(layers=MESH_LAYERS, first_step_ms=first_ms,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               allocated_before_bytes=before, launches=counts,
+               k4b_tc_launches=PA.FLASH_BWD_TC_KERNEL.launches,
+               loss=float(m["loss"]))
+    if counts["K4"] != 2 * MESH_LAYERS \
+            or PA.FLASH_BWD_TC_KERNEL.launches != 3 * MESH_LAYERS \
+            or counts["K4′"] != 3 * MESH_LAYERS:
+        raise AssertionError(f"tp={world} rank {rank}: the train step "
+                             f"launched {counts}; K4 {2 * MESH_LAYERS} and "
+                             f"K4′ {3 * MESH_LAYERS} on its tensor-core "
+                             "route expected")
+    out["step_ms"] = tp_lockstep_ms(lambda: step(local, state, batch))
+    if rank == 0:
+        _, kern, _ = profile_call(lambda: step(local, state, batch),
+                                  f"tp={world} rank 0 train step",
+                                  warm=False)
+        out["product_device_ms"] = sum(
+            us for name, us in kern.items()
+            if any(k in name.lower() for k in ("gemm", "nvjet", "cutlass",
+                                               "flash"))) / 1e3
+        out["device_busy_ms"] = sum(kern.values()) / 1e3
+    else:
+        step(local, state, batch)
+    torch.cuda.synchronize()
+    dist.barrier()
+    del local, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gradient check, on fresh shards of the same draw
+    local, osh, whole = tp_draw(dev, cfg, mesh, rank, world, keep=True)
+    loss, shares = O._mesh_loss_and_grads(local, batch, cfg, mesh)
+    layouts = O._layouts(local, osh, osh)
+    reduced = [tuple(lay.reduce(u) for u in node)
+               if isinstance(node, tuple) else lay.reduce(node)
+               for (_, node, _), lay in zip(O._param_leaves(local, shares),
+                                             layouts)]
+    del shares
+    mloss, _, grads = O.loss_and_grads(whole, batch, cfg)
+    worst, worst_leaf = 0.0, None
+    for (name, sh), node, (_, w, stacked) in zip(
+            _named_leaves(osh), reduced, O._param_leaves(whole, grads)):
+        spec = S.NamedSharding(mesh, sh.spec[1:] if stacked else sh.spec)
+        for g, wu in (zip(node, w) if stacked else [(node, w)]):
+            want = S.shard_of(wu, spec)
+            d = (g.float() - want.float()).pow(2).mean().sqrt().item() \
+                / (leaf_rms(want) or 1.0)
+            if d > worst:
+                worst, worst_leaf = d, name
+    out.update(mesh_loss=float(loss), meshless_loss=float(mloss),
+               grad_worst_rms_share=worst, grad_worst_leaf=worst_leaf)
+    if not abs(out["mesh_loss"] - out["meshless_loss"]) \
+            <= TRAIN_LOSS_RTOL * abs(out["meshless_loss"]) \
+            or not worst <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"tp={world} rank {rank}: loss "
+                             f"{out['mesh_loss']} vs {out['meshless_loss']}"
+                             f", worst gradient leaf {worst_leaf} at "
+                             f"{worst:.4g} of its rms")
+    del local, reduced, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    dist.barrier()
+    if rank == 0:
+        pstate = opt_init(whole)
+        pstep = make_train_step(cfg, opt)
+        pstep(whole, pstate, batch)
+        out["meshless_step_ms"] = sorted(
+            _timed(lambda: pstep(whole, pstate, batch)) for _ in range(3))[1]
+        del pstate
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def tp_worker(argv) -> int:
+    """One rank of phase 21 (``chip_smoke.py --tp-worker WORLD RANK PORT
+    OUT PARTS``): a gloo group of WORLD processes on the one card, its
+    store on 127.0.0.1:PORT, a (1, WORLD) ``data × model`` mesh; runs the
+    PARTS (``serving``, ``train``) and writes its numbers to
+    ``OUT.rankRANK.json``."""
+    world, rank, port, out, parts = int(argv[0]), int(argv[1]), argv[2], \
+        argv[3], argv[4].split(",")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        res = {}
+        if "serving" in parts:
+            res["serving"] = tp_serving(dev, mesh, rank, world)
+        if "train" in parts:
+            res["train"] = tp_train(dev, mesh, rank, world)
+        with open(f"{out}.rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_tp(dev, card, sizes=TP_SIZES):
+    """Phase 21 (docstring item 21): for each ``world`` of ``sizes``, that
+    many processes share the card over a gloo group (``tp_worker``); the
+    train part at the first. Returns {world: [each rank's numbers]}."""
+    import socket
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "tp_phase")
+    os.makedirs(out_dir, exist_ok=True)
+    results = {}
+    for i, world in enumerate(sizes):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        parts = "serving,train" if i == 0 else "serving"
+        out = os.path.join(out_dir, f"tp{world}")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-worker",
+             str(world), str(r), str(port), out, parts],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        try:
+            logs = [p.communicate(timeout=TP_JOIN_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            for line in text.splitlines():
+                log(f"[tp={world} r{r}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"tp={world}: rank {r} failed "
+                                     f"(exit {p.returncode})")
+        ranks = []
+        for r in range(world):
+            with open(f"{out}.rank{r}.json") as f:
+                ranks.append(json.load(f))
+        results[world] = ranks
+        sv = ranks[0]["serving"]
+        log(f"[tp] chatglm3-6b over tp={world} processes sharing one card "
+            f"over gloo ({card}; not a multi-card number): prefill B = "
+            f"{PREFILL_B}, T = {PREFILL_T} {sv['prefill_ms']:.1f} ms a rank "
+            f"in lockstep against {sv['meshless_prefill_ms']:.1f} meshless; "
+            f"{sv['heads_local']} heads a rank, K4 {sv['k4_launches']} "
+            f"launches a rank, every call within {max(x['serving']['k4_worst_share'] for x in ranks):.3f} "
+            f"of its tolerance; logits max abs diff to meshless "
+            f"{sv['logit_max_diff']:.4g} (|logits| max "
+            f"{sv['logit_abs_max']:.3g}), block outputs on the same inputs "
+            f"{sv['block_max_diff']:.4g} of their row's rms, top-1 equal in "
+            f"{sv['top1_equal']} of {PREFILL_B}; {TP_DECODE_STEPS} decode "
+            f"steps {sv['decode_ms_per_step']:.1f} ms a step against "
+            f"{sv['meshless_decode_ms_per_step']:.1f} meshless, logits max "
+            f"abs diff {sv['decode_logit_max_diff']:.4g}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if "train" in ranks[0]:
+            tr = ranks[0]["train"]
+            log(f"[tp] chatglm3-6b at {tr['layers']} layers, B = {TRAIN_B}, "
+                f"T = {TRAIN_T}, tp={world} (processes sharing one card over "
+                f"gloo): a train step {tr['step_ms']:.1f} ms (first "
+                f"{tr['first_step_ms']:.1f}) against "
+                f"{tr['meshless_step_ms']:.1f} meshless; launches "
+                f"{tr['launches']} a rank (K4′ all on its tensor-core "
+                f"route); loss {tr['mesh_loss']:.6f} against meshless "
+                f"{tr['meshless_loss']:.6f}; worst gradient leaf "
+                f"{tr['grad_worst_leaf']} at {tr['grad_worst_rms_share']:.4g} "
+                f"of its rms; rank 0 peak {tr['peak_bytes'] / 2**30:.3f} GiB "
+                f"({tr['allocated_before_bytes'] / 2**30:.3f} before the "
+                f"step), product device time {tr['product_device_ms']:.1f} "
+                f"ms of {tr['device_busy_ms']:.1f} busy")
+    results["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tp] phase 21: {results['phase_s']:.1f} s on {card}")
+    return results
+
+
+DRYRUN_CHECK = """
+import json, sys, dataclasses
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_test_mesh
+world, layers, b, t = (int(x) for x in sys.argv[2:6])
+dryrun.start_fake_group(world)
+mesh = make_test_mesh(1, world, device_type="cpu")
+cfg = dataclasses.replace(get_config(sys.argv[6]), n_layers=layers,
+                          remat=True)
+c = dryrun.count_train_step(cfg, mesh, b, t)
+print(json.dumps(dict(peak_bytes=c.peak_bytes, flops=c.flops,
+                      argument_bytes=c.argument_bytes,
+                      product_bytes=c.product_bytes,
+                      collective_bytes=c.collective_bytes,
+                      collective_counts=c.collective_counts)))
+"""
+
+
+def phase_dryrun(card, tp):
+    """Phase 22 (docstring item 22): the dry run's count of the step phase
+    21 trained (rank 0 of tp = the first size, ``MESH_LAYERS`` layers) on a
+    ``fake`` group of that many ranks, against rank 0's measured peak
+    memory and product time."""
+    world = TP_SIZES[0]
+    tr = tp[world][0]["train"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", DRYRUN_CHECK, os.path.join(ROOT, "src"),
+         str(world), str(MESH_LAYERS), str(TRAIN_B), str(TRAIN_T),
+         TRAIN_ARCH], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry run's count failed: "
+                             f"{proc.stderr[-3000:]}")
+    pred = json.loads(proc.stdout.strip().splitlines()[-1])
+    ratio = tr["peak_bytes"] / pred["peak_bytes"]
+    rate = pred["flops"] / (tr["product_device_ms"] * 1e-3) \
+        if tr["product_device_ms"] else 0.0
+    out = dict(predicted=pred, measured_peak_bytes=tr["peak_bytes"],
+               measured_before_bytes=tr["allocated_before_bytes"],
+               measured_product_ms=tr["product_device_ms"],
+               peak_ratio=ratio, counted_flops_per_product_s=rate,
+               s=time.perf_counter() - t0)
+    log(f"[dryrun] phase 22: the dry run's count of rank 0's tp={world} "
+        f"train step ({TRAIN_ARCH}, {MESH_LAYERS} layers, B = {TRAIN_B}, "
+        f"T = {TRAIN_T}; meta tensors on a fake group of {world}): peak "
+        f"{pred['peak_bytes'] / 2**30:.3f} GiB (arguments "
+        f"{pred['argument_bytes'] / 2**30:.3f}), {pred['flops'] / 1e12:.3f} "
+        f"TFLOP of products, collectives {pred['collective_counts']}; "
+        f"measured on {card}: peak {tr['peak_bytes'] / 2**30:.3f} GiB "
+        f"({ratio:.3f}x the prediction; {tr['allocated_before_bytes'] / 2**30:.3f} "
+        f"allocated before the step), product device time "
+        f"{tr['product_device_ms']:.1f} ms ({rate / 1e12:.1f} TFLOP/s of "
+        f"the counted flops); {out['s']:.1f} s")
+    if not 0.8 <= ratio <= 1.25:
+        raise AssertionError(f"the measured peak is {ratio:.3f}x the dry "
+                             "run's prediction, outside 0.8-1.25")
     return out
 
 
@@ -4491,11 +4972,32 @@ def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
             f"the same, the LSE within {lse_err:.3g} of the plain LSE (bound "
             f"{K4_LSE_TOL})")
         row.update({f"{pre}lse_ms": lse_ms, f"{pre}lse_max_abs_err": lse_err})
+        # what the dry run's operator would cost the card, which skips it:
+        # the entry (autograd Function, then the direct launch), the
+        # operator (``torch.library`` dispatch, then the same launch) and
+        # the direct launch, in one alternation; at the small shapes, each
+        # one's host time a call too
+        paths = {"entry": lambda: tc(q, k, v, causal=causal),
+                 "op": lambda: PA._fwd_op(q, k, v, causal, False),
+                 "launch": lambda: PA.launch("tensor_cores", q, k, v,
+                                             causal=causal)}
+        alt = alternating_ms(paths, iters=iters)
+        host = host_us(paths, iters=500) if iters > 20 else None
+        log(f"[time] K4 {what} {shape}: per call, in one alternation, "
+            f"entry {alt['entry'] * 1e3:.2f} us, operator "
+            f"{alt['op'] * 1e3:.2f} us, direct launch "
+            f"{alt['launch'] * 1e3:.2f} us (operator - launch "
+            f"{(alt['op'] - alt['launch']) * 1e3:.2f} us)"
+            + ("" if host is None else f"; host us a call: "
+               f"{fmt_steps(host)}"))
+        row.update({f"{pre}dispatch_ms": alt, f"{pre}dispatch_host_us": host})
         del q, k, v, qt, kt, vt, qf, kf, vf
     return row
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--tp-worker"]:
+        return tp_worker(sys.argv[2:])
     try:
         import numpy as np  # noqa: F401
         import torch
@@ -4580,6 +5082,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     examples = phase_examples(dev, card)
     mesh = phase_mesh(dev, card)
+    tp = phase_tp(dev, card)
+    dry = phase_dryrun(card, tp)
     k1 = time_k1(dev, serve_stack, metro_stack, launches, k1_err)
     k1["launches_eval"] = eval_launches["pg_solve"]
     k1["tick"] = launches["tick"]
@@ -4641,6 +5145,17 @@ def main() -> int:
     k4b["launches_mesh_step"] = mesh["train_step"]["steps"][-1][
         "launches"]["K4′"]
     k4b["slice12"] = dict(examples=examples, mesh=mesh)
+    # slice 13's launches: phase 21's prefills (a rank) and train step
+    k4["launches_tp"] = {
+        f"tp{w}": {"prefill_per_rank": tp[w][0]["serving"]["k4_launches"],
+                   **({"train_step_per_rank":
+                       tp[w][0]["train"]["launches"]["K4"]}
+                      if "train" in tp[w][0] else {})}
+        for w in TP_SIZES}
+    k4b["launches_tp"] = {
+        f"tp{w}": {"train_step_per_rank": tp[w][0]["train"]["k4b_tc_launches"]}
+        for w in TP_SIZES if "train" in tp[w][0]}
+    k4b["slice13"] = dict(tp=tp, dryrun=dry)
     kernels = [k1, k2, k3, k4, k4b, k4b_core]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

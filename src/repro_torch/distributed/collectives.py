@@ -11,6 +11,21 @@ the gradient. Under this rule a leaf held whole on several ranks gets,
 on each, its share of the gradient, and the train step sums the shares
 over those ranks (``training/optimizer.py``).
 
+Dense tensor parallelism (``models/``, ``distributed/sharding.py::
+tp_plan``) follows the same rule, so its split forms need one collective
+each, at their exit, and none at their entry. A split region (a
+column-parallel projection, then a row-parallel one) starts from an input
+held whole on every rank and ends in :func:`tp_exit`, the sum of the
+ranks' partial outputs, whose backward sums their gradient shares: below
+it every rank holds the whole gradient of its own slice (its split leaves
+need no further sum over ``model``), and the gradient it hands its whole
+input is its slice's contribution, which the shares above add to the
+right total. Megatron's pair (an identity whose backward sums at the
+entry, a sum whose backward is the identity at the exit) assumes instead
+that a whole tensor's gradient is the same on every rank; mixed with the
+share rule it would count the region's input gradient ``n`` times and
+its split leaves' ``1/n`` times.
+
 They are written here, not taken from ``torch.distributed.nn.functional``:
 that module is deprecated (each call warns, pointing to the private
 ``torch.distributed._functional_collectives``), its one-tensor gather
@@ -27,7 +42,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather", "all_reduce", "all_to_all", "axis_index",
-           "axis_size", "reduce_scatter", "sum_over"]
+           "axis_size", "max_over", "reduce_scatter", "sum_over",
+           "tp_exit"]
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -135,4 +151,22 @@ def sum_over(t, mesh, axes):
     t = t.clone(memory_format=torch.contiguous_format)
     for ax in axes:
         dist.all_reduce(t, group=mesh.get_group(ax))
+    return t
+
+
+def tp_exit(x, mesh, axis: str = "model"):
+    """The exit of a split region: the ranks' partial outputs ``x`` summed
+    over mesh axis ``axis`` in float32 and rounded once to ``x``'s type
+    (a bf16 sum would round at every step of the reduction, a rounding
+    the meshless product does not have); its backward sums the gradient
+    shares, as :func:`all_reduce`'s."""
+    return all_reduce(x.float(), mesh, axis).to(x.dtype)
+
+
+def max_over(t, mesh, axis: str = "model"):
+    """The element-wise max of ``t`` over mesh axis ``axis`` (a new
+    tensor); no autograd: a shift that cancels in what it feeds (the
+    vocab-parallel log-sum-exp's) carries no gradient."""
+    t = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(axis))
     return t

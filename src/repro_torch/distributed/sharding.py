@@ -26,11 +26,11 @@ import math
 import re
 import threading
 
-__all__ = ["DEFAULT_RULES", "MeshShape", "NamedSharding", "axis_rules",
-           "batch_axes", "block", "compute_shardings", "constrain",
-           "current_mesh", "logical_to_spec", "mesh_shape",
+__all__ = ["DEFAULT_RULES", "MeshShape", "NamedSharding", "TPPlan",
+           "axis_rules", "batch_axes", "block", "compute_shardings",
+           "constrain", "current_mesh", "logical_to_spec", "mesh_shape",
            "named_sharding_for", "param_shardings", "shard_of", "spec_axes",
-           "to_placements"]
+           "to_placements", "tp_plan"]
 
 _state = threading.local()
 
@@ -317,21 +317,139 @@ def param_shardings(params, mesh, cfg=None, rules: dict | None = None,
     return _map_with_path(one, params)
 
 
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """What one rank of the ``model`` axis computes under dense tensor
+    parallelism (:func:`tp_plan`): the axis's size ``n`` and the rank's
+    coordinate ``rank`` on it, and which parts of the model split over it.
+
+    * ``attn``: the query heads split, ``heads`` of them a rank (the rank's
+      ``rank · heads`` onwards); ``kv_split``: the K/V projections split
+      too, ``kv_heads`` a rank; otherwise each rank computes the one KV head
+      its query heads read (``kv_heads`` = 1, global index ``kv_first``)
+      from the whole ``wk`` and ``wv``, and its cache holds only that head.
+      When ``attn`` is off, attention is whole on every rank (``heads``
+      and ``kv_heads`` are the config's).
+    * ``ff``: the dense FFN's hidden dimension (and RWKV's channel mix);
+      ``rnn``: the RG-LRU's width; ``rwkv``: RWKV-6's time-mix heads;
+      ``vocab``: the embedding's rows and the head's columns.
+
+    ``mesh`` is the ``DeviceMesh`` whose ``model`` axis the split forms'
+    collectives run over.
+    """
+
+    n: int
+    rank: int
+    attn: bool
+    heads: int
+    kv_split: bool
+    kv_heads: int
+    kv_first: int
+    ff: bool
+    rnn: bool
+    rwkv: bool
+    vocab: bool
+    mesh: object = dataclasses.field(default=None, compare=False,
+                                     repr=False)
+
+    def part(self, size: int) -> slice:
+        """This rank's block of a dimension of ``size`` split over the
+        ``n`` ranks."""
+        k = size // self.n
+        return slice(self.rank * k, (self.rank + 1) * k)
+
+
+def _tp_numbers(cfg, n: int, rank: int) -> TPPlan:
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    attn = n > 1 and hq % n == 0 and (hkv % n == 0 or n % hkv == 0)
+    kv_split = attn and hkv % n == 0
+    if kv_split:
+        kv_heads, kv_first = hkv // n, rank * (hkv // n)
+    elif attn:
+        kv_heads, kv_first = 1, rank // (n // hkv)
+    else:
+        kv_heads, kv_first = hkv, 0
+    d_rnn = cfg.d_rnn or cfg.d_model
+    return TPPlan(
+        n=n, rank=rank, attn=attn, heads=hq // n if attn else hq,
+        kv_split=kv_split, kv_heads=kv_heads, kv_first=kv_first,
+        ff=n > 1 and cfg.d_ff % n == 0, rnn=n > 1 and d_rnn % n == 0,
+        rwkv=n > 1 and (cfg.d_model // cfg.rwkv_head_dim) % n == 0,
+        vocab=n > 1 and cfg.vocab_size % n == 0)
+
+
+def tp_plan(cfg, mesh, rank: int | None = None):
+    """The :class:`TPPlan` of ``cfg`` on ``mesh``'s ``model`` axis for this
+    rank (or for coordinate ``rank`` on that axis), or None where the mesh
+    has no such axis or it has one rank: the meshless code runs then."""
+    if mesh is None:
+        return None
+    n = mesh_shape(mesh).get("model", 1)
+    if n == 1:
+        return None
+    if rank is None:
+        rank = mesh.get_local_rank("model")
+    return dataclasses.replace(_tp_numbers(cfg, n, rank), mesh=mesh)
+
+
+# leaf name (the path's last parts) → the plan's flag that splits it
+_TP_LEAVES = (
+    (r"(^|/)embed$", "vocab"), (r"lm_head$", "vocab"),
+    (r"(^|/)(wq|wo)$", "attn"), (r"(^|/)(wk|wv)$", "kv_split"),
+    (r"time/(w_r|w_k|w_v|w_g|w_o)$", "rwkv"),
+    (r"channel/(w_k|w_v)$", "ff"),
+    (r"(^|/)(w_gate|w_up|w_down)$", "ff"),
+    (r"(^|/)(w_x|w_y)$", "rnn"), (r"rec/w_o$", "rnn"),
+)
+
+
+def _tp_split(name: str, plan) -> bool:
+    if plan is None:
+        return False
+    for pat, flag in _TP_LEAVES:
+        if re.search(pat, name):
+            return getattr(plan, flag)
+    return False
+
+
 def compute_shardings(params, mesh, cfg, moe_impl: str | None = None):
-    """The layout the port's mesh train step computes in: each MoE expert
-    stack split over the ``model`` axis as ``moe_apply``'s ``ep`` (experts)
-    or ``tp`` (the FFN hidden dim) form splits it, every other leaf whole
-    on every rank. Dense tensor parallelism is not ported, so the model
-    axis carries only the MoE forms; the spec is
-    :func:`param_shardings`' with every other entry dropped."""
+    """The layout the port's mesh step, prefill and decode compute in: a
+    leaf takes the ``model`` entry of the reference's
+    :func:`param_shardings` spec where the port's split form computes in
+    that split, and is whole on ``model`` otherwise; every other entry is
+    dropped (data parallelism keeps every leaf whole on the data axes).
+
+    * MoE expert stacks split as ``moe_apply``'s ``ep`` (experts) or ``tp``
+      (the FFN hidden dim) form splits them; the router stays whole.
+    * Dense leaves split as :func:`tp_plan` says: ``wq``/``wo`` when the
+      query heads divide the axis and each rank's heads read whole KV
+      heads (the axis divides ``n_kv_heads``, or ``n_kv_heads`` divides
+      the axis: one KV head a rank); ``wk``/``wv`` only when the axis
+      divides ``n_kv_heads``; the FFN, RG-LRU and RWKV projections when
+      ``d_ff``, ``d_rnn`` and the RWKV heads divide it; the embedding's rows
+      and the head's columns when the vocabulary does.
+
+    The reference's spec also splits columns that cut a head in pieces
+    (whisper's ``wq`` over 16 ranks, granite's one KV head): GSPMD
+    reshuffles those, local attention cannot use them, so they stay whole
+    here and the ZeRO layout (``param_shardings(..., extra_batch_dim=True)``)
+    alone splits them. Leaves that are whole in the spec but per channel or
+    per head (conv weights, gates, RWKV's ``u``, decays and group-norm
+    scale) stay whole: each rank computes with its slice of them."""
     impl = moe_impl or (cfg.moe_impl if cfg is not None else "dense")
     if cfg is not None and cfg.is_moe and impl != cfg.moe_impl:
         cfg = dataclasses.replace(cfg, moe_impl=impl)
     specs = param_shardings(params, mesh, cfg)
+    n = mesh_shape(mesh).get("model", 1)
+    plan = _tp_numbers(cfg, n, 0) if cfg is not None and n > 1 else None
 
     def one(name, leaf):
         spec = _get(specs, name)
-        if impl == "dense" or not _is_expert(name, leaf, cfg):
+        if _is_expert(name, leaf, cfg):
+            keep = impl != "dense"
+        else:
+            keep = _tp_split(name, plan)
+        if not keep:
             return NamedSharding(mesh, (None,) * leaf.ndim)
         return NamedSharding(mesh, tuple(
             e if "model" in spec_axes(e) else None for e in spec.spec))

@@ -38,6 +38,22 @@ Each makes a launch a pass (``BWD_PASSES``: 3 and 4), counted in
 training attention is the jnp chunked flash attention, differentiated by
 recompute (``src/repro/models/attention.py:79-174``). On the card
 ``Dh > 512`` raises: no kernel has a tile for it.
+
+A real CUDA tensor calls :func:`launch` and :func:`bwd_launch` as
+routed. A ``meta`` tensor, or a fake CUDA tensor under
+``FakeTensorMode``, goes through operators registered with
+``torch.library.custom_op`` (``repro_torch::flash_attn_fwd`` and
+``repro_torch::flash_attn_bwd``; their CUDA implementation is the same
+routed launch), whose fake implementations return tensors of the right
+shapes and launch nothing, so the dry run (``launch/dryrun.py``) traces a
+step through K4 and K4′ without a card and without the plain version's
+(T × T) scores. The card skips the operators' dispatch, which costs 20–40
+µs of host time a call (``chip_smoke.py`` phase 10). Their flop formulas
+(``torch.utils.flop_counter``) count the products as the reference's
+attention computes them, causal or not: every query against every key
+(its chunked attention masks the causal half, it does not skip it), 2
+products of 2·B·Hq·Tq·Tk·Dh flops forward and 5 backward (S recomputed,
+dV, dP, dQ, dK).
 """
 
 from __future__ import annotations
@@ -45,6 +61,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from .._build import CudaKernel, current_stream
 
@@ -54,7 +71,8 @@ __all__ = ["BWD_PASSES", "BWD_TC_MAX_HEAD_DIM", "FLASH_BWD_CORE_KERNEL",
            "MAX_HEAD_DIM", "NEG", "TC_MAX_HEAD_DIM", "bwd_groups",
            "bwd_launch", "bwd_route", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_attention_fwd",
-           "flash_attention_fwd_ref", "launch", "route", "tc_head_width"]
+           "flash_attention_fwd_ref", "launch", "route", "scratch_bytes",
+           "tc_head_width"]
 
 NEG = -1e30
 
@@ -254,12 +272,94 @@ def flash_attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
     return dq.reshape(b, tq, hq, dh), dk, dv
 
 
+@torch.library.custom_op("repro_torch::flash_attn_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 as an operator: the routed kernel's output and, with
+    ``with_lse``, its log-sum-exp (else an empty float32 tensor)."""
+    got = launch(route(q.dtype, q.shape[-1]), q, k, v, causal=causal,
+                 with_lse=with_lse)
+    if with_lse:
+        return got
+    return got, torch.empty((0,), dtype=torch.float32, device=q.device)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, with_lse):
+    b, tq, hq, _ = q.shape
+    lse = q.new_empty((b, hq, tq) if with_lse else (0,),
+                      dtype=torch.float32)
+    return torch.empty_like(q), lse
+
+
+@torch.library.custom_op("repro_torch::flash_attn_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor | None,
+            causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4′ as an operator: the routed kernel's (dq, dk, dv)."""
+    return bwd_launch(bwd_route(q.dtype, q.shape[-1]), q, k, v, out, dout,
+                      causal=causal, lse=lse)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, out, dout, lse, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def scratch_bytes(op: str, q, k, *rest) -> int:
+    """The device bytes the kernel behind operator ``op``
+    (``"flash_attn_fwd"`` or ``"flash_attn_bwd"``, given its arguments)
+    allocates for its own use beyond its outputs: K4′'s float32 partials
+    of dK and dV, D, and the CUDA-core route's row LSE when none is given.
+    The dry run adds them at the call (``launch/cost.py``)."""
+    if op != "flash_attn_bwd":
+        return 0
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    lse = rest[3]
+    rows = b * hq * tq * 4
+    if bwd_route(q.dtype, dh) == "tensor_cores":
+        return 2 * bwd_groups(hq // hkv) * b * tk * hkv * dh * 4 + rows
+    return 2 * b * tk * hq * dh * 4 + rows * (2 if lse is None else 1)
+
+
+def _products(q_shape, k_shape) -> int:
+    """2·B·Hq·Tq·Tk·Dh: the flops of one of attention's products."""
+    b, tq, hq, dh = q_shape
+    return 2 * b * hq * tq * k_shape[1] * dh
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attn_fwd)
+    def _(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+        return 2 * _products(q_shape, k_shape)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attn_bwd)
+    def _(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+        return 5 * _products(q_shape, k_shape)
+
+
+_register_flops()
+
+
+def _on_card(t) -> bool:
+    """A real CUDA tensor (not ``meta``, not fake): the kernels launch."""
+    return t.device.type == "cuda" and not is_fake(t)
+
+
 def _forward(q, k, v, causal: bool, with_lse: bool = False):
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal=causal,
                                        with_lse=with_lse)
-    return launch(route(q.dtype, q.shape[-1]), q, k, v, causal=causal,
-                  with_lse=with_lse)
+    if _on_card(q):
+        return launch(route(q.dtype, q.shape[-1]), q, k, v, causal=causal,
+                      with_lse=with_lse)
+    out, lse = _fwd_op(q, k, v, causal, with_lse)
+    return (out, lse) if with_lse else out
 
 
 class FlashAttention(torch.autograd.Function):
@@ -310,7 +410,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     decode and other calls without a backward launch K4 with no LSE.
     """
     _check(q, k, v)
-    with_lse = q.device.type == "cuda" and torch.is_grad_enabled() \
+    with_lse = q.device.type != "cpu" and torch.is_grad_enabled() \
         and any(t.requires_grad for t in (q, k, v)) \
         and bwd_route(q.dtype, q.shape[-1]) == "tensor_cores"
     return FlashAttention.apply(q, k, v, causal, with_lse)
@@ -339,15 +439,25 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
     A CUDA tensor launches the kernel :func:`bwd_route` names
     (:func:`bwd_launch`): the tensor-core route requires ``lse`` and raises
     without it (it never recomputes the LSE); the CUDA-core route uses it
-    when given and recomputes it in its first pass when not. A CPU tensor
+    when given and recomputes it in its first pass when not. A ``meta``
+    tensor (or a fake one) takes the operator's fake implementation under
+    the same precondition, and launches nothing. A CPU tensor
     computes :func:`flash_attention_bwd_ref` (with ``lse`` when given) and
     casts it to q's type (float64 too, for ``torch.autograd.gradcheck``)."""
     _check_bwd(q, k, v, out, dout, lse)
     if q.device.type == "cpu":
         return tuple(t.to(q.dtype) for t in flash_attention_bwd_ref(
             q, k, v, out, dout, causal=causal, lse=lse))
-    return bwd_launch(bwd_route(q.dtype, q.shape[-1]), q, k, v, out, dout,
-                      causal=causal, lse=lse)
+    kernel = bwd_route(q.dtype, q.shape[-1])
+    if lse is None and kernel == "tensor_cores":
+        raise ValueError(_NEEDS_LSE)
+    if _on_card(q):
+        return bwd_launch(kernel, q, k, v, out, dout, causal=causal, lse=lse)
+    return _bwd_op(q, k, v, out, dout, lse, causal)
+
+
+_NEEDS_LSE = ("K4′'s tensor-core route needs the forward's log-sum-exp "
+              "(lse=, from launch(..., with_lse=True))")
 
 
 def bwd_launch(kernel: str, q, k, v, out, dout, *, causal: bool = True,
@@ -368,9 +478,7 @@ def bwd_launch(kernel: str, q, k, v, out, dout, *, causal: bool = True,
             raise ValueError(f"{q.dtype} at Dh={dh} is not a tensor-core "
                              "input of K4′")
         if lse is None:
-            raise ValueError("K4′'s tensor-core route needs the forward's "
-                             "log-sum-exp (lse=, from launch(..., "
-                             "with_lse=True))")
+            raise ValueError(_NEEDS_LSE)
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"Dh={dh} > {MAX_HEAD_DIM}: K4′ has no tile for it")
     if q.device.type != "cuda":

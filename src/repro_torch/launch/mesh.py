@@ -1,14 +1,25 @@
-"""Port of ``src/repro/launch/mesh.py``: the 1-D "cells" mesh of the
-metro-scale sharded solve (``make_cells_mesh``).
+"""Port of ``src/repro/launch/mesh.py``: the production and test meshes of
+the LM stack, the H100's roofline constants, and the 1-D "cells" mesh of
+the metro-scale sharded solve.
 
-A shard is a block of batch rows on one device. In the reference a mesh
-axis names distinct devices, and its tests get eight of them by faking host
-devices; here a :class:`CellsMesh` is a plain list of per-shard devices in
-which a device may repeat, so the CPU and a single card run 1, 3 or 8
-shards as well, and with several cards the same code places one shard per
-card. Only ``make_cells_mesh`` is ported: ``make_production_mesh`` and
-``make_test_mesh`` build the reference's (data, model) training meshes, and
-``HW`` holds TPU roofline constants, which the port does not carry.
+``make_production_mesh`` is (data 16, model 16), 256 ranks, or (pod 2,
+data 16, model 16), 512 ranks, the reference's shapes, so that every
+dry-run cell's layout is spec for spec the reference's;
+``make_test_mesh`` is a small (data, model) mesh. Both are a
+``torch.distributed.device_mesh.DeviceMesh`` over the default process
+group, which the caller starts with as many ranks (a ``fake`` group for
+the dry run, ``launch/dryrun.py``). They are functions, so importing this
+module starts nothing.
+
+:class:`HW` holds the per-card constants of the roofline terms for an
+NVIDIA H100 80GB HBM3 at 700 W, named with the card.
+
+For the metro solve a shard is a block of batch rows on one device. In the
+reference a mesh axis names distinct devices, and its tests get eight of
+them by faking host devices; here a :class:`CellsMesh` is a plain list of
+per-shard devices in which a device may repeat, so the CPU and a single
+card run 1, 3 or 8 shards as well, and with several cards the same code
+places one shard per card.
 """
 
 from __future__ import annotations
@@ -19,7 +30,57 @@ import torch
 
 from ..kernels import resolve_device
 
-__all__ = ["CellsMesh", "make_cells_mesh"]
+__all__ = ["CellsMesh", "HW", "make_cells_mesh", "make_production_mesh",
+           "make_test_mesh"]
+
+
+def _device_mesh(shape, names, device_type):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def make_production_mesh(*, device_type: str, multi_pod: bool = False):
+    """Reference ``make_production_mesh`` (mesh.py:20): (data 16, model 16)
+    or, with ``multi_pod``, (pod 2, data 16, model 16) over the default
+    process group of 256 or 512 ranks; the ``pod`` axis is pure data
+    parallelism. ``device_type`` is the group's (``cpu`` for the dry run:
+    its tensors are ``meta``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(shape, names, device_type)
+
+
+def make_test_mesh(n_data: int = 2, n_model: int = 4, *, device_type: str):
+    """Reference ``make_test_mesh`` (mesh.py:26): a small (data, model)
+    mesh over a default group of ``n_data · n_model`` ranks."""
+    return _device_mesh((n_data, n_model), ("data", "model"), device_type)
+
+
+class HW:
+    """Roofline constants of one NVIDIA H100 80GB HBM3 (SXM5, 700 W).
+
+    Datasheet figures: the dense bf16 tensor-core peak (989 TFLOP/s, no
+    sparsity) and float32's (67 TFLOP/s), the HBM3 rate (3.35 TB/s), NVLink
+    4's 450 GB/s a direction (900 GB/s both ways) within a node of eight,
+    and the 400 Gb/s (50 GB/s) NDR InfiniBand port a GPU has between
+    nodes. ``HBM_BYTES`` is the memory the card reports
+    (``torch.cuda.get_device_properties(0).total_memory``, 79.18 GiB),
+    read on an H100 80GB HBM3.
+
+    The collective term divides a step's collective operand bytes by
+    ``COLLECTIVE_BW``, the InfiniBand port's rate: the production mesh's
+    model axis of 16 spans two 8-GPU NVLink domains, and its data axis
+    spans nodes, so every ring of either crosses a NIC.
+    """
+
+    CARD = "NVIDIA H100 80GB HBM3, 700 W"
+    PEAK_FLOPS_BF16 = 989e12
+    PEAK_FLOPS_F32 = 67e12
+    HBM_BW = 3.35e12
+    NVLINK_BW = 450e9
+    IB_BW = 50e9
+    COLLECTIVE_BW = IB_BW
+    HBM_BYTES = 85_017_493_504
 
 
 @dataclasses.dataclass(frozen=True)

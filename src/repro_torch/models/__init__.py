@@ -5,8 +5,8 @@ and the encoder-decoder with cross-attention."""
 
 from .common import ModelConfig, TensorSpec
 from .model import (cache_specs, decode_step, forward_train, init_cache,
-                    init_params, loss_fn, param_specs, prefill)
+                    init_params, loss_fn, loss_sums, param_specs, prefill)
 
 __all__ = ["ModelConfig", "TensorSpec", "cache_specs", "decode_step",
            "forward_train", "init_cache", "init_params", "loss_fn",
-           "param_specs", "prefill"]
+           "loss_sums", "param_specs", "prefill"]

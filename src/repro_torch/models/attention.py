@@ -22,6 +22,18 @@ leaves the caller's unchanged, as the reference's functional update does.
 The training forward's backward is autograd, through K4's gradient K4′
 (``kernels/attn/attn.py::FlashAttention``) on the full-attention route
 and PyTorch's own on the plain paths.
+
+Under dense tensor parallelism (a ``TPPlan`` ``tp`` whose ``attn`` is
+set, ``distributed/sharding.py::tp_plan``) each rank computes its own
+query heads: ``wq`` is its block of columns and ``wo`` its block of rows,
+and the partial outputs of ``wo`` are summed over ``model``
+(``collectives.tp_exit``). Where the K/V projections split too, ``wk`` and
+``wv`` are the rank's blocks; where they do not (fewer KV heads than
+ranks), the rank's query heads all read one KV head, and the rank computes
+that head's columns alone from the whole ``wk`` and ``wv``. Every shape
+here is read from the tensors, so K4 and K4′ run on the rank's (B, T,
+heads, Dh) and (B, T, KV heads, Dh) as they are, and the cache holds the
+rank's KV heads.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import tp_exit
 from ..kernels.attn import attn as attn_kernel
 from .common import TensorSpec
 from .layers import apply_rotary, dense_init, rms_norm, rotary_cos_sin
@@ -60,12 +73,29 @@ def attn_init(generator, cfg, *, cross: bool = False, dtype=torch.float32,
     return p
 
 
-def _project(params, x, cfg, positions, *, rope: bool = True):
+def _kv_weight(w, cfg, tp):
+    """``wk`` or ``wv`` as this rank computes with it: the whole leaf, its
+    block (the plan splits the KV heads), or the columns of the one KV head
+    its query heads read."""
+    if tp is None or not tp.attn or tp.kv_split:
+        return w
+    dh = cfg.d_head
+    return w[:, tp.kv_first * dh:(tp.kv_first + tp.kv_heads) * dh]
+
+
+def _out(o, params, tp):
+    """``o`` (B, T, heads, Dh) through ``wo``, summed over ``model`` when
+    the heads are split."""
+    y = o.reshape(o.shape[0], o.shape[1], -1) @ params["wo"]
+    return tp_exit(y, tp.mesh) if tp is not None and tp.attn else y
+
+
+def _project(params, x, cfg, positions, *, rope: bool = True, tp=None):
     b, t, _ = x.shape
     dh = cfg.d_head
-    q = (x @ params["wq"]).reshape(b, t, cfg.n_heads, dh)
-    k = (x @ params["wk"]).reshape(b, t, cfg.n_kv_heads, dh)
-    v = (x @ params["wv"]).reshape(b, t, cfg.n_kv_heads, dh)
+    q = (x @ params["wq"]).reshape(b, t, -1, dh)
+    k = (x @ _kv_weight(params["wk"], cfg, tp)).reshape(b, t, -1, dh)
+    v = (x @ _kv_weight(params["wv"], cfg, tp)).reshape(b, t, -1, dh)
     if cfg.qk_norm and "q_scale" in params:
         q = rms_norm(q, params["q_scale"], cfg.norm_eps)
         k = rms_norm(k, params["k_scale"], cfg.norm_eps)
@@ -210,27 +240,29 @@ def _write_slot(buf, new, slot: int):
 # ---------------------------------------------------------------------------
 
 def attn_train(params, x, cfg, kind: str, *, rope: bool = True,
-               causal: bool = True):
+               causal: bool = True, tp=None):
     """Reference ``attn_train`` (attention.py:177), forward: x (B, T, d) →
     (B, T, d). The whisper encoder calls it with ``causal=False``; with no
     window that is K4, non-causal."""
-    b, t, _ = x.shape
+    t = x.shape[1]
     positions = torch.arange(t, device=x.device)[None, :]
-    q, k, v = _project(params, x, cfg, positions, rope=rope)
+    q, k, v = _project(params, x, cfg, positions, rope=rope, tp=tp)
     window = cfg.window if kind == "local" else None
     o = flash_attention(q, k, v, causal=causal, window=window,
                         chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
-    return o.reshape(b, t, -1) @ params["wo"]
+    return _out(o, params, tp)
 
 
-def cache_spec(cfg, kind: str, batch: int, seq_len: int, dtype):
-    """Shape of the KV cache for one attention layer of the given kind."""
+def cache_spec(cfg, kind: str, batch: int, seq_len: int, dtype, tp=None):
+    """Shape of the KV cache for one attention layer of the given kind (of
+    this rank's KV heads under the plan ``tp``)."""
     length = min(cfg.window, seq_len) if kind == "local" else seq_len
-    shp = (batch, length, cfg.n_kv_heads, cfg.d_head)
+    heads = cfg.n_kv_heads if tp is None else tp.kv_heads
+    shp = (batch, length, heads, cfg.d_head)
     return {"k": TensorSpec(shp, dtype), "v": TensorSpec(shp, dtype)}
 
 
-def attn_prefill(params, x, cfg, kind: str, cache_len: int):
+def attn_prefill(params, x, cfg, kind: str, cache_len: int, tp=None):
     """Full-sequence pass that also returns the populated KV cache.
 
     For "local" layers the cache is the rolling window (last ``window``
@@ -239,11 +271,11 @@ def attn_prefill(params, x, cfg, kind: str, cache_len: int):
     """
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None, :]
-    q, k, v = _project(params, x, cfg, positions)
+    q, k, v = _project(params, x, cfg, positions, tp=tp)
     window = cfg.window if kind == "local" else None
     o = flash_attention(q, k, v, causal=True, window=window,
                         chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
-    y = o.reshape(b, t, -1) @ params["wo"]
+    y = _out(o, params, tp)
 
     if kind == "local":
         w = min(cfg.window, cache_len)
@@ -265,7 +297,7 @@ def attn_prefill(params, x, cfg, kind: str, cache_len: int):
     return y, {"k": k_c, "v": v_c}
 
 
-def attn_decode(params, x, cache, pos: int, cfg, kind: str):
+def attn_decode(params, x, cache, pos: int, cfg, kind: str, tp=None):
     """Reference ``attn_decode`` (attention.py:231): one token x (B, 1, d)
     at absolute position ``pos``. Its K/V go into a new cache: slot ``pos
     % length`` of a "local" ring, else slot ``pos`` (clamped to the last,
@@ -276,7 +308,7 @@ def attn_decode(params, x, cache, pos: int, cfg, kind: str):
     b = x.shape[0]
     dh = cfg.d_head
     positions = torch.full((b, 1), pos, device=x.device)
-    q, k_new, v_new = _project(params, x, cfg, positions)
+    q, k_new, v_new = _project(params, x, cfg, positions, tp=tp)
     length = cache["k"].shape[1]
     slots = torch.arange(length, device=x.device)
     if kind == "local":
@@ -288,16 +320,15 @@ def attn_decode(params, x, cache, pos: int, cfg, kind: str):
         valid = slots <= pos
     k_c = _write_slot(cache["k"], k_new, slot)
     v_c = _write_slot(cache["v"], v_new, slot)
-    g = cfg.n_heads // cfg.n_kv_heads
-    qh = (q * dh ** -0.5).reshape(b, cfg.n_kv_heads, g, dh)
+    hkv = k_new.shape[2]
+    qh = (q * dh ** -0.5).reshape(b, hkv, q.shape[2] // hkv, dh)
     o = _attend_one(qh, k_c, v_c, valid).to(x.dtype)
-    y = o.reshape(b, 1, cfg.n_heads * dh) @ params["wo"]
-    return y, {"k": k_c, "v": v_c}
+    return _out(o.reshape(b, 1, -1, dh), params, tp), {"k": k_c, "v": v_c}
 
 
 # --- cross attention (whisper decoder) --------------------------------------
 
-def cross_attn_train(params, x, enc, cfg):
+def cross_attn_train(params, x, enc, cfg, tp=None):
     """Reference ``cross_attn_train`` (attention.py:266): x (B, Td, d)
     queries, enc (B, Te, d) keys and values; no RoPE, no qk-norm, no mask.
     K4 with ``causal=False`` and Tq != Tk. Returns (y, the ``{"k", "v"}``
@@ -305,21 +336,21 @@ def cross_attn_train(params, x, enc, cfg):
     b, t, _ = x.shape
     te = enc.shape[1]
     dh = cfg.d_head
-    q = (x @ params["wq"]).reshape(b, t, cfg.n_heads, dh)
-    k = (enc @ params["wk"]).reshape(b, te, cfg.n_kv_heads, dh)
-    v = (enc @ params["wv"]).reshape(b, te, cfg.n_kv_heads, dh)
+    q = (x @ params["wq"]).reshape(b, t, -1, dh)
+    k = (enc @ _kv_weight(params["wk"], cfg, tp)).reshape(b, te, -1, dh)
+    v = (enc @ _kv_weight(params["wv"], cfg, tp)).reshape(b, te, -1, dh)
     o = flash_attention(q, k, v, causal=False, window=None,
                         chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
-    return o.reshape(b, t, -1) @ params["wo"], {"k": k, "v": v}
+    return _out(o, params, tp), {"k": k, "v": v}
 
 
-def cross_attn_decode(params, x, cross_cache, cfg):
+def cross_attn_decode(params, x, cross_cache, cfg, tp=None):
     """Reference ``cross_attn_decode`` (attention.py:280): one decoder
     token x (B, 1, d) against the prefill's cross cache; no RoPE, no
     mask."""
     b = x.shape[0]
     dh = cfg.d_head
-    g = cfg.n_heads // cfg.n_kv_heads
-    q = (x @ params["wq"]).reshape(b, cfg.n_kv_heads, g, dh) * dh ** -0.5
+    hkv = cross_cache["k"].shape[2]
+    q = (x @ params["wq"]).reshape(b, hkv, -1, dh) * dh ** -0.5
     o = _attend_one(q, cross_cache["k"], cross_cache["v"]).to(x.dtype)
-    return o.reshape(b, 1, cfg.n_heads * dh) @ params["wo"]
+    return _out(o.reshape(b, 1, -1, dh), params, tp)

@@ -7,12 +7,19 @@ and "rwkv" (RWKV-6 time and channel mix); the FFN of the attention and
 cross-attention with ``cross=True``. Each kind has the reference's uniform
 cache interface; the training forward's backward is autograd (K4′ on the
 full-attention route, ``kernels/attn/attn.py::FlashAttention``).
+
+Every block function takes the reference's ``mesh`` and ``moe_impl``: an
+MoE FFN takes ``moe_apply``'s form ``moe_impl`` over ``mesh``, and over a
+mesh with a ``model`` axis of several ranks the dense layers compute in
+their split forms (``distributed/sharding.py::tp_plan``), in the training
+forward, prefill and decode alike.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import tp_plan
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec
@@ -39,15 +46,14 @@ def _ffn_init(generator, cfg, dtype, device):
                     device=device)
 
 
-def _ffn_apply(params, x, cfg, mesh=None, moe_impl=None):
+def _ffn_apply(params, x, cfg, mesh=None, moe_impl=None, tp=None):
     """Reference ``_ffn_apply`` (blocks.py:30): an MoE FFN takes
-    ``moe_apply``'s form ``moe_impl`` over ``mesh``, the dense form with
-    no mesh (prefill and decode pass none, as the reference's decode asks
-    for ``moe_impl="dense"``)."""
+    ``moe_apply``'s form ``moe_impl`` over ``mesh`` (the dense form with no
+    mesh); a dense FFN its split form under the plan ``tp``."""
     if cfg.is_moe:
         return moe_mod.moe_apply(params, x, cfg, impl=moe_impl, mesh=mesh,
                                  psum_late=cfg.moe_psum_late)
-    return mlp_apply(params, x, cfg.mlp_kind)
+    return mlp_apply(params, x, cfg.mlp_kind, tp=tp)
 
 
 def block_init(generator, cfg, kind: str, dtype, *, cross: bool = False,
@@ -77,117 +83,128 @@ def block_train(params, x, cfg, kind: str, *, mesh=None, moe_impl=None,
                 enc=None, causal: bool = True):
     """Reference ``block_train`` (blocks.py:57), forward: x (B, T, d) →
     (B, T, d). ``causal=False`` is the encoder's bidirectional "attn";
-    ``mesh`` and ``moe_impl`` go to an MoE FFN."""
+    ``mesh`` and ``moe_impl`` as the module says."""
     _kind(kind)
     eps = cfg.norm_eps
+    tp = tp_plan(cfg, mesh)
     if kind in ("attn", "local"):
         x = x + attn.attn_train(params["attn"],
                                 rms_norm(x, params["ln1"], eps), cfg, kind,
-                                causal=causal)
+                                causal=causal, tp=tp)
         if "cross" in params:
             c, _ = attn.cross_attn_train(
                 params["cross"], rms_norm(x, params["ln_cross"], eps), enc,
-                cfg)
+                cfg, tp)
             x = x + c
         return x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                              cfg, mesh, moe_impl)
+                              cfg, mesh, moe_impl, tp)
     if kind == "rec":
         h, _ = rec.rglru_train(params["rec"], rms_norm(x, params["ln1"], eps),
-                               cfg)
+                               cfg, tp=tp)
         x = x + h
         return x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                              cfg, mesh, moe_impl)
-    h, _ = rwkv_mod.rwkv_time_mix(params, rms_norm(x, params["ln1"], eps), cfg)
+                              cfg, mesh, moe_impl, tp)
+    h, _ = rwkv_mod.rwkv_time_mix(params, rms_norm(x, params["ln1"], eps), cfg,
+                                  tp=tp)
     x = x + h
     h, _ = rwkv_mod.rwkv_channel_mix(params, rms_norm(x, params["ln2"], eps),
-                                     cfg)
+                                     cfg, tp=tp)
     return x + h
 
 
 def block_cache_spec(cfg, kind: str, batch: int, cache_len: int, dtype,
-                     *, cross_len: int = 0):
+                     *, cross_len: int = 0, tp=None):
     """Reference ``block_cache_spec`` (blocks.py:89): the KV cache of an
     attention kind or the state of a recurrent one, plus the cross cache
-    of ``cross_len`` encoder positions."""
+    of ``cross_len`` encoder positions; this rank's heads and channels
+    under the plan ``tp``."""
     _kind(kind)
     if kind in ("attn", "local"):
-        spec = attn.cache_spec(cfg, kind, batch, cache_len, dtype)
+        spec = attn.cache_spec(cfg, kind, batch, cache_len, dtype, tp)
     elif kind == "rec":
-        spec = rec.rglru_state_spec(cfg, batch, dtype)
+        spec = rec.rglru_state_spec(cfg, batch, dtype, tp)
     else:
-        spec = rwkv_mod.rwkv_state_spec(cfg, batch, dtype)
+        spec = rwkv_mod.rwkv_state_spec(cfg, batch, dtype, tp)
     if cross_len:
-        shp = (batch, cross_len, cfg.n_kv_heads, cfg.d_head)
+        heads = cfg.n_kv_heads if tp is None else tp.kv_heads
+        shp = (batch, cross_len, heads, cfg.d_head)
         spec = dict(spec)
         spec["cross"] = {"k": TensorSpec(shp, dtype),
                          "v": TensorSpec(shp, dtype)}
     return spec
 
 
-def block_prefill(params, x, cfg, kind: str, cache_len: int, *, enc=None):
-    """Reference ``block_prefill`` (blocks.py:107): (x, the block's cache)."""
+def block_prefill(params, x, cfg, kind: str, cache_len: int, *, mesh=None,
+                  moe_impl=None, enc=None):
+    """Reference ``block_prefill`` (blocks.py:104): (x, the block's
+    cache)."""
     _kind(kind)
     eps = cfg.norm_eps
+    tp = tp_plan(cfg, mesh)
     if kind in ("attn", "local"):
         h, cache = attn.attn_prefill(params["attn"],
                                      rms_norm(x, params["ln1"], eps), cfg,
-                                     kind, cache_len)
+                                     kind, cache_len, tp)
         x = x + h
         if "cross" in params:
             c, cache["cross"] = attn.cross_attn_train(
                 params["cross"], rms_norm(x, params["ln_cross"], eps), enc,
-                cfg)
+                cfg, tp)
             x = x + c
         x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                           cfg)
+                           cfg, mesh, moe_impl, tp)
         return x, cache
     if kind == "rec":
         h, state = rec.rglru_train(params["rec"],
-                                   rms_norm(x, params["ln1"], eps), cfg)
+                                   rms_norm(x, params["ln1"], eps), cfg,
+                                   tp=tp)
         x = x + h
         x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                           cfg)
+                           cfg, mesh, moe_impl, tp)
         return x, state
     h, st_att = rwkv_mod.rwkv_time_mix(params, rms_norm(x, params["ln1"], eps),
-                                       cfg)
+                                       cfg, tp=tp)
     x = x + h
     h, st_ffn = rwkv_mod.rwkv_channel_mix(
-        params, rms_norm(x, params["ln2"], eps), cfg)
+        params, rms_norm(x, params["ln2"], eps), cfg, tp=tp)
     return x + h, {**st_att, **st_ffn}
 
 
-def block_decode(params, x, cache, pos: int, cfg, kind: str):
+def block_decode(params, x, cache, pos: int, cfg, kind: str, *, mesh=None,
+                 moe_impl="dense"):
     """Reference ``block_decode`` (blocks.py:137): one token x (B, 1, d) at
     absolute position ``pos`` → (x, the block's new cache). An MoE FFN
-    takes the dense form. The cross cache is passed through unchanged."""
+    takes the form ``moe_impl``, the dense form by default. The cross
+    cache is passed through unchanged."""
     _kind(kind)
     eps = cfg.norm_eps
+    tp = tp_plan(cfg, mesh)
     if kind in ("attn", "local"):
         h, new_cache = attn.attn_decode(params["attn"],
                                         rms_norm(x, params["ln1"], eps),
-                                        cache, pos, cfg, kind)
+                                        cache, pos, cfg, kind, tp)
         x = x + h
         if "cross" in params:
             x = x + attn.cross_attn_decode(
                 params["cross"], rms_norm(x, params["ln_cross"], eps),
-                cache["cross"], cfg)
+                cache["cross"], cfg, tp)
             new_cache["cross"] = cache["cross"]
         x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                           cfg)
+                           cfg, mesh, moe_impl, tp)
         return x, new_cache
     if kind == "rec":
         h, state = rec.rglru_decode(params["rec"],
                                     rms_norm(x, params["ln1"], eps), cache,
-                                    cfg)
+                                    cfg, tp)
         x = x + h
         x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                           cfg)
+                           cfg, mesh, moe_impl, tp)
         return x, state
     h, st_att = rwkv_mod.rwkv_time_mix(
         params, rms_norm(x, params["ln1"], eps), cfg,
-        state={"s": cache["s"], "x_att": cache["x_att"]})
+        state={"s": cache["s"], "x_att": cache["x_att"]}, tp=tp)
     x = x + h
     h, st_ffn = rwkv_mod.rwkv_channel_mix(
         params, rms_norm(x, params["ln2"], eps), cfg,
-        state={"x_ffn": cache["x_ffn"]})
+        state={"x_ffn": cache["x_ffn"]}, tp=tp)
     return x + h, {**st_att, **st_ffn}

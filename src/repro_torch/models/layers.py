@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import all_reduce, max_over, tp_exit
+
 __all__ = ["dense_init", "rms_norm", "mlp_init", "mlp_apply",
            "rotary_cos_sin", "apply_rotary", "softcap", "cross_entropy",
            "cross_entropy_sums"]
@@ -65,12 +67,20 @@ def mlp_init(generator, d_model: int, d_ff: int, kind: str,
     }
 
 
-def mlp_apply(params, x, kind: str):
+def mlp_apply(params, x, kind: str, *, tp=None):
+    """The FFN. Under a :class:`~repro_torch.distributed.sharding.TPPlan`
+    ``tp`` whose ``ff`` is set, ``w_gate``/``w_up`` are this rank's columns
+    and ``w_down`` its rows of the hidden dimension, and the partial outputs
+    are summed over ``model`` (``collectives.tp_exit``)."""
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else _gelu
         h = act(x @ params["w_gate"]) * (x @ params["w_up"])
-        return h @ params["w_down"]
-    return _gelu(x @ params["w_up"]) @ params["w_down"]
+        y = h @ params["w_down"]
+    else:
+        y = _gelu(x @ params["w_up"]) @ params["w_down"]
+    if tp is not None and tp.ff:
+        y = tp_exit(y, tp.mesh)
+    return y
 
 
 # --- rotary position embeddings ----------------------------------------------
@@ -110,14 +120,29 @@ def softcap(logits, cap: float):
     return logits
 
 
-def cross_entropy_sums(logits, labels, ignore_id: int = -100):
+def cross_entropy_sums(logits, labels, ignore_id: int = -100, *, tp=None):
     """The two sums of :func:`cross_entropy`: (the token CE summed over the
     labels that are not ``ignore_id``, their count), float32 0-d. A
-    data-parallel step sums both over its ranks."""
+    data-parallel step sums both over its ranks.
+
+    Vocab-parallel under a :class:`~repro_torch.distributed.sharding.
+    TPPlan` ``tp`` whose ``vocab`` is set: ``logits`` are this rank's block
+    of the vocabulary. The max over ``model`` is a shift with no gradient;
+    the sum of the exponentials and the label's logit (read on the rank
+    that holds it, 0 elsewhere) are summed over ``model``, so every rank
+    computes the same sums."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
     vocab = torch.arange(logits.shape[-1], device=logits.device)
-    gold = torch.where(vocab == labels[..., None], logits, 0.0).sum(-1)
+    if tp is not None and tp.vocab:
+        vocab = vocab + tp.rank * logits.shape[-1]
+        m = max_over(logits.amax(dim=-1), tp.mesh)
+        lse = m + torch.log(all_reduce(
+            torch.exp(logits - m[..., None]).sum(-1), tp.mesh, "model"))
+        gold = all_reduce(torch.where(vocab == labels[..., None], logits,
+                                      0.0).sum(-1), tp.mesh, "model")
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.where(vocab == labels[..., None], logits, 0.0).sum(-1)
     mask = (labels != ignore_id).float()
     return ((lse - gold) * mask).sum(), mask.sum()
 

@@ -16,6 +16,18 @@ backward is autograd: each repeat's body is checkpointed as the reference
 wraps its scan body (``_maybe_remat``), and K4's gradient is K4′
 (``kernels/attn/attn.py::FlashAttention``). ``param_specs`` is
 ``init_params`` on the ``meta`` device.
+
+Over a ``DeviceMesh`` (``mesh=``) the parameters and the batch are this
+rank's shards: its rows of the batch (split over the data axes) and its
+parameters in the compute layout
+(``distributed/sharding.py::compute_shardings``). With a ``model`` axis of
+several ranks the dense layers compute in their split forms
+(``tp_plan``), and the vocabulary splits when the axis divides it: the
+embedding looks up the rank's rows (ids outside them read zeros) and sums
+over ``model``, the head computes the rank's columns, the loss is the
+vocab-parallel cross-entropy, and the logits that ``forward_train``,
+``prefill`` and ``decode_step`` return are whole on every rank (the sum of
+the ranks' zero-padded blocks).
 """
 
 from __future__ import annotations
@@ -28,12 +40,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from ..distributed.collectives import all_reduce, tp_exit
+from ..distributed.sharding import tp_plan
 from ..tree import tree_map
 from . import blocks
-from .layers import cross_entropy, dense_init, rms_norm, softcap
+from .layers import cross_entropy_sums, dense_init, rms_norm, softcap
 
 __all__ = ["cache_specs", "decode_step", "forward_train", "init_cache",
-           "init_params", "loss_fn", "param_specs", "prefill"]
+           "init_params", "loss_fn", "loss_sums", "param_specs", "prefill"]
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -150,14 +164,15 @@ def _maybe_remat(fn, cfg):
     return body
 
 
-def _encode(params, enc_input, cfg):
+def _encode(params, enc_input, cfg, mesh=None):
     """Reference ``_encode`` (model.py:102): the stub frame embeddings
     through the input adapter, the bidirectional "attn" stack (RoPE,
     ``causal=False``) and the encoder's final norm."""
     x = enc_input.to(_dtype(cfg)) @ params["enc_in_proj"]
 
     def body(h, rep):
-        return blocks.block_train(rep, h, cfg, "attn", causal=False)
+        return blocks.block_train(rep, h, cfg, "attn", mesh=mesh,
+                                  causal=False)
     body = _maybe_remat(body, cfg)
     stack = params["enc"]["scan"]["pos0"]
     for r in range(cfg.encoder_layers):
@@ -165,23 +180,50 @@ def _encode(params, enc_input, cfg):
     return rms_norm(x, params["enc"]["final_ln"], cfg.norm_eps)
 
 
-def _embed(params, tokens, cfg):
+def _vocab(tp) -> bool:
+    return tp is not None and tp.vocab
+
+
+def _embed(params, tokens, cfg, tp=None):
     """The token embeddings (``jnp.take`` in the reference). Its gradient is
     ``F.embedding``'s: each row's contributions summed in float32 in a
     fixed order, where ``index_select``'s backward adds them with atomics
     in the table's type (bf16 at full width, where a frequent token's row
-    sums thousands of contributions)."""
-    return F.embedding(tokens.long(), params["embed"])
+    sums thousands of contributions). Vocab-parallel under the plan ``tp``:
+    ids outside the rank's rows read zeros (and add nothing to the
+    gradient), and the ranks' lookups are summed over ``model``, one
+    nonzero term an element."""
+    tokens = tokens.long()
+    if not _vocab(tp):
+        return F.embedding(tokens, params["embed"])
+    rows = params["embed"].shape[0]
+    local = tokens - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = F.embedding(torch.where(mine, local, 0), params["embed"])
+    return tp_exit(x * mine[..., None].to(x.dtype), tp.mesh)
 
 
 def _head(params, x, cfg):
-    """The final norm, the tied or untied head and the soft cap."""
+    """The final norm, the tied or untied head and the soft cap (the
+    rank's block of the vocabulary where its head is a block)."""
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return softcap(x @ head, cfg.logit_softcap)
 
 
-def _frames(params, batch, cfg):
+def _whole(logits, tp):
+    """The whole vocabulary's logits from each rank's block: the sum over
+    ``model`` of the blocks zero-padded to their places (exact, in
+    float32; ``all_gather`` would do, but gloo carries only sums on CUDA
+    tensors). Differentiable."""
+    if not _vocab(tp):
+        return logits
+    v = logits.shape[-1]
+    full = F.pad(logits.float(), (tp.rank * v, (tp.n - 1 - tp.rank) * v))
+    return all_reduce(full, tp.mesh, "model").to(logits.dtype)
+
+
+def _frames(params, batch, cfg, mesh=None):
     """An encoder-decoder's encoded ``batch["enc_input"]``, else None."""
     if not cfg.is_encdec:
         return None
@@ -189,19 +231,14 @@ def _frames(params, batch, cfg):
         raise ValueError(f"{cfg.name} is an encoder-decoder: it needs "
                          "batch['enc_input'], the (B, frames, d_model) "
                          "frame embeddings")
-    return _encode(params, batch["enc_input"], cfg)
+    return _encode(params, batch["enc_input"], cfg, mesh)
 
 
-def forward_train(params, batch, cfg, *, mesh=None, moe_impl=None):
-    """Reference ``forward_train`` (model.py:116): the logits (B, T, vocab)
-    of ``batch["tokens"]`` (B, T) at every position, differentiable. An
-    encoder-decoder first encodes ``batch["enc_input"]``. Each repeat of
-    the block pattern is one ``_maybe_remat`` body. With no mesh an MoE
-    FFN is the dense form, as the reference's on one device; over a
-    ``DeviceMesh`` ``params`` and ``batch`` are this rank's shards and an
-    MoE FFN takes the form ``moe_impl`` (``models/moe.py::moe_apply``)."""
-    enc = _frames(params, batch, cfg)
-    x = _embed(params, batch["tokens"], cfg)
+def _logits(params, batch, cfg, mesh, moe_impl):
+    """The training forward to the head: (this rank's logits, the plan)."""
+    tp = tp_plan(cfg, mesh)
+    enc = _frames(params, batch, cfg, mesh)
+    x = _embed(params, batch["tokens"], cfg, tp)
 
     def body(h, rep):
         for i, kind in enumerate(cfg.block_pattern):
@@ -214,15 +251,39 @@ def forward_train(params, batch, cfg, *, mesh=None, moe_impl=None):
     for p, kind in zip(params.get("rem", ()), cfg.remainder_kinds):
         x = blocks.block_train(p, x, cfg, kind, mesh=mesh, moe_impl=moe_impl,
                                enc=enc)
-    return _head(params, x, cfg)
+    return _head(params, x, cfg), tp
+
+
+def forward_train(params, batch, cfg, *, mesh=None, moe_impl=None):
+    """Reference ``forward_train`` (model.py:116): the logits (B, T, vocab)
+    of ``batch["tokens"]`` (B, T) at every position, differentiable. An
+    encoder-decoder first encodes ``batch["enc_input"]``. Each repeat of
+    the block pattern is one ``_maybe_remat`` body. With no mesh an MoE
+    FFN is the dense form, as the reference's on one device; over a
+    ``DeviceMesh`` ``params`` and ``batch`` are this rank's shards, an
+    MoE FFN takes the form ``moe_impl`` (``models/moe.py::moe_apply``),
+    the dense layers their split forms, and the logits are whole."""
+    logits, tp = _logits(params, batch, cfg, mesh, moe_impl)
+    return _whole(logits, tp)
+
+
+def loss_sums(params, batch, cfg, *, mesh=None, moe_impl=None):
+    """The token CE of ``batch`` summed over its labels that are not -100,
+    and their count (``layers.py::cross_entropy_sums``), float32 0-d; over
+    a mesh the vocab-parallel CE of this rank's rows, the same on every
+    rank of ``model``."""
+    logits, tp = _logits(params, batch, cfg, mesh, moe_impl)
+    return cross_entropy_sums(logits, batch["labels"], tp=tp)
 
 
 def loss_fn(params, batch, cfg, *, mesh=None, moe_impl=None):
     """Reference ``loss_fn`` (model.py:145): the token CE of
     :func:`forward_train`'s logits against ``batch["labels"]`` → (loss,
-    {"loss": loss})."""
-    loss = cross_entropy(forward_train(params, batch, cfg, mesh=mesh,
-                                       moe_impl=moe_impl), batch["labels"])
+    {"loss": loss}); the mean over the labels that are not -100 (0 when
+    all are)."""
+    total, count = loss_sums(params, batch, cfg, mesh=mesh,
+                             moe_impl=moe_impl)
+    loss = total / torch.clamp(count, min=1.0)
     return loss, {"loss": loss}
 
 
@@ -230,12 +291,16 @@ def loss_fn(params, batch, cfg, *, mesh=None, moe_impl=None):
 # serving: prefill and decode
 # ---------------------------------------------------------------------------
 
-def cache_specs(cfg, batch: int, cache_len: int, *, enc_len: int = 0):
+def cache_specs(cfg, batch: int, cache_len: int, *, enc_len: int = 0,
+                mesh=None):
     """Shape/dtype tree of the KV and state cache (``TensorSpec`` leaves);
     an encoder-decoder's blocks add the cross cache of ``enc_len`` encoder
-    positions. Reference ``cache_specs`` (model.py:155)."""
+    positions. Reference ``cache_specs`` (model.py:155). With ``mesh``, the
+    cache of ``batch`` rows as this rank holds it: its KV heads, RG-LRU
+    channels and RWKV heads (``distributed/sharding.py::tp_plan``)."""
     dtype = _dtype(cfg)
     cross_len = enc_len if cfg.is_encdec else 0
+    tp = tp_plan(cfg, mesh)
 
     def stack(spec):
         return tree_map(lambda s: type(s)((cfg.n_repeats,) + s.shape,
@@ -243,59 +308,73 @@ def cache_specs(cfg, batch: int, cache_len: int, *, enc_len: int = 0):
 
     cache = {"scan": {
         f"pos{i}": stack(blocks.block_cache_spec(cfg, kind, batch, cache_len,
-                                                 dtype, cross_len=cross_len))
+                                                 dtype, cross_len=cross_len,
+                                                 tp=tp))
         for i, kind in enumerate(cfg.block_pattern)}}
     rem = cfg.remainder_kinds
     if rem:
         cache["rem"] = tuple(
             blocks.block_cache_spec(cfg, kind, batch, cache_len, dtype,
-                                    cross_len=cross_len)
+                                    cross_len=cross_len, tp=tp)
             for kind in rem)
     return cache
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, enc_len: int = 0,
-               device="cuda"):
-    """Reference ``init_cache`` (model.py:178): the zero cache."""
-    specs = cache_specs(cfg, batch, cache_len, enc_len=enc_len)
+               device="cuda", mesh=None):
+    """Reference ``init_cache`` (model.py:178): the zero cache (this rank's
+    with ``mesh``)."""
+    specs = cache_specs(cfg, batch, cache_len, enc_len=enc_len, mesh=mesh)
     return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                            device=device), specs)
 
 
-def prefill(params, batch, cfg, cache_len: int):
+def prefill(params, batch, cfg, cache_len: int, *, mesh=None,
+            moe_impl=None):
     """Full forward over the prompt; returns (last-token logits, cache).
     Reference ``prefill`` (model.py:183): an encoder-decoder first encodes
     ``batch["enc_input"]`` (B, frames, d) and its decoder blocks attend to
-    that. On one device, as the reference without a mesh: an MoE FFN is
-    the dense form."""
-    enc = _frames(params, batch, cfg)
-    x = _embed(params, batch["tokens"], cfg)
+    that. With no mesh an MoE FFN is the dense form, as the reference's on
+    one device; over a ``DeviceMesh`` ``params`` and ``batch`` are this
+    rank's shards, an MoE FFN takes the form ``moe_impl``, the dense layers
+    their split forms, the cache is this rank's (``cache_specs(...,
+    mesh=)``) and the logits are whole."""
+    tp = tp_plan(cfg, mesh)
+    enc = _frames(params, batch, cfg, mesh)
+    x = _embed(params, batch["tokens"], cfg, tp)
     per_rep = []
     for r in range(cfg.n_repeats):
         caches = {}
         for i, kind in enumerate(cfg.block_pattern):
             rep = _repeat(params["scan"][f"pos{i}"], r)
-            x, caches[f"pos{i}"] = blocks.block_prefill(rep, x, cfg, kind,
-                                                        cache_len, enc=enc)
+            x, caches[f"pos{i}"] = blocks.block_prefill(
+                rep, x, cfg, kind, cache_len, mesh=mesh, moe_impl=moe_impl,
+                enc=enc)
         per_rep.append(caches)
     cache = {"scan": tree_map(lambda *xs: torch.stack(xs), *per_rep)}
     if params.get("rem"):
         rem_caches = []
         for p, kind in zip(params["rem"], cfg.remainder_kinds):
-            x, c = blocks.block_prefill(p, x, cfg, kind, cache_len, enc=enc)
+            x, c = blocks.block_prefill(p, x, cfg, kind, cache_len,
+                                        mesh=mesh, moe_impl=moe_impl,
+                                        enc=enc)
             rem_caches.append(c)
         cache["rem"] = tuple(rem_caches)
-    return _head(params, x[:, -1:], cfg)[:, 0], cache
+    return _whole(_head(params, x[:, -1:], cfg), tp)[:, 0], cache
 
 
-def decode_step(params, cache, tokens, pos: int, cfg):
+def decode_step(params, cache, tokens, pos: int, cfg, *, mesh=None,
+                moe_impl="dense"):
     """One decode step. Reference ``decode_step`` (model.py:216): tokens
     (B,) at absolute position ``pos`` (an int) → (logits (B, vocab), new
     cache). Each repeat's blocks decode against that repeat's cache, and
     the new caches are stacked again; then the remainder layers. The
-    caller's cache is unchanged. An MoE FFN takes the dense form, as the
-    reference's decode does."""
-    x = _embed(params, tokens[:, None], cfg)
+    caller's cache is unchanged. An MoE FFN takes the form ``moe_impl``,
+    the dense form by default, as the reference's decode does; over a
+    ``DeviceMesh`` the arguments are this rank's shards (the cache as
+    :func:`prefill` returns it there) and the logits are whole."""
+    tp = tp_plan(cfg, mesh)
+    x = _embed(params, tokens[:, None], cfg, tp)
     per_rep = []
     for r in range(cfg.n_repeats):
         new = {}
@@ -303,15 +382,16 @@ def decode_step(params, cache, tokens, pos: int, cfg):
             rep, rc = tree_map(lambda t, r=r: t[r],
                                 (params["scan"][f"pos{i}"],
                                  cache["scan"][f"pos{i}"]))
-            x, new[f"pos{i}"] = blocks.block_decode(rep, x, rc, pos, cfg,
-                                                    kind)
+            x, new[f"pos{i}"] = blocks.block_decode(
+                rep, x, rc, pos, cfg, kind, mesh=mesh, moe_impl=moe_impl)
         per_rep.append(new)
     new_cache = {"scan": tree_map(lambda *xs: torch.stack(xs), *per_rep)}
     if params.get("rem"):
         rem_new = []
         for p, kind, c in zip(params["rem"], cfg.remainder_kinds,
                               cache["rem"]):
-            x, nc = blocks.block_decode(p, x, c, pos, cfg, kind)
+            x, nc = blocks.block_decode(p, x, c, pos, cfg, kind, mesh=mesh,
+                                        moe_impl=moe_impl)
             rem_new.append(nc)
         new_cache["rem"] = tuple(rem_new)
-    return _head(params, x, cfg)[:, 0], new_cache
+    return _whole(_head(params, x, cfg), tp)[:, 0], new_cache

@@ -9,6 +9,14 @@ structure (Griffin Fig. 2): a gate branch GeLU(W_y x) and a value branch
 (width-4 causal conv → RG-LRU), merged multiplicatively and projected back
 by W_o. Decode is the single-step update. Plain PyTorch, as the reference
 is jnp outside any Pallas kernel.
+
+Under dense tensor parallelism (a ``TPPlan`` ``tp`` whose ``rnn`` is set)
+``w_x`` and ``w_y`` are this rank's columns of the recurrence width and
+``w_o`` its rows; the per-channel leaves (the conv weights, the gates and
+Λ) are whole, and the rank computes with its slice of them, so its
+gradient of such a leaf is zero outside that slice and the step's sum of
+the ranks' shares is the whole gradient. The state holds the rank's
+channels; ``w_o``'s partial outputs are summed over ``model``.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import tp_exit
 from .common import TensorSpec
 from .layers import _gelu, dense_init
 
@@ -140,21 +149,47 @@ def _linear_scan_chunked(a, b, h0, chunk: int):
     return hs.reshape(bsz, tp, d)[:, :t], h
 
 
-def rglru_state_spec(cfg, batch: int, dtype):
+def _split(tp) -> bool:
+    return tp is not None and tp.rnn
+
+
+def _channels(params, tp):
+    """The per-channel leaves as this rank computes with them: its slice of
+    each under the plan ``tp``, else the leaves."""
+    if not _split(tp):
+        return params
+    sl = tp.part(params["lam"].shape[0])
+    out = dict(params)
+    out["conv_w"] = params["conv_w"][:, sl]
+    for k in ("conv_b", "gate_r_w", "gate_r_b", "gate_i_w", "gate_i_b",
+              "lam"):
+        out[k] = params[k][sl]
+    return out
+
+
+def _exit(y, tp):
+    return tp_exit(y, tp.mesh) if _split(tp) else y
+
+
+def rglru_state_spec(cfg, batch: int, dtype, tp=None):
     """Reference ``rglru_state_spec`` (recurrent.py:95): the float32 state
-    h and the conv carry of the last W-1 inputs."""
+    h and the conv carry of the last W-1 inputs (of this rank's channels
+    under the plan ``tp``)."""
     dr = cfg.d_rnn or cfg.d_model
+    if _split(tp):
+        dr //= tp.n
     return {
         "h": TensorSpec((batch, dr), torch.float32),
         "conv": TensorSpec((batch, cfg.conv_width - 1, dr), dtype),
     }
 
 
-def rglru_train(params, x, cfg, state=None):
+def rglru_train(params, x, cfg, state=None, tp=None):
     """Reference ``rglru_train`` (recurrent.py:103), forward: x (B, T, d) →
     (y (B, T, d), state). ``state=None`` starts from zeros."""
     bsz = x.shape[0]
-    dr = cfg.d_rnn or cfg.d_model
+    params = _channels(params, tp)
+    dr = params["lam"].shape[0]
     gate = _gelu(x @ params["w_y"])
     u = x @ params["w_x"]
     u, conv_carry = _conv_causal(u, params["conv_w"], params["conv_b"],
@@ -163,15 +198,16 @@ def rglru_train(params, x, cfg, state=None):
     h0 = (torch.zeros((bsz, dr), dtype=torch.float32, device=x.device)
           if state is None else state["h"].float())
     h, h_last = _linear_scan_chunked(a, b, h0, cfg.chunk_rec)
-    y = (h.to(x.dtype) * gate) @ params["w_o"]
+    y = _exit((h.to(x.dtype) * gate) @ params["w_o"], tp)
     return y, {"h": h_last, "conv": conv_carry}
 
 
-def rglru_decode(params, x, state, cfg):
+def rglru_decode(params, x, state, cfg, tp=None):
     """Reference ``rglru_decode`` (recurrent.py:121): one token x (B, 1, d)
     → (y (B, 1, d), new state). The width-W conv over the carried W-1
     inputs and this one, summed in the reference's order; h stays
     float32."""
+    params = _channels(params, tp)
     gate = _gelu(x @ params["w_y"])[:, 0]
     u = (x @ params["w_x"])[:, 0]                         # (B, dr)
     ext = torch.cat([state["conv"], u[:, None, :]], dim=1)
@@ -181,5 +217,5 @@ def rglru_decode(params, x, state, cfg):
               for j in range(width)) + params["conv_b"]
     a, b = _rglru_coeffs(params, u_c)
     h = a * state["h"].float() + b
-    y = (h.to(x.dtype) * gate) @ params["w_o"]
+    y = _exit((h.to(x.dtype) * gate) @ params["w_o"], tp)
     return y[:, None, :], {"h": h, "conv": ext[:, 1:]}

@@ -11,6 +11,17 @@ mixes μ, as the reference does. Decode is the same time and channel mix
 at T = 1: the shift reads the stored previous activation and the WKV runs
 one chunk of length 1. Plain PyTorch, as the reference is jnp outside any
 Pallas kernel.
+
+Under dense tensor parallelism (a ``TPPlan`` ``tp``) the time mix splits
+by heads when ``tp.rwkv`` is set: ``w_r``, ``w_k``, ``w_v`` and ``w_g``
+are this rank's columns, ``w_o`` its rows, and the per-channel or
+per-head leaves (the decay's ``w0`` and ``w_lora_b`` columns, ``u``, the
+group norm's scale) are whole, the rank computing with its slice; the
+channel mix splits ``w_k``'s columns and ``w_v``'s rows when ``tp.ff`` is
+set. Each rank's gradient of a whole leaf is then zero outside its slice,
+and the step's sum of the ranks' shares is the whole gradient. Both
+mixes sum their partial outputs over ``model`` (``collectives.tp_exit``);
+the state holds the rank's heads.
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import tp_exit
 from .common import TensorSpec
 from .layers import dense_init
 
@@ -135,15 +147,27 @@ def _wkv_chunked(r, k, v, logw, u, s0, chunk: int):
     return o[:, :t], s
 
 
-def rwkv_state_spec(cfg, batch: int, dtype):
-    """Reference ``rwkv_state_spec`` (rwkv.py:131)."""
+def rwkv_state_spec(cfg, batch: int, dtype, tp=None):
+    """Reference ``rwkv_state_spec`` (rwkv.py:131); the WKV state of this
+    rank's heads under the plan ``tp``."""
     d = cfg.d_model
     n = cfg.rwkv_head_dim
+    h = d // n // (tp.n if tp is not None and tp.rwkv else 1)
     return {
-        "s": TensorSpec((batch, d // n, n, n), torch.float32),
+        "s": TensorSpec((batch, h, n, n), torch.float32),
         "x_att": TensorSpec((batch, d), dtype),
         "x_ffn": TensorSpec((batch, d), dtype),
     }
+
+
+def _heads(p, tp):
+    """The time mix's per-channel and per-head leaves as this rank computes
+    with them: its slice of each when the plan ``tp`` splits the heads."""
+    if tp is None or not tp.rwkv:
+        return p
+    sl, hs = tp.part(p["w0"].shape[0]), tp.part(p["u"].shape[0])
+    return dict(p, w0=p["w0"][sl], w_lora_b=p["w_lora_b"][:, sl],
+                u=p["u"][hs], ln_x=p["ln_x"][sl])
 
 
 def _time_mix_proj(p, x, x_prev, cfg):
@@ -151,7 +175,6 @@ def _time_mix_proj(p, x, x_prev, cfg):
     per head and the gate g. With T = 1 the shifted input is the stored
     previous activation."""
     n = cfg.rwkv_head_dim
-    h = cfg.d_model // n
     xs = _shift(x, x_prev) if x.shape[1] > 1 else x_prev[:, None, :]
     r = _mix(x, xs, p["mu_r"]) @ p["w_r"]
     k = _mix(x, xs, p["mu_k"]) @ p["w_k"]
@@ -161,32 +184,34 @@ def _time_mix_proj(p, x, x_prev, cfg):
     logw = -torch.exp(p["w0"].float()
                       + torch.tanh(xw.float() @ p["w_lora_a"].float())
                       @ p["w_lora_b"].float())
-    shp = tuple(x.shape[:-1]) + (h, n)
+    shp = tuple(x.shape[:-1]) + (r.shape[-1] // n, n)
     return (r.reshape(shp), k.reshape(shp), v.reshape(shp),
             logw.reshape(shp), g)
 
 
-def rwkv_time_mix(params, x, cfg, state=None):
+def rwkv_time_mix(params, x, cfg, state=None, tp=None):
     """Reference ``rwkv_time_mix`` (rwkv.py:165): x (B, T, d) → (y, {"s",
     "x_att"}); ``state`` (``s``, ``x_att``) or None for zeros."""
     bsz, t, d = x.shape
     n = cfg.rwkv_head_dim
-    h = d // n
+    p = _heads(params["time"], tp)
+    h = p["u"].shape[0]
     if state is None:
         x_prev = x.new_zeros((bsz, d))
         s0 = torch.zeros((bsz, h, n, n), dtype=torch.float32,
                          device=x.device)
     else:
         x_prev, s0 = state["x_att"], state["s"]
-    p = params["time"]
     r, k, v, logw, g = _time_mix_proj(p, x, x_prev, cfg)
     o, s_last = _wkv_chunked(r, k, v, logw, p["u"], s0, cfg.chunk_rec)
-    o = _group_norm(o.reshape(bsz, t, d).to(x.dtype), p["ln_x"], n)
+    o = _group_norm(o.reshape(bsz, t, h * n).to(x.dtype), p["ln_x"], n)
     y = (o * g) @ p["w_o"]
+    if tp is not None and tp.rwkv:
+        y = tp_exit(y, tp.mesh)
     return y, {"s": s_last, "x_att": x[:, -1, :]}
 
 
-def rwkv_channel_mix(params, x, cfg, state=None):
+def rwkv_channel_mix(params, x, cfg, state=None, tp=None):
     """Reference ``rwkv_channel_mix`` (rwkv.py:181): x (B, T, d) → (y,
     {"x_ffn"}); ``state`` (``x_ffn``) or None for zeros."""
     bsz, t, d = x.shape
@@ -195,11 +220,14 @@ def rwkv_channel_mix(params, x, cfg, state=None):
     xs = _shift(x, x_prev) if t > 1 else x_prev[:, None, :]
     k = torch.square(torch.relu(_mix(x, xs, p["mu_k"]) @ p["w_k"]))
     r = torch.sigmoid(_mix(x, xs, p["mu_r"]) @ p["w_r"])
-    return r * (k @ p["w_v"]), {"x_ffn": x[:, -1, :]}
+    kv = k @ p["w_v"]
+    if tp is not None and tp.ff:
+        kv = tp_exit(kv, tp.mesh)
+    return r * kv, {"x_ffn": x[:, -1, :]}
 
 
-def rwkv_decode(params, x, state, cfg):
+def rwkv_decode(params, x, state, cfg, tp=None):
     """Reference ``rwkv_decode`` (rwkv.py:191), as it is: the time mix of
     one token x (B, 1, d) with ``state`` → (y, {"s", "x_att"}). The block's
     decode calls the time and channel mix itself."""
-    return rwkv_time_mix(params, x, cfg, state)
+    return rwkv_time_mix(params, x, cfg, state, tp)

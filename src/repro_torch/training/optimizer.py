@@ -14,14 +14,16 @@ full-size fp32 transient". The gradient comes one repeat at a time too
 
 Over a ``DeviceMesh`` the step is data-parallel over the data axes
 (``pod``, ``data``), each rank taking its rows of the batch, and the
-``model`` axis carries the MoE's ``ep`` and ``tp`` forms; every other
-leaf is whole on every rank (``distributed.sharding.compute_shardings``).
-Each rank's gradient is its share, and the shares are summed over the
-ranks that hold the leaf whole. With ``grad_shardings`` (the reference's
-ZeRO layout, ``param_shardings(..., extra_batch_dim=True)``) that sum is
-a reduce-scatter into the layout, once a microbatch (ZeRO-2); the
-float32 moments live as those shards and AdamW runs on them (ZeRO-1),
-and only the result, in the parameter's type, is gathered back.
+``model`` axis carries the MoE's ``ep`` and ``tp`` forms and dense tensor
+parallelism: each leaf is split over ``model`` where the port's split
+forms compute in that split, and whole on every rank otherwise
+(``distributed.sharding.compute_shardings``). Each rank's gradient is its
+share, and the shares are summed over the ranks that hold the leaf whole.
+With ``grad_shardings`` (the reference's ZeRO layout,
+``param_shardings(..., extra_batch_dim=True)``) that sum is a
+reduce-scatter into the layout, once a microbatch (ZeRO-2); the float32
+moments live as those shards and AdamW runs on them (ZeRO-1), and only
+the result, in the parameter's type, is gathered back.
 """
 
 from __future__ import annotations
@@ -366,16 +368,14 @@ def _mesh_loss_and_grads(params, batch, cfg, mesh, moe_impl=None):
     their number, and a leaf's shares summed over the ranks that hold it
     whole are its gradient."""
     from ..distributed.sharding import batch_axes, mesh_shape
-    from ..models import forward_train
-    from ..models.layers import cross_entropy_sums
+    from ..models import loss_sums
     data = batch_axes(mesh)
     copies = math.prod(n for a, n in mesh_shape(mesh).items()
                        if a not in data)
     split = split_repeats(params)
     with torch.enable_grad():
-        logits = forward_train(split, batch, cfg, mesh=mesh,
-                               moe_impl=moe_impl)
-        total, count = cross_entropy_sums(logits, batch["labels"])
+        total, count = loss_sums(split, batch, cfg, mesh=mesh,
+                                 moe_impl=moe_impl)
         loss = total / torch.clamp(sum_over(count.detach(), mesh, data),
                                    min=1.0)
         grads = torch.autograd.grad(

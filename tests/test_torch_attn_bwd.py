@@ -203,8 +203,10 @@ def test_tc_route_refuses_a_call_without_lse():
     """The tensor-core K4′ needs the forward's LSE: ``flash_attention_bwd``
     raises without it, on its argument checks, before any CUDA call (so
     this runs on ``meta`` tensors, with no card). With the LSE the same
-    call gets as far as the device check. The other argument checks come
-    first too."""
+    call passes every check and, on ``meta`` tensors, takes the operator's
+    fake implementation (the dry run's path: the gradients' shapes, no
+    launch), while ``bwd_launch`` itself gets as far as the device check.
+    The other argument checks come first too."""
     def meta(*shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, device="meta")
     q, k, o = meta(1, 64, 8, 128), meta(1, 64, 2, 128), meta(1, 64, 8, 128)
@@ -214,8 +216,13 @@ def test_tc_route_refuses_a_call_without_lse():
         PA.flash_attention_bwd(q, k, k, o, o)
     with pytest.raises(ValueError, match="needs the forward's log-sum-exp"):
         PA.bwd_launch("tensor_cores", q, k, k, o, o)
+    before = PA.FLASH_BWD_KERNEL.launches
+    dq, dk, dv = PA.flash_attention_bwd(q, k, k, o, o, lse=lse)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+    assert dq.device.type == "meta"
+    assert PA.FLASH_BWD_KERNEL.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
-        PA.flash_attention_bwd(q, k, k, o, o, lse=lse)
+        PA.bwd_launch("tensor_cores", q, k, k, o, o, lse=lse)
     with pytest.raises(ValueError, match="must be torch.float32"):
         PA.flash_attention_bwd(q, k, k, o, o, lse=lse[:, :, :5])
     with pytest.raises(ValueError, match="not a tensor-core input"):

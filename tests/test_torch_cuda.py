@@ -836,3 +836,35 @@ def test_tc_backward_first_on_autograds_thread_on_card(cuda_device):
     r = subprocess.run([sys.executable, "-c", _FIRST_BACKWARD], env=env,
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
+
+
+@pytest.mark.cuda
+def test_k4_operators_are_the_launches_on_card(cuda_device, rng):
+    """The registered operators (``repro_torch::flash_attn_fwd`` and
+    ``::flash_attn_bwd``, whose fake implementations the dry run traces)
+    on real CUDA tensors: one K4 launch, and one K4′ launch a pass, bit
+    for bit the direct ``launch`` and ``bwd_launch`` on the same inputs,
+    which ``flash_attention_fwd`` and ``flash_attention_bwd`` call on the
+    card."""
+    from repro_torch.kernels.attn import attn as PA
+    q = torch.from_numpy(rng.standard_normal((2, 64, 8, 128)).astype(
+        np.float32)).to(cuda_device).bfloat16()
+    k = q[:, :, :2].contiguous()
+    v = (q[:, :, 2:4] * 0.5).contiguous()
+    before = PA.FLASH_KERNEL.launches
+    out, lse = torch.ops.repro_torch.flash_attn_fwd(q, k, v, True, True)
+    torch.cuda.synchronize()
+    assert PA.FLASH_KERNEL.launches == before + 1
+    want, want_lse = PA.launch("tensor_cores", q, k, v, with_lse=True)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    assert torch.equal(out, PA.flash_attention_fwd(q, k, v))
+    dout = torch.ones_like(out)
+    before = PA.FLASH_BWD_TC_KERNEL.launches
+    got = torch.ops.repro_torch.flash_attn_bwd(q, k, v, out, dout, lse, True)
+    torch.cuda.synchronize()
+    assert PA.FLASH_BWD_TC_KERNEL.launches == before + PA.BWD_PASSES[
+        "tensor_cores"]
+    want = PA.bwd_launch("tensor_cores", q, k, v, out, dout, lse=lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(
+        PA.flash_attention_bwd(q, k, v, out, dout, lse=lse), want))

@@ -88,22 +88,42 @@ def test_param_shardings_match_reference(arch, sizes, names):
                                        ("mixtral-8x7b", "tp"),
                                        ("chatglm3-6b", "dense")])
 def test_compute_shardings_split_only_the_experts(arch, impl):
+    """The expert stacks split over ``model`` as ``ep`` or ``tp`` lays them
+    out (whole under ``dense``), the router whole; every other leaf that
+    splits is a dense one the tensor-parallel plan computes split, at the
+    ``model`` entry of the reference's spec and nowhere else."""
     cfg = get_config(arch)
     mesh = TS.MeshShape((2, 16, 16), ("pod", "data", "model"))
+    plan = TS.tp_plan(cfg, mesh, rank=0)
     got = dict(_flat(TS.compute_shardings(param_specs(cfg), mesh, cfg,
                                           impl)))
+    ref = dict(_flat(TS.param_shardings(param_specs(cfg), mesh,
+                                        dataclasses.replace(
+                                            cfg, moe_impl=impl)
+                                        if cfg.is_moe else cfg)))
     split = {n: s.spec for n, s in got.items() if any(s.spec)}
-    if impl == "dense":
-        assert not split
-        return
-    assert split and all(n.rsplit("/", 1)[-1] in ("w_gate", "w_up",
-                                                  "w_down")
-                         for n in split)
-    dim = {"ep": 1, "tp": {"w_gate": 3, "w_up": 3, "w_down": 2}}[impl]
+    experts = {n: s for n, s in split.items() if cfg.is_moe
+               and "ffn" in n and n.rsplit("/", 1)[-1] in ("w_gate", "w_up",
+                                                          "w_down")}
+    assert not any(n.endswith("router") for n in split)
+    if impl == "dense" or not cfg.is_moe:
+        assert not experts
+    else:
+        dim = {"ep": 1, "tp": {"w_gate": 3, "w_up": 3, "w_down": 2}}[impl]
+        assert experts
+        for name, spec in experts.items():
+            d = dim if impl == "ep" else dim[name.rsplit("/", 1)[-1]]
+            assert spec == tuple("model" if i == d else None
+                                 for i in range(len(spec))), name
     for name, spec in split.items():
-        d = dim if impl == "ep" else dim[name.rsplit("/", 1)[-1]]
-        assert spec == tuple("model" if i == d else None
-                             for i in range(len(spec))), name
+        want = tuple(e if e is not None and "model" in TS.spec_axes(e)
+                     else None for e in ref[name].spec)
+        assert spec == want, name
+        if name not in experts:
+            assert TS._tp_split(name, plan), name
+    if not cfg.is_moe:
+        assert any(n.endswith("attn/wq") for n in split) == plan.attn
+        assert any(n.endswith("ffn/w_down") for n in split) == plan.ff
 
 
 def test_spec_to_placements_and_constrain_without_context():
