@@ -260,12 +260,12 @@ kernel of those paths against its plain PyTorch version:
    card: 2 and then 4 processes (``chip_smoke.py --tp-worker``), a gloo
    group each (its store on 127.0.0.1; gloo carries sums on CUDA
    tensors, which is all the split forms need), a (1, tp) ``data ×
-   model`` mesh. chatglm3-6b at full width and depth in bf16, each rank
-   drawing the seeded weights in turn and keeping its shards in the
-   compute layout (``compute_shardings``): ``prefill(..., mesh=)`` at B =
-   2, T = 2048, counts zeroed just before and read just after (K4 28
-   launches a rank, all on the tensor-core kernel, on 16 and 8 local
-   heads), every K4 call held against its plain version on its own
+   model`` mesh. chatglm3-6b at full width in bf16 and
+   ``TP_SERVING_LAYERS`` layers, each rank drawing the seeded weights in
+   turn and keeping its shards in the compute layout
+   (``compute_shardings``): ``prefill(..., mesh=)`` at B = 2, T = 2048,
+   counts zeroed just before and read just after (K4 a launch a layer a
+   rank, all on the tensor-core kernel, on 16 and 8 local heads), every K4 call held against its plain version on its own
    inputs (``K4Checked``); rank 0 runs the meshless prefill of the whole
    weights beside it: logits within ``PREFILL_LOGIT_TOL``, and each
    block, fed the mesh run's input to it (``BlockLog``), within
@@ -284,7 +284,33 @@ kernel of those paths against its plain PyTorch version:
    in a fresh process (a ``fake`` group of 2 ranks, ``meta`` tensors)
    counts rank 0 of phase 21's train step; its predicted peak must lie
    within 0.8–1.25× of rank 0's measured ``max_memory_allocated``, and its
-   counted flops are printed beside the measured product device time.
+   counted flops are printed beside the measured product device time;
+23. SLICE 14, THE REFERENCE'S OPTIMIZED CELLS AND THE SEQUENCE-SPLIT
+   CACHE over processes that share the card (phase 21's ``--tp-worker``
+   gloo groups, of 2 and then 4): (a) Megatron-SP (``seq_sp`` →
+   ``model``) on chatglm3-6b at ``MESH_LAYERS`` layers, remat on, over
+   (1, 2) and (1, 4): one train step, counts zeroed just before and read
+   just after (K4 2 and K4′ 3 launches a layer a rank, all on the
+   tensor-core routes), every K4 and K4′ call held against its plain
+   version on its own inputs (``K4Checked``, ``K4BChecked``; the checked
+   K4′ launches must equal the counted ones), each rank's reduced gradient
+   (recorded from the step, ``recorded_reduced``) and loss against the
+   meshless ``loss_and_grads``
+   within ``TRAIN_GRAD_TOL`` and ``TRAIN_LOSS_RTOL`` (each rank's twin in
+   turn), rank 0's peak memory beside phase 21's step without SP; (b) at 4
+   processes ZeRO-3 of the MoE experts: mixtral-8x7b at full width and
+   ``ZERO3_LAYERS`` layer over a ``ZERO3_MESH`` ``data × model`` mesh,
+   the step as ``build_cell(optimized=True)`` builds it, each rank's
+   expert bytes 1/4 of the whole, and the same checks; (c) the decode
+   cache split by sequence (``seq_kv`` → ``model``): chatglm3-6b at full
+   width over (1, 2) and (1, 4), a B = 2, T = 2048 prefill (K4 28
+   launches a rank, each call held) and 4 decode steps, the logits within
+   ``PREFILL_LOGIT_TOL`` of meshless, the cache's bytes a rank beside the
+   heads' layout; at 2 processes also gemma3-12b at one repeat of its
+   pattern, whose 1024-slot rings wrap in the prefill; (d) the dry run's
+   count of (a)'s tp = 2 step (``dryrun_check`` under the SP rules): its
+   predicted peak within 0.8–1.25× of rank 0's measured one. Times are
+   gloo's copies through host memory: not a multi-card number.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -384,8 +410,10 @@ K4B_SHAPES = ((2, 2048, 2048, 32, 2, 128, True, "bfloat16"),
               (1, 40, 100, 4, 2, 320, False, "float32"),
               # slice 12: train_lm --params-100m --full-attention
               (8, 256, 256, 12, 4, 64, True, "float32"),
-              # slice 13: phase 21's tp = 2 train step on each rank
-              (2, 2048, 2048, 16, 1, 128, True, "bfloat16"))
+              # slice 13: phase 21's tp = 2 train step on each rank;
+              # slice 14: phase 23's SP step at tp = 4 (one KV head a rank)
+              (2, 2048, 2048, 16, 1, 128, True, "bfloat16"),
+              (2, 2048, 2048, 8, 1, 128, True, "bfloat16"))
 # K4′ against its plain version in float32 on the same inputs, element by
 # element: |out - ref| <= a |ref| + b rms(ref's row over Dh) + c rms(ref).
 # bfloat16 (a, b, c) = (2^-7, 2^-10, 2^-16): a is twice the outputs'
@@ -420,6 +448,18 @@ K4B_TC_FLOOR = (2 ** -7, 2 ** -6, 2 ** -16)
 # of the terms of each element (``k4b_terms``): float32's rounding of
 # them, with a margin of 16 over the 2^-24 a float32 operation adds
 K4B_TERMS = 2 ** -20
+# ... and on the tensor-core route, which rounds P and dS to bf16 before
+# the products that sum them into dq, dk and dv (a relative error within
+# ±2^-8 a term, uniform: 2^-8/√3 of it standard, independent from term to
+# term), plus K4B_TC_RSS of the root-sum-square of each element's terms
+# (``k4b_rss``): about 6.9 standard deviations of that rounding. Phase
+# 15's b rms(row) term stands for it on unit normals, where an element is
+# of the size of its terms; on a training run's inputs dq's terms cancel
+# 50-350x (chatglm3-6b's SP step), and there an exact emulation of the
+# route's roundings is as far from the float64 plain version as the
+# kernel (1.74x phase 15's tolerance) while the kernel is within 1 % of
+# the emulation (``tools/k4b_rounding_probe.py``)
+K4B_TC_RSS = 2 ** -6
 # the most score elements a K4 call's plain reference computes in one call
 # (``k4_call_excess``; 256 MB of float32)
 K4_REF_WHOLE = 1 << 26
@@ -488,9 +528,24 @@ EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 300, 150
 EXAMPLE_FIRST_TOL, EXAMPLE_LAST10_TOL = 1e-4, 0.05
 MESH_LAYERS, MESH_STEPS = 4, 2
 # phase 21: tensor parallelism over processes that share the card (a gloo
-# group each); the train part at the first size; a rank's join limit
+# group each); the train part at the first size; a rank's join limit; the
+# serving part's depth: 8 of chatglm3-6b's 28 layers (cut to keep the
+# script's gloo phases, which vary 1.5x with the host, well inside its
+# time limit; phase 23 serves all 28 over the same groups)
 TP_SIZES, TP_DECODE_STEPS, TP_JOIN_S = (2, 4), 4, 600
+TP_SERVING_LAYERS = 8
 MOE_ARCH, MOE_OUT_TOL = "qwen3-moe-235b-a22b", 1e-2
+# phase 23 (slice 14), over the same gloo groups: Megatron-SP's rules (the
+# reference's optimized train cells), the sequence-split decode cache's
+# (its decode cells), the optimized cells' ZeRO-3 of the MoE experts; the
+# ZeRO-3 step's config, depth and mesh (4 processes), and the config whose
+# sliding-window ring (1024 slots) wraps in the prefill, at one repeat of
+# its pattern (5 local layers, 1 global)
+SP_RULES = {"seq_sp": "model"}
+KV_RULES = {"seq_kv": "model"}
+OPT_RULES = {"seq_sp": "model", "fsdp": ("pod", "data")}
+ZERO3_ARCH, ZERO3_LAYERS, ZERO3_MESH = "mixtral-8x7b", 1, (2, 2)
+KV_RING_ARCH, KV_RING_LAYERS = "gemma3-12b", 6
 # the gradient check: 4 layers, K4 and K4′ against a twin whose attention is
 # K4's plain version with autograd, on the same card and batch. Each
 # gradient leaf as a share of its rms: rms(diff) <= 0.02 rms(ref), rms(ref)
@@ -2369,16 +2424,50 @@ def k4b_terms(q, k, v, out, dout, causal):
     return dq.reshape(q.shape), dk, dv
 
 
-def k4b_terms_excess(out, ref64, terms, tol) -> float:
+def k4b_rss(q, k, v, out, dout, causal):
+    """The root-sum-square of the terms K4′ sums into each element, in
+    float64, with the exact P and signed dS of the plain version:
+    c sqrt(Σ_k dS² K²) for dq, c sqrt(Σ_q dS² Q²) for dk (over the
+    group's query heads too) and sqrt(Σ_q P² dO²) for dv."""
+    import torch
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    c = dh ** -0.5
+    qf = q.double().reshape(b, tq, hkv, g, dh)
+    kf, vf = k.double(), v.double()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf * c, kf)
+    if causal:
+        valid = torch.arange(tk, device=q.device)[None, :] \
+            <= torch.arange(tq, device=q.device)[:, None]
+        s = s.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    del s
+    do = dout.double().reshape(b, tq, hkv, g, dh)
+    d = (do * out.double().reshape(b, tq, hkv, g, dh)).sum(-1)
+    ds2 = (p * (torch.einsum("bqhgd,bkhd->bhgqk", do, vf)
+                - d.permute(0, 2, 3, 1)[..., None])).pow(2)
+    dq = c * torch.einsum("bhgqk,bkhd->bqhgd", ds2, kf.pow(2)).sqrt()
+    dk = c * torch.einsum("bhgqk,bqhgd->bkhd", ds2, qf.pow(2)).sqrt()
+    del ds2
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.pow(2), do.pow(2)).sqrt()
+    return dq.reshape(q.shape), dk, dv
+
+
+def k4b_terms_excess(out, ref64, terms, tol, rss=None) -> float:
     """K4′'s error against ``ref64`` (its plain version in float64) as a
     share of ``tol`` (a, b, c) plus ``K4B_TERMS`` of the element's
-    ``terms`` (``k4b_terms``): the largest |out - ref64| / (a |ref64| + b
-    rms(ref64's row) + c rms(ref64) + K4B_TERMS terms); at most 1
+    ``terms`` (``k4b_terms``) and, on the tensor-core route,
+    ``K4B_TC_RSS`` of their root-sum-square ``rss`` (``k4b_rss``): the
+    largest |out - ref64| / (a |ref64| + b rms(ref64's row) + c
+    rms(ref64) + K4B_TERMS terms [+ K4B_TC_RSS rss]); at most 1
     passes."""
     a, b, c = tol
     rms = ref64.pow(2).mean(-1, keepdim=True).sqrt()
     bound = a * ref64.abs() + b * rms + c * ref64.pow(2).mean().sqrt() \
         + K4B_TERMS * terms
+    if rss is not None:
+        bound = bound + K4B_TC_RSS * rss
     return ((out.double() - ref64).abs() / bound).max().item()
 
 
@@ -2387,12 +2476,14 @@ class K4BChecked:
     checked as it returns against ``flash_attention_bwd_ref`` on its own
     inputs and dropped: in float64, within phase 15's tolerance for the
     route it took (``K4B_TC_TOL``, ``K4B_BF16_TOL`` or ``K4B_F32_TOL``)
-    plus ``K4B_TERMS`` of the magnitude of each element's terms
+    plus ``K4B_TERMS`` of the magnitude of each element's terms and, on
+    the tensor-core route, ``K4B_TC_RSS`` of their root-sum-square
     (``k4b_terms_excess``). ``phase15`` is the largest share of phase
     15's tolerance against the float32 plain version, as phase 15 holds
     unit normals (reported, not held), and ``over`` the calls beyond it.
-    The references materialize a call's scores: for the small training
-    shapes of the examples. ``calls``, ``worst`` and ``check_s`` as in
+    The references materialize a call's scores: for the examples' small
+    training shapes and phase 23's per-rank heads (at tp = 2, 1 GiB a
+    float64 score tensor). ``calls``, ``worst`` and ``check_s`` as in
     :class:`K4Checked`; ``launches`` the kernel passes the checked calls
     made (``BWD_PASSES`` a call on its route)."""
 
@@ -2401,7 +2492,7 @@ class K4BChecked:
         from repro_torch.kernels.attn import attn as PA
         self._pa, self._bwd = PA, PA.flash_attention_bwd
         self.calls, self.launches, self.worst, self.check_s = 0, 0, 0.0, 0.0
-        self.phase15, self.over = 0.0, 0
+        self.phase15, self.over, self.no_rss = 0.0, 0, 0.0
 
         def checked(q, k, v, out, dout, *, causal=True, lse=None):
             got = self._bwd(q, k, v, out, dout, causal=causal, lse=lse)
@@ -2418,11 +2509,19 @@ class K4BChecked:
             old = max(k4b_excess(g, p, tol) for g, p in zip(got, plain))
             self.phase15 = max(self.phase15, old)
             self.over += old > 1.0
+            del plain
             terms = k4b_terms(*ins, causal)
+            rss = k4b_rss(*ins, causal) if route == "tensor_cores" \
+                else (None,) * 3
             self.worst = max([self.worst] + [
-                k4b_terms_excess(g, r, m, tol)
-                for g, r, m in zip(got, ref64, terms)])
-            del plain, ref64, terms
+                k4b_terms_excess(g, r, m, tol, e)
+                for g, r, m, e in zip(got, ref64, terms, rss)])
+            if route == "tensor_cores":
+                # reported, not held: the share without the route's term
+                self.no_rss = max([self.no_rss] + [
+                    k4b_terms_excess(g, r, m, tol)
+                    for g, r, m in zip(got, ref64, terms)])
+            del ref64, terms, rss
             self.check_s += time.perf_counter() - t0
             self.calls += 1
             self.launches += PA.BWD_PASSES[route]
@@ -2437,13 +2536,15 @@ class K4BChecked:
         """Logs the checked calls of ``what`` and fails if one was beyond
         the tolerance. Returns the largest share of it."""
         if self.calls:
+            tc = (f"; without the tensor-core route's {K4B_TC_RSS:.3g} of "
+                  f"their root-sum-square, {self.no_rss:.3f}"
+                  if self.no_rss else "")
             log(f"[train] {what}: each of its {self.calls} K4′ calls within "
                 f"{self.worst:.3f} of the tolerance (phase 15's plus "
                 f"{K4B_TERMS:.3g} of each element's terms) of the plain "
-                "version in float64 on the call's own "
-                f"inputs; against the float32 plain version, {self.over} "
-                f"beyond phase 15's tolerance alone, the worst at "
-                f"{self.phase15:.3f} of it")
+                f"version in float64 on the call's own inputs{tc}; against "
+                f"the float32 plain version, {self.over} beyond phase 15's "
+                f"tolerance alone, the worst at {self.phase15:.3f} of it")
         if self.worst > 1.0:
             raise AssertionError(f"{what}: a K4′ call differs from its "
                                  f"plain version by {self.worst:.3g}x the "
@@ -3626,27 +3727,29 @@ def phase_mesh(dev, card, b=TRAIN_B, t=TRAIN_T, cfg=None, moe_cfg=None,
 
 # ------------------------------------------------------------ phases 21-22
 
-def tp_shards(whole, mesh, cfg):
-    """This rank's parameters in the compute layout, cut from ``whole``
-    (fresh tensors)."""
+def tp_shards(whole, mesh, cfg, osh=None):
+    """This rank's parameters in the layout ``osh`` (the compute layout by
+    default), cut from ``whole`` (fresh tensors)."""
     from repro_torch.distributed import sharding as S
     from repro_torch.models import param_specs
     from repro_torch.tree import tree_map
-    osh = S.compute_shardings(param_specs(cfg), mesh, cfg)
+    if osh is None:
+        osh = S.compute_shardings(param_specs(cfg), mesh, cfg)
     return tree_map(lambda t, sh: S.shard_of(t, sh).clone(), whole, osh), osh
 
 
-def tp_draw(dev, cfg, mesh, rank, world, keep: bool):
+def tp_draw(dev, cfg, mesh, rank, world, keep: bool, osh=None):
     """Each rank in turn draws ``cfg``'s whole seeded parameters on the
-    card (``lm_model``) and cuts its shards, so that one whole copy exists
-    at a time; → (shards, their layout, the whole copy if ``keep``)."""
+    card (``lm_model``) and cuts its shards (in the layout ``osh``, the
+    compute layout by default), so that one whole copy exists at a time;
+    → (shards, their layout, the whole copy if ``keep``)."""
     import torch
     import torch.distributed as dist
-    whole = local = osh = None
+    whole = local = None
     for r in range(world):
         if r == rank:
             whole = lm_model(dev, cfg)
-            local, osh = tp_shards(whole, mesh, cfg)
+            local, osh = tp_shards(whole, mesh, cfg, osh)
             if not keep:
                 whole = None
                 gc.collect()
@@ -3675,17 +3778,20 @@ def tp_lockstep_ms(fn, reps: int = 1) -> float:
 def tp_serving(dev, mesh, rank, world, b=PREFILL_B, t=PREFILL_T,
                steps=TP_DECODE_STEPS):
     """Phase 21's serving part on one rank: chatglm3-6b's prefill at (b, t)
-    and ``steps`` decode steps over the (1, world) mesh, every K4 call of
+    and ``TP_SERVING_LAYERS`` layers and ``steps`` decode steps over the
+    (1, world) mesh, every K4 call of
     the prefill checked on its own inputs (``K4Checked``); rank 0 holds
     the whole model too and runs the meshless prefill (free-running, and
     block by block on the mesh run's block inputs, ``BlockLog``) and
     decode beside it."""
+    import dataclasses
     import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, prefill
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TP_SERVING_LAYERS)
     local, _, whole = tp_draw(dev, cfg, mesh, rank, world, keep=rank == 0)
     batch = prefill_batch(dev, cfg, b, t)
     cache_len = t + steps
@@ -3700,8 +3806,8 @@ def tp_serving(dev, mesh, rank, world, b=PREFILL_B, t=PREFILL_T,
     torch.cuda.synchronize()
     counts = kernel_counts()
     per_call = checked.held(f"tp={world} rank {rank} prefill")
-    out = dict(k4_launches=counts["K4"], k4_calls_checked=checked.calls,
-               k4_worst_share=per_call,
+    out = dict(layers=cfg.n_layers, k4_launches=counts["K4"],
+               k4_calls_checked=checked.calls, k4_worst_share=per_call,
                heads_local=cfg.n_heads // world)
     from repro_torch.kernels.attn import attn as PA
     if counts["K4"] != cfg.n_layers or checked.calls != cfg.n_layers \
@@ -3783,17 +3889,17 @@ def tp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
     (``make_train_step(mesh=)``; no ZeRO layout: gloo carries only sums on
     CUDA tensors) on freshly cut shards, its peak memory (from the shards,
     their moments and the batch), launches and ms; a traced warm step's
-    product time on rank 0; then on fresh shards of the same draw, the
-    loss and each leaf's reduced gradient (the split leaves' own, the
-    whole leaves' shares summed over ``model``) against the meshless
-    ``loss_and_grads``, and the meshless step's ms on rank 0."""
+    product time on rank 0; then the first step's loss and each leaf's
+    reduced gradient (the split leaves' own, the whole leaves' shares
+    summed over ``model``; ``recorded_reduced``) against the meshless
+    ``loss_and_grads`` (``held_against_meshless``), and the meshless
+    step's ms on rank 0."""
     import dataclasses
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
-    from repro_torch.distributed import sharding as S
     from repro_torch.training import OptConfig, make_train_step, opt_init
-    from repro_torch.training import optimizer as O
+    from repro_torch.training.optimizer import recorded_reduced
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_LAYERS,
                               remat=True)
     opt = OptConfig(warmup_steps=1)
@@ -3809,7 +3915,8 @@ def tp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
     before = torch.cuda.memory_allocated()
     zero_counts()
     t0 = time.perf_counter()
-    local, state, m = step(local, state, batch)
+    with recorded_reduced("cpu") as red:
+        local, state, m = step(local, state, batch)
     torch.cuda.synchronize()
     first_ms = 1e3 * (time.perf_counter() - t0)
     counts = kernel_counts()
@@ -3844,48 +3951,21 @@ def tp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the gradient check, on fresh shards of the same draw
-    local, osh, whole = tp_draw(dev, cfg, mesh, rank, world, keep=True)
-    loss, shares = O._mesh_loss_and_grads(local, batch, cfg, mesh)
-    layouts = O._layouts(local, osh, osh)
-    reduced = [tuple(lay.reduce(u) for u in node)
-               if isinstance(node, tuple) else lay.reduce(node)
-               for (_, node, _), lay in zip(O._param_leaves(local, shares),
-                                             layouts)]
-    del shares
-    mloss, _, grads = O.loss_and_grads(whole, batch, cfg)
-    worst, worst_leaf = 0.0, None
-    for (name, sh), node, (_, w, stacked) in zip(
-            _named_leaves(osh), reduced, O._param_leaves(whole, grads)):
-        spec = S.NamedSharding(mesh, sh.spec[1:] if stacked else sh.spec)
-        for g, wu in (zip(node, w) if stacked else [(node, w)]):
-            want = S.shard_of(wu, spec)
-            d = (g.float() - want.float()).pow(2).mean().sqrt().item() \
-                / (leaf_rms(want) or 1.0)
-            if d > worst:
-                worst, worst_leaf = d, name
-    out.update(mesh_loss=float(loss), meshless_loss=float(mloss),
-               grad_worst_rms_share=worst, grad_worst_leaf=worst_leaf)
-    if not abs(out["mesh_loss"] - out["meshless_loss"]) \
-            <= TRAIN_LOSS_RTOL * abs(out["meshless_loss"]) \
-            or not worst <= TRAIN_GRAD_TOL:
-        raise AssertionError(f"tp={world} rank {rank}: loss "
-                             f"{out['mesh_loss']} vs {out['meshless_loss']}"
-                             f", worst gradient leaf {worst_leaf} at "
-                             f"{worst:.4g} of its rms")
-    del local, reduced, grads
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    dist.barrier()
+    mloss, worst, leaf = held_against_meshless(
+        dev, cfg, batch, red, osh, rank, world,
+        f"tp={world} rank {rank}")
+    out.update(mesh_loss=out["loss"], meshless_loss=mloss,
+               grad_worst_rms_share=worst, grad_worst_leaf=leaf)
+    check_twin(out, f"tp={world} rank {rank}")
+    del red
     if rank == 0:
+        whole = lm_model(dev, cfg)
         pstate = opt_init(whole)
         pstep = make_train_step(cfg, opt)
         pstep(whole, pstate, batch)
         out["meshless_step_ms"] = sorted(
             _timed(lambda: pstep(whole, pstate, batch)) for _ in range(3))[1]
-        del pstate
-    del whole
+        del pstate, whole
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
@@ -3893,10 +3973,11 @@ def tp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
 
 
 def tp_worker(argv) -> int:
-    """One rank of phase 21 (``chip_smoke.py --tp-worker WORLD RANK PORT
-    OUT PARTS``): a gloo group of WORLD processes on the one card, its
-    store on 127.0.0.1:PORT, a (1, WORLD) ``data × model`` mesh; runs the
-    PARTS (``serving``, ``train``) and writes its numbers to
+    """One rank of phases 21 and 23 (``chip_smoke.py --tp-worker WORLD RANK
+    PORT OUT PARTS``): a gloo group of WORLD processes on the one card, its
+    store on 127.0.0.1:PORT, a (1, WORLD) ``data × model`` mesh (``zero3``:
+    ``ZERO3_MESH``); runs the PARTS (``serving``, ``train``; phase 23's
+    ``sp``, ``kv``, ``ring``, ``zero3``) and writes its numbers to
     ``OUT.rankRANK.json``."""
     world, rank, port, out, parts = int(argv[0]), int(argv[1]), argv[2], \
         argv[3], argv[4].split(",")
@@ -3918,6 +3999,17 @@ def tp_worker(argv) -> int:
             res["serving"] = tp_serving(dev, mesh, rank, world)
         if "train" in parts:
             res["train"] = tp_train(dev, mesh, rank, world)
+        if "sp" in parts:
+            res["sp"] = sp_train(dev, mesh, rank, world)
+        if "kv" in parts:
+            res["kv"] = kv_serving(dev, mesh, rank, world, TRAIN_ARCH)
+        if "ring" in parts:
+            res["ring"] = kv_serving(dev, mesh, rank, world, KV_RING_ARCH,
+                                     layers=KV_RING_LAYERS)
+        if "zero3" in parts:
+            zmesh = init_device_mesh("cuda", ZERO3_MESH,
+                                     mesh_dim_names=("data", "model"))
+            res["zero3"] = zero3_train(dev, zmesh, rank, world)
         with open(f"{out}.rank{rank}.json", "w") as f:
             json.dump(res, f)
     finally:
@@ -3925,11 +4017,44 @@ def tp_worker(argv) -> int:
     return 0
 
 
+def run_workers(world: int, parts: str, out: str) -> list:
+    """``world`` processes of ``tp_worker`` running ``parts`` over a gloo
+    group on the card (a free port on 127.0.0.1), each joined within
+    ``TP_JOIN_S`` seconds or all killed; their output is logged, and any
+    rank's failure raises. → each rank's numbers."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-worker",
+         str(world), str(r), str(port), out, parts],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=TP_JOIN_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            log(f"[{parts} world={world} r{r}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"{parts} over {world} processes: rank {r} "
+                                 f"failed (exit {p.returncode})")
+    ranks = []
+    for r in range(world):
+        with open(f"{out}.rank{r}.json") as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
 def phase_tp(dev, card, sizes=TP_SIZES):
     """Phase 21 (docstring item 21): for each ``world`` of ``sizes``, that
     many processes share the card over a gloo group (``tp_worker``); the
     train part at the first. Returns {world: [each rank's numbers]}."""
-    import socket
     import torch
     gc.collect()
     torch.cuda.empty_cache()
@@ -3938,38 +4063,13 @@ def phase_tp(dev, card, sizes=TP_SIZES):
     os.makedirs(out_dir, exist_ok=True)
     results = {}
     for i, world in enumerate(sizes):
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
         parts = "serving,train" if i == 0 else "serving"
-        out = os.path.join(out_dir, f"tp{world}")
         t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--tp-worker",
-             str(world), str(r), str(port), out, parts],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(world)]
-        try:
-            logs = [p.communicate(timeout=TP_JOIN_S)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, (p, text) in enumerate(zip(procs, logs)):
-            for line in text.splitlines():
-                log(f"[tp={world} r{r}] {line}")
-            if p.returncode != 0:
-                raise AssertionError(f"tp={world}: rank {r} failed "
-                                     f"(exit {p.returncode})")
-        ranks = []
-        for r in range(world):
-            with open(f"{out}.rank{r}.json") as f:
-                ranks.append(json.load(f))
+        ranks = run_workers(world, parts, os.path.join(out_dir, f"tp{world}"))
         results[world] = ranks
         sv = ranks[0]["serving"]
-        log(f"[tp] chatglm3-6b over tp={world} processes sharing one card "
-            f"over gloo ({card}; not a multi-card number): prefill B = "
+        log(f"[tp] chatglm3-6b at {sv['layers']} layers over tp={world} "
+            f"processes sharing one card over gloo ({card}; not a multi-card number): prefill B = "
             f"{PREFILL_B}, T = {PREFILL_T} {sv['prefill_ms']:.1f} ms a rank "
             f"in lockstep against {sv['meshless_prefill_ms']:.1f} meshless; "
             f"{sv['heads_local']} heads a rank, K4 {sv['k4_launches']} "
@@ -4014,13 +4114,28 @@ dryrun.start_fake_group(world)
 mesh = make_test_mesh(1, world, device_type="cpu")
 cfg = dataclasses.replace(get_config(sys.argv[6]), n_layers=layers,
                           remat=True)
-c = dryrun.count_train_step(cfg, mesh, b, t)
+c = dryrun.count_train_step(cfg, mesh, b, t, rules=json.loads(sys.argv[7]))
 print(json.dumps(dict(peak_bytes=c.peak_bytes, flops=c.flops,
                       argument_bytes=c.argument_bytes,
                       product_bytes=c.product_bytes,
                       collective_bytes=c.collective_bytes,
                       collective_counts=c.collective_counts)))
 """
+
+
+def dryrun_check(rules=None) -> dict:
+    """The dry run's count (a fresh process, a ``fake`` group, ``meta``
+    tensors) of rank 0's train step of ``TRAIN_ARCH`` at ``MESH_LAYERS``
+    layers over (1, ``TP_SIZES[0]``), under the axis ``rules``."""
+    proc = subprocess.run(
+        [sys.executable, "-c", DRYRUN_CHECK, os.path.join(ROOT, "src"),
+         str(TP_SIZES[0]), str(MESH_LAYERS), str(TRAIN_B), str(TRAIN_T),
+         TRAIN_ARCH, json.dumps(rules or {})], capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry run's count failed: "
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def phase_dryrun(card, tp):
@@ -4031,14 +4146,7 @@ def phase_dryrun(card, tp):
     world = TP_SIZES[0]
     tr = tp[world][0]["train"]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", DRYRUN_CHECK, os.path.join(ROOT, "src"),
-         str(world), str(MESH_LAYERS), str(TRAIN_B), str(TRAIN_T),
-         TRAIN_ARCH], capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"the dry run's count failed: "
-                             f"{proc.stderr[-3000:]}")
-    pred = json.loads(proc.stdout.strip().splitlines()[-1])
+    pred = dryrun_check()
     ratio = tr["peak_bytes"] / pred["peak_bytes"]
     rate = pred["flops"] / (tr["product_device_ms"] * 1e-3) \
         if tr["product_device_ms"] else 0.0
@@ -4061,6 +4169,368 @@ def phase_dryrun(card, tp):
     if not 0.8 <= ratio <= 1.25:
         raise AssertionError(f"the measured peak is {ratio:.3f}x the dry "
                              "run's prediction, outside 0.8-1.25")
+    return out
+
+
+# ------------------------------------------------------------ phase 23
+
+def held_against_meshless(dev, cfg, batch, blocks, shardings, rank, world,
+                          what):
+    """Each rank in turn draws ``cfg``'s whole seeded weights, takes the
+    meshless ``loss_and_grads`` and holds its reduced gradient ``blocks``
+    (laid out as ``shardings``, a stacked leaf's repeats in turn) against
+    its blocks of the meshless gradient: → (meshless loss, the worst
+    leaf's rms(diff) / rms(meshless), that leaf)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as S
+    from repro_torch.training import optimizer as O
+    out = None
+    for r in range(world):
+        if r == rank:
+            whole = lm_model(dev, cfg)
+            mloss, _, grads = O.loss_and_grads(whole, batch, cfg)
+            worst, worst_leaf, it = 0.0, None, iter(blocks)
+            for (name, sh), (_, w, stacked) in zip(
+                    _named_leaves(shardings), O._param_leaves(whole, grads)):
+                spec = S.NamedSharding(sh.mesh, sh.spec[1:] if stacked
+                                       else sh.spec)
+                for wu in (w if stacked else [w]):
+                    want = S.shard_of(wu, spec)
+                    g = next(it).to(want.device)
+                    if g.shape != want.shape:
+                        raise AssertionError(f"{what}: {name}'s block is "
+                                             f"{tuple(g.shape)}, not "
+                                             f"{tuple(want.shape)}")
+                    d = (g.float() - want.float()).pow(2).mean().sqrt() \
+                        .item() / (leaf_rms(want) or 1.0)
+                    if d > worst:
+                        worst, worst_leaf = d, name
+            out = (float(mloss), worst, worst_leaf)
+            del whole, grads
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        dist.barrier()
+    return out
+
+
+def check_twin(out, what):
+    if not abs(out["mesh_loss"] - out["meshless_loss"]) \
+            <= TRAIN_LOSS_RTOL * abs(out["meshless_loss"]) \
+            or not out["grad_worst_rms_share"] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"{what}: loss {out['mesh_loss']} vs "
+                             f"{out['meshless_loss']}, worst gradient leaf "
+                             f"{out['grad_worst_leaf']} at "
+                             f"{out['grad_worst_rms_share']:.4g} of its rms")
+
+
+def sp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
+    """Phase 23 (a) on one rank: chatglm3-6b at ``MESH_LAYERS`` layers,
+    remat on, over the (1, world) mesh with Megatron-SP (``seq_sp`` →
+    ``model``): one ``make_train_step(mesh=, rules=)`` step, every K4 and
+    K4′ call held against its plain version on its own inputs
+    (``K4Checked``, ``K4BChecked``; ``every_call_held``), its launches; a
+    second
+    step's peak memory and ms (the checks' float32 attention no longer
+    beside it); the first step's reduced gradient and loss against the
+    meshless ``loss_and_grads`` (``held_against_meshless``)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.training import OptConfig, make_train_step, opt_init
+    from repro_torch.training.optimizer import recorded_reduced
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_LAYERS,
+                              remat=True)
+    what = f"SP tp={world} rank {rank} train step"
+    local, osh, _ = tp_draw(dev, cfg, mesh, rank, world, keep=False)
+    state = opt_init(local)
+    batch = train_batch(dev, cfg, b, t)
+    step = make_train_step(cfg, OptConfig(warmup_steps=1), mesh=mesh,
+                           rules=SP_RULES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    with K4Checked() as checked, K4BChecked() as bwd, \
+            recorded_reduced("cpu") as red:
+        local, state, m = step(local, state, batch)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    counts = kernel_counts()
+    out = dict(layers=MESH_LAYERS, first_step_ms=first_ms,
+               check_s=checked.check_s + bwd.check_s,
+               checked_peak_bytes=torch.cuda.max_memory_allocated(),
+               allocated_before_bytes=before, launches=counts,
+               k4_tc_launches=PA.FLASH_TC_KERNEL.launches,
+               k4b_tc_launches=PA.FLASH_BWD_TC_KERNEL.launches,
+               k4b_phase15_share=bwd.phase15, mesh_loss=float(m["loss"]),
+               **every_call_held(what, counts, checked, bwd))
+    if counts["K4"] != 2 * MESH_LAYERS \
+            or out["k4_tc_launches"] != 2 * MESH_LAYERS \
+            or out["k4b_tc_launches"] != 3 * MESH_LAYERS \
+            or counts["K4′"] != 3 * MESH_LAYERS:
+        raise AssertionError(f"{what} launched {counts}; K4 "
+                             f"{2 * MESH_LAYERS} and K4′ {3 * MESH_LAYERS} "
+                             "on the tensor cores expected")
+    # the peak of a step without the checks' attention beside it
+    torch.cuda.reset_peak_memory_stats()
+    out["step_ms"] = tp_lockstep_ms(lambda: step(local, state, batch))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del local, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    mloss, worst, leaf = held_against_meshless(dev, cfg, batch, red, osh,
+                                               rank, world, what)
+    out.update(meshless_loss=mloss, grad_worst_rms_share=worst,
+               grad_worst_leaf=leaf)
+    check_twin(out, what)
+    return out
+
+
+def kv_serving(dev, mesh, rank, world, arch, layers=None, b=PREFILL_B,
+               t=PREFILL_T, steps=TP_DECODE_STEPS):
+    """Phase 23 (c) on one rank: ``arch`` (at ``layers`` layers where
+    given) over the (1, world) mesh with the decode cache split by
+    sequence (``seq_kv`` → ``model``): a (b, t) prefill, every K4 call
+    held against its plain version, then ``steps`` decode steps; the cache
+    bytes a rank (and in the heads' layout), and on rank 0 the logits
+    against the meshless prefill and decode of the whole weights."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, prefill
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    what = f"seq_kv {cfg.name} tp={world} rank {rank}"
+    local, _, whole = tp_draw(dev, cfg, mesh, rank, world, keep=rank == 0)
+    batch = prefill_batch(dev, cfg, b, t)
+    cache_len = t + steps
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (steps, b), dtype=np.int32)).to(dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with K4Checked() as checked:
+        logits, cache = prefill(local, batch, cfg, cache_len, mesh=mesh,
+                                rules=KV_RULES)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    n_k4 = attention_layers(cfg)[0]
+    out = dict(arch=cfg.name, layers=cfg.n_layers, k4_launches=counts["K4"],
+               k4_calls_checked=checked.calls, k4_worst_share=checked.held(
+                   what),
+               prefill_ms=1e3 * (time.perf_counter() - t0)
+               - 1e3 * checked.check_s,
+               cache_bytes=sum(x.numel() * x.element_size()
+                               for x in _leaves(cache)))
+    if counts["K4"] != n_k4 or checked.calls != n_k4:
+        raise AssertionError(f"{what}: the prefill launched K4 "
+                             f"{counts['K4']} times ({checked.calls} "
+                             f"checked); {n_k4} expected")
+
+    def nbytes(c):
+        return sum(x.numel() * x.element_size() for x in _leaves(c))
+    out["init_cache_bytes"] = nbytes(init_cache(
+        cfg, b, cache_len, device="meta", mesh=mesh, rules=KV_RULES))
+    out["init_cache_heads_layout_bytes"] = nbytes(init_cache(
+        cfg, b, cache_len, device="meta", mesh=mesh))
+    out["init_cache_whole_bytes"] = nbytes(init_cache(
+        cfg, b, cache_len, device="meta"))
+
+    def decode_run():
+        c, res = cache, []
+        for j in range(steps):
+            lg, c = decode_step(local, c, toks[j], t + j, cfg, mesh=mesh,
+                                rules=KV_RULES, cache_len=cache_len)
+            res.append(lg)
+        return res
+    dec = decode_run()
+    out["decode_ms_per_step"] = tp_lockstep_ms(decode_run) / steps
+    if rank == 0:
+        plogits, pc = prefill(whole, batch, cfg, cache_len)
+        pdec = []
+        for j in range(steps):
+            lg, pc = decode_step(whole, pc, toks[j], t + j, cfg)
+            pdec.append(lg)
+        out["logit_max_diff"] = (logits.float() - plogits.float()).abs() \
+            .max().item()
+        out["logit_abs_max"] = plogits.float().abs().max().item()
+        out["decode_logit_max_diff"] = max(
+            (a.float() - p.float()).abs().max().item()
+            for a, p in zip(dec, pdec))
+        finite = all(torch.isfinite(x.float()).all() for x in dec + [logits])
+        if not finite or logits.shape != (b, cfg.vocab_size):
+            raise AssertionError(f"{what}: logits are not finite of shape "
+                                 f"{(b, cfg.vocab_size)}")
+        for key in ("logit_max_diff", "decode_logit_max_diff"):
+            if not out[key] <= PREFILL_LOGIT_TOL:
+                raise AssertionError(f"{what}: {key} {out[key]:.4g} beyond "
+                                     f"{PREFILL_LOGIT_TOL}")
+        del plogits, pc, pdec
+    del local, whole, cache, logits, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def zero3_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
+    """Phase 23 (b) on one rank: mixtral-8x7b at full width and
+    ``ZERO3_LAYERS`` layers over the ``ZERO3_MESH`` ``data × model`` mesh,
+    the train step as ``launch/specs.py::build_cell(optimized=True)``
+    builds it: Megatron-SP, the ``tp`` form's ``psum_late``, the expert
+    stacks stored split over ``data`` too (ZeRO-3, gathered a layer at a
+    time), the moments and the gradient in the ZeRO layout, the parameters
+    written back to their storage layout, a bf16 accumulator. The
+    capacity factor is E / top-k, so that no bucket drops a token and the
+    ``tp`` form computes the function of the meshless dense form it is
+    held against. Each rank's expert bytes must be 1/(mesh size) of the
+    whole; the loss and its reduced gradient against meshless."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models import param_specs
+    from repro_torch.training import OptConfig, make_train_step, opt_init
+    from repro_torch.training.optimizer import recorded_reduced
+    full = get_config(ZERO3_ARCH)
+    cfg = dataclasses.replace(full, n_layers=ZERO3_LAYERS, remat=True,
+                              moe_psum_late=True,
+                              capacity_factor=full.n_experts / full.top_k)
+    what = f"ZeRO-3 {cfg.name} {ZERO3_MESH} rank {rank} train step"
+    specs = param_specs(cfg)
+    osh = S.compute_shardings(specs, mesh, cfg, moe_fsdp=True,
+                              rules=OPT_RULES)
+    zsh = S.param_shardings(specs, mesh, cfg, OPT_RULES,
+                            extra_batch_dim=True, moe_fsdp=True)
+    local, _, _ = tp_draw(dev, cfg, mesh, rank, world, keep=False, osh=osh)
+    ffn = [local["scan"]["pos0"]["ffn"][k] for k in ("w_gate", "w_up",
+                                                     "w_down")]
+    expert_bytes = sum(x.numel() * x.element_size() for x in ffn)
+    whole_bytes = 3 * cfg.n_experts * cfg.d_model * cfg.d_expert \
+        * cfg.n_layers * ffn[0].element_size()
+    if expert_bytes * world != whole_bytes:
+        raise AssertionError(f"{what}: the rank stores {expert_bytes} bytes "
+                             f"of experts, not 1/{world} of {whole_bytes}")
+    state = opt_init(local, zero_shardings=zsh, out_shardings=osh)
+    batch = train_batch(dev, cfg, b, t)
+    step = make_train_step(cfg, OptConfig(warmup_steps=1), mesh=mesh,
+                           grad_shardings=zsh, param_out_shardings=osh,
+                           accum_dtype=torch.bfloat16, rules=OPT_RULES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    with recorded_reduced("cpu") as red:
+        local, state, m = step(local, state, batch)
+    torch.cuda.synchronize()
+    out = dict(layers=cfg.n_layers, first_step_ms=1e3 * (
+        time.perf_counter() - t0), peak_bytes=torch.cuda.max_memory_allocated(),
+        allocated_before_bytes=before, launches=kernel_counts(),
+        expert_bytes=expert_bytes, expert_whole_bytes=whole_bytes,
+        mesh_loss=float(m["loss"]))
+    del local, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    mloss, worst, leaf = held_against_meshless(dev, cfg, batch, red, zsh,
+                                               rank, world, what)
+    out.update(meshless_loss=mloss, grad_worst_rms_share=worst,
+               grad_worst_leaf=leaf)
+    check_twin(out, what)
+    return out
+
+
+def phase_slice14(dev, card, tp):
+    """Phase 23 (docstring item 23): Megatron-SP, the sequence-split decode
+    cache and (at 4 processes) ZeRO-3 of the MoE experts over processes
+    that share the card (``tp_worker``'s gloo groups), then the dry run's
+    count of the SP step against its measured peak. → the ranks' numbers
+    and the count."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "slice14_phase")
+    os.makedirs(out_dir, exist_ok=True)
+    res = {w: run_workers(w, parts, os.path.join(out_dir, f"w{w}"))
+           for w, parts in ((2, "sp,kv,ring"), (4, "sp,kv,zero3"))}
+    for w, ranks in res.items():
+        sp = ranks[0]["sp"]
+        base = tp[TP_SIZES[0]][0]["train"] if w == TP_SIZES[0] else None
+        log(f"[sp] chatglm3-6b at {sp['layers']} layers, B = {TRAIN_B}, T = "
+            f"{TRAIN_T}, remat, Megatron-SP over tp={w} processes sharing "
+            f"one card over gloo ({card}; not a multi-card number): a train "
+            f"step {sp['step_ms']:.1f} ms (first {sp['first_step_ms']:.1f}, "
+            f"{sp['check_s']:.1f} s of it K4 and K4′ checks); launches "
+            f"{sp['launches']} a rank, K4 and K4′ all on the tensor cores, "
+            f"each K4 call within "
+            f"{max(r['sp']['k4_worst'] for r in ranks):.3f} and each of the "
+            f"{sp['k4b_calls']} K4′ calls a rank within "
+            f"{max(r['sp']['k4b_worst'] for r in ranks):.3f} of its "
+            f"tolerance on its own inputs; loss {sp['mesh_loss']:.6f} against "
+            f"meshless {sp['meshless_loss']:.6f}; worst gradient leaf "
+            f"{max((r['sp'] for r in ranks), key=lambda x: x['grad_worst_rms_share'])['grad_worst_leaf']}"
+            f" at {max(r['sp']['grad_worst_rms_share'] for r in ranks):.4g} "
+            f"of its rms; rank 0 peak {sp['peak_bytes'] / 2**30:.3f} GiB "
+            f"({sp['checked_peak_bytes'] / 2**30:.3f} with the K4 and K4′ "
+            "checks)"
+            + (f" against {base['peak_bytes'] / 2**30:.3f} without SP "
+               f"(phase 21)" if base else ""))
+        for part in ("kv", "ring"):
+            if part not in ranks[0]:
+                continue
+            kv = ranks[0][part]
+            log(f"[kv] {kv['arch']} at {kv['layers']} layers, seq_kv over "
+                f"tp={w} processes ({card}, gloo): prefill B = {PREFILL_B}, "
+                f"T = {PREFILL_T} {kv['prefill_ms']:.1f} ms, K4 "
+                f"{kv['k4_launches']} launches a rank, each call within "
+                f"{max(r[part]['k4_worst_share'] for r in ranks):.3f} of its "
+                f"tolerance; cache {kv['init_cache_bytes'] / 2**20:.1f} MiB a "
+                f"rank (heads' layout "
+                f"{kv['init_cache_heads_layout_bytes'] / 2**20:.1f}, whole "
+                f"{kv['init_cache_whole_bytes'] / 2**20:.1f}); logits "
+                f"{kv['logit_max_diff']:.4g} from meshless (|logits| "
+                f"{kv['logit_abs_max']:.3g}); {TP_DECODE_STEPS} decode steps "
+                f"{kv['decode_ms_per_step']:.1f} ms a step, logits "
+                f"{kv['decode_logit_max_diff']:.4g} from meshless")
+    z = res[4][0]["zero3"]
+    log(f"[zero3] mixtral-8x7b at {z['layers']} layer, optimized over "
+        f"{ZERO3_MESH} processes ({card}, gloo): the train step "
+        f"{z['first_step_ms']:.1f} ms; experts "
+        f"{[r['zero3']['expert_bytes'] / 2**30 for r in res[4]]} GiB a rank "
+        f"of {z['expert_whole_bytes'] / 2**30:.3f}; loss {z['mesh_loss']:.6f}"
+        f" against meshless {z['meshless_loss']:.6f}; worst gradient leaf at "
+        f"{max(r['zero3']['grad_worst_rms_share'] for r in res[4]):.4g} of "
+        f"its rms; rank 0 peak {z['peak_bytes'] / 2**30:.3f} GiB")
+    dry = dryrun_check(SP_RULES)
+    sp = res[2][0]["sp"]
+    ratio = sp["peak_bytes"] / dry["peak_bytes"]
+    log(f"[dryrun] phase 23: the dry run's count of rank 0's SP tp=2 step: "
+        f"peak {dry['peak_bytes'] / 2**30:.3f} GiB, collectives "
+        f"{dry['collective_counts']}; measured {sp['peak_bytes'] / 2**30:.3f}"
+        f" GiB ({ratio:.3f}x)")
+    if not 0.8 <= ratio <= 1.25:
+        raise AssertionError(f"the SP step's measured peak is {ratio:.3f}x "
+                             "the dry run's prediction, outside 0.8-1.25")
+    out = dict(ranks={str(w): r for w, r in res.items()}, dryrun=dict(
+        predicted=dry, peak_ratio=ratio),
+        phase_s=time.perf_counter() - t_phase)
+    log(f"[slice14] phase 23: {out['phase_s']:.1f} s on {card}")
     return out
 
 
@@ -5084,6 +5554,7 @@ def main() -> int:
     mesh = phase_mesh(dev, card)
     tp = phase_tp(dev, card)
     dry = phase_dryrun(card, tp)
+    slice14 = phase_slice14(dev, card, tp)
     k1 = time_k1(dev, serve_stack, metro_stack, launches, k1_err)
     k1["launches_eval"] = eval_launches["pg_solve"]
     k1["tick"] = launches["tick"]
@@ -5156,6 +5627,18 @@ def main() -> int:
         f"tp{w}": {"train_step_per_rank": tp[w][0]["train"]["k4b_tc_launches"]}
         for w in TP_SIZES if "train" in tp[w][0]}
     k4b["slice13"] = dict(tp=tp, dryrun=dry)
+    # slice 14's launches: a rank of phase 23's SP train steps and its
+    # prefills over the sequence-split cache
+    s14 = slice14["ranks"]
+    k4["launches_slice14"] = {
+        f"tp{w}": {"sp_train_step_per_rank": s14[str(w)][0]["sp"]["launches"][
+            "K4"], **{f"{p}_prefill_per_rank": s14[str(w)][0][p]["k4_launches"]
+                      for p in ("kv", "ring") if p in s14[str(w)][0]}}
+        for w in (2, 4)}
+    k4b["launches_slice14"] = {
+        f"tp{w}": {"sp_train_step_per_rank":
+                   s14[str(w)][0]["sp"]["k4b_tc_launches"]} for w in (2, 4)}
+    k4b["slice14"] = slice14
     kernels = [k1, k2, k3, k4, k4b, k4b_core]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

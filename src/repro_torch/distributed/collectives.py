@@ -26,6 +26,16 @@ that a whole tensor's gradient is the same on every rank; mixed with the
 share rule it would count the region's input gradient ``n`` times and
 its split leaves' ``1/n`` times.
 
+Megatron-SP (the reference's ``seq_sp`` → ``model``) keeps that rule with
+a pair of true collectives: a region gathers the ranks' blocks of the
+sequence at entry (:func:`all_gather`, whose backward reduce-scatters the
+gradient shares) and leaves by :func:`seq_exit` (the partials summed, of
+which each rank keeps its block; its backward gathers). Below the exit
+each rank owns a distinct block, so the gradient it holds there is whole,
+not a share. On a gloo group a CUDA tensor's gather and reduce-scatter go
+through sums, the only collective gloo carries on CUDA tensors besides
+broadcast (``_by_sums``); every other group takes the true collectives.
+
 They are written here, not taken from ``torch.distributed.nn.functional``:
 that module is deprecated (each call warns, pointing to the private
 ``torch.distributed._functional_collectives``), its one-tensor gather
@@ -42,7 +52,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather", "all_reduce", "all_to_all", "axis_index",
-           "axis_size", "max_over", "reduce_scatter", "sum_over",
+           "axis_size", "max_over", "reduce_scatter", "seq_exit", "sum_over",
            "tp_exit"]
 
 
@@ -56,22 +66,47 @@ def axis_index(mesh, axis: str) -> int:
     return mesh.get_local_rank(axis)
 
 
-def _gather(x, group, dim: int):
+def _by_sums(group, x) -> bool:
+    """Whether a gather or a reduce-scatter of ``x`` over ``group`` takes
+    its form through sums: gloo carries only sums (and broadcasts) on CUDA
+    tensors, so on a gloo group a CUDA tensor's gather is the sum of the
+    ranks' blocks zero-padded to their places, and its reduce-scatter the
+    sum of the whole, of which the rank keeps its block. Every other
+    backend (NCCL, gloo on CPU tensors, the dry run's ``fake``) takes the
+    true collectives, so the dry run counts them by their kind."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _gather(x, group, dim: int, sums: bool | None = None):
     n = dist.get_world_size(group)
     xm = x.movedim(dim, 0).contiguous()
-    out = xm.new_empty((n * xm.shape[0],) + tuple(xm.shape[1:]))
-    dist.all_gather_into_tensor(out, xm, group=group)
+    if _by_sums(group, x) if sums is None else sums:
+        k = xm.shape[0]
+        r = dist.get_rank(group)
+        out = xm.new_zeros((n * k,) + tuple(xm.shape[1:]))
+        out[r * k:(r + 1) * k] = xm
+        dist.all_reduce(out, group=group)
+    else:
+        out = xm.new_empty((n * xm.shape[0],) + tuple(xm.shape[1:]))
+        dist.all_gather_into_tensor(out, xm, group=group)
     return out.movedim(0, dim)
 
 
-def _scatter_sum(x, group, dim: int):
+def _scatter_sum(x, group, dim: int, sums: bool | None = None):
     n = dist.get_world_size(group)
     xm = x.movedim(dim, 0).contiguous()
     if xm.shape[0] % n:
         raise ValueError(f"dimension {dim} of size {xm.shape[0]} does not "
                          f"split over {n} ranks")
-    out = xm.new_empty((xm.shape[0] // n,) + tuple(xm.shape[1:]))
-    dist.reduce_scatter_tensor(out, xm, group=group)
+    k = xm.shape[0] // n
+    if _by_sums(group, x) if sums is None else sums:
+        r = dist.get_rank(group)
+        xm = xm.clone()
+        dist.all_reduce(xm, group=group)
+        out = xm[r * k:(r + 1) * k]
+    else:
+        out = xm.new_empty((k,) + tuple(xm.shape[1:]))
+        dist.reduce_scatter_tensor(out, xm, group=group)
     return out.movedim(0, dim)
 
 
@@ -99,6 +134,17 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _scatter_sum(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter_sum(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -161,6 +207,19 @@ def tp_exit(x, mesh, axis: str = "model"):
     the meshless product does not have); its backward sums the gradient
     shares, as :func:`all_reduce`'s."""
     return all_reduce(x.float(), mesh, axis).to(x.dtype)
+
+
+def seq_exit(x, mesh, axis: str = "model", dim: int = 1):
+    """The exit of a split region under sequence parallelism (Megatron-SP):
+    the ranks' partial outputs ``x`` summed over mesh axis ``axis`` in
+    float32, of which this rank keeps its block of the sequence dim
+    ``dim``, rounded once to ``x``'s type (``jax.lax.psum_scatter``). Its
+    backward is the all-gather of the gradient: below the exit each rank
+    owns its block, so the gradient it holds there is whole, and every
+    rank's partial reads all of them. The entry of such a region is
+    :func:`all_gather`, whose backward reduce-scatters."""
+    return _ScatterSum.apply(x.float(), mesh.get_group(axis), dim) \
+        .to(x.dtype)
 
 
 def max_over(t, mesh, axis: str = "model"):

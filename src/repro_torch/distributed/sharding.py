@@ -26,11 +26,13 @@ import math
 import re
 import threading
 
-__all__ = ["DEFAULT_RULES", "MeshShape", "NamedSharding", "TPPlan",
-           "axis_rules", "batch_axes", "block", "compute_shardings",
-           "constrain", "current_mesh", "logical_to_spec", "mesh_shape",
-           "named_sharding_for", "param_shardings", "shard_of", "spec_axes",
-           "to_placements", "tp_plan"]
+__all__ = ["DEFAULT_RULES", "KVSplit", "MeshShape", "NamedSharding",
+           "TPPlan", "active_axes", "axis_rules", "batch_axes", "block",
+           "compute_shardings", "constrain", "current_mesh",
+           "expert_fsdp_dim", "fsdp_axes", "kv_split", "logical_to_spec",
+           "mesh_shape", "named_sharding_for", "param_shardings",
+           "seq_parallel", "shard_of", "spec_axes", "to_placements",
+           "tp_plan"]
 
 _state = threading.local()
 
@@ -129,6 +131,35 @@ def axis_rules(mesh, rules: dict | None = None):
 def current_mesh():
     ctx = getattr(_state, "ctx", None)
     return ctx[0] if ctx else None
+
+
+def active_axes(name: str, mesh, rules: dict | None) -> tuple[str, ...]:
+    """The axes of ``mesh`` that ``rules`` (over :data:`DEFAULT_RULES`) map
+    the logical axis ``name`` to, major first (none with no mesh or no
+    such axes). The model's entry points take the rules as an argument
+    and hand what they decide down, so that the layout a caller stored
+    (its cache, its shards) and the one the step computes in come from one
+    object."""
+    if mesh is None:
+        return ()
+    names = mesh_shape(mesh)
+    return tuple(a for a in spec_axes(_rules(mesh, rules).get(name))
+                 if a in names)
+
+
+def seq_parallel(mesh, rules: dict | None) -> bool:
+    """Whether ``rules`` map ``seq_sp`` to a ``model`` axis of several
+    ranks (Megatron-SP, the reference's ``optimized`` train cells)."""
+    return "model" in active_axes("seq_sp", mesh, rules) \
+        and mesh_shape(mesh)["model"] > 1
+
+
+def fsdp_axes(mesh, rules: dict | None) -> tuple[str, ...]:
+    """The axes of several ranks that ``rules`` map ``fsdp`` to: those the
+    MoE expert stacks are stored split over (ZeRO-3), gathered one layer
+    at a time at use."""
+    sizes = mesh_shape(mesh) if mesh is not None else {}
+    return tuple(a for a in active_axes("fsdp", mesh, rules) if sizes[a] > 1)
 
 
 def logical_to_spec(logical: tuple, mesh, rules: dict) -> tuple:
@@ -267,6 +298,22 @@ def _is_expert(name: str, leaf, cfg) -> bool:
             and cfg is not None and cfg.is_moe and "ffn" in name)
 
 
+def _spec_impl(cfg, impl: str | None) -> str:
+    """The MoE form whose expert spec lays out the experts a form ``impl``
+    computes with: its own, or for the dense form the config's (the
+    reference's cells keep the config's spec whatever form they run)."""
+    impl = impl or cfg.moe_impl
+    return cfg.moe_impl if impl == "dense" else impl
+
+
+def expert_fsdp_dim(cfg, leaf: str, impl: str | None = None) -> int:
+    """The dimension of the expert stack ``leaf`` (``w_gate``, ``w_up`` or
+    ``w_down``, rank 3) that ZeRO-3 splits over the data axes
+    (``_MOE_EP_FSDP``, ``_MOE_TP_FSDP``) for the form ``impl``."""
+    table = _MOE_EP_FSDP if _spec_impl(cfg, impl) == "ep" else _MOE_TP_FSDP
+    return table[leaf].index("fsdp")
+
+
 def param_shardings(params, mesh, cfg=None, rules: dict | None = None,
                     extra_batch_dim: bool = False, moe_fsdp: bool = False):
     """Tree of :class:`NamedSharding` matching ``params`` (any leaves with
@@ -334,6 +381,11 @@ class TPPlan:
       ``rnn``: the RG-LRU's width; ``rwkv``: RWKV-6's time-mix heads;
       ``vocab``: the embedding's rows and the head's columns.
 
+    ``sp`` (Megatron-SP, :func:`seq_parallel`): the residual stream
+    between the split regions is this rank's block of the sequence, (B,
+    T / n, d); a region gathers its normed input at entry
+    (:meth:`enter`) and leaves by :meth:`leave`.
+
     ``mesh`` is the ``DeviceMesh`` whose ``model`` axis the split forms'
     collectives run over.
     """
@@ -349,6 +401,7 @@ class TPPlan:
     rnn: bool
     rwkv: bool
     vocab: bool
+    sp: bool = False
     mesh: object = dataclasses.field(default=None, compare=False,
                                      repr=False)
 
@@ -357,6 +410,32 @@ class TPPlan:
         ``n`` ranks."""
         k = size // self.n
         return slice(self.rank * k, (self.rank + 1) * k)
+
+    def enter(self, x):
+        """The input of a region, (B, T, d): under SP the ranks' blocks of
+        the sequence gathered (its backward reduce-scatters the gradient
+        shares), else ``x`` as it is, whole on every rank."""
+        if not self.sp:
+            return x
+        from .collectives import all_gather
+        return all_gather(x, self.mesh, "model", dim=1)
+
+    def leave(self, y, split: bool):
+        """The output of a region that computed ``y`` from its whole input.
+        A ``split`` region's ``y`` is this rank's partial: summed over
+        ``model`` in float32 (``tp_exit``), under SP of which the rank keeps
+        its block of the sequence (``seq_exit``). A region the plan leaves
+        whole computed the same ``y`` on every rank: it is the output, and
+        under SP the rank keeps its block with no sum. That is still the
+        share rule: the gradient below is zero outside the rank's block, so
+        each rank's gradient of the region's whole leaves and of its
+        gathered input is the share of its own block, and the step's sum
+        and the gather's reduce-scatter add the shares to the whole."""
+        from .collectives import seq_exit, tp_exit
+        if self.sp:
+            return seq_exit(y, self.mesh) if split \
+                else y[:, self.part(y.shape[1])]
+        return tp_exit(y, self.mesh) if split else y
 
 
 def _tp_numbers(cfg, n: int, rank: int) -> TPPlan:
@@ -378,10 +457,11 @@ def _tp_numbers(cfg, n: int, rank: int) -> TPPlan:
         vocab=n > 1 and cfg.vocab_size % n == 0)
 
 
-def tp_plan(cfg, mesh, rank: int | None = None):
+def tp_plan(cfg, mesh, rank: int | None = None, *, sp: bool = False):
     """The :class:`TPPlan` of ``cfg`` on ``mesh``'s ``model`` axis for this
     rank (or for coordinate ``rank`` on that axis), or None where the mesh
-    has no such axis or it has one rank: the meshless code runs then."""
+    has no such axis or it has one rank: the meshless code runs then.
+    ``sp``: the residual is split by sequence (Megatron-SP)."""
     if mesh is None:
         return None
     n = mesh_shape(mesh).get("model", 1)
@@ -389,7 +469,59 @@ def tp_plan(cfg, mesh, rank: int | None = None):
         return None
     if rank is None:
         rank = mesh.get_local_rank("model")
-    return dataclasses.replace(_tp_numbers(cfg, n, rank), mesh=mesh)
+    return dataclasses.replace(_tp_numbers(cfg, n, rank), sp=sp, mesh=mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVSplit:
+    """The reference's ``seq_kv`` layout of a decode cache on one rank: the
+    KV caches' slots split over the mesh axes ``axes`` (major first, ``n``
+    ranks), this rank holding block ``index`` of the slots for every KV
+    head (the reference's ``kv`` rule is None). A cache whose length ``n``
+    does not divide stays whole on every rank, as ``named_sharding_for``'s
+    fallback leaves it. ``cache_len`` and ``enc_len`` are the whole caches'
+    lengths (the self-attention buffer and the encoder's), which a rank's
+    block alone does not tell."""
+
+    axes: tuple
+    n: int
+    index: int
+    cache_len: int
+    enc_len: int = 0
+    mesh: object = dataclasses.field(default=None, compare=False,
+                                     repr=False)
+
+    def splits(self, length: int) -> bool:
+        return length % self.n == 0
+
+    def span(self, length: int) -> tuple[int, int]:
+        """(first slot, slots) of this rank's block of a cache of
+        ``length`` slots: its 1/n, or all of it where n does not divide
+        ``length``."""
+        if not self.splits(length):
+            return 0, length
+        k = length // self.n
+        return self.index * k, k
+
+
+def kv_split(mesh, rules: dict | None, cache_len: int | None,
+             enc_len: int = 0):
+    """The :class:`KVSplit` that ``rules`` ask for (``seq_kv`` mapped to
+    axes of ``mesh`` with several ranks in all), or None."""
+    axes = active_axes("seq_kv", mesh, rules)
+    sizes = mesh_shape(mesh) if mesh is not None else {}
+    n = math.prod(sizes[a] for a in axes)
+    if n == 1:
+        return None
+    if cache_len is None:
+        raise ValueError("a cache split by sequence (seq_kv) needs the "
+                         "whole cache's length, cache_len: a rank's block "
+                         "does not tell it")
+    index = 0
+    if hasattr(mesh, "get_local_rank"):
+        for a in axes:
+            index = index * sizes[a] + mesh.get_local_rank(a)
+    return KVSplit(axes, n, index, cache_len, enc_len, mesh=mesh)
 
 
 # leaf name (the path's last parts) → the plan's flag that splits it
@@ -412,7 +544,8 @@ def _tp_split(name: str, plan) -> bool:
     return False
 
 
-def compute_shardings(params, mesh, cfg, moe_impl: str | None = None):
+def compute_shardings(params, mesh, cfg, moe_impl: str | None = None, *,
+                      moe_fsdp: bool = False, rules: dict | None = None):
     """The layout the port's mesh step, prefill and decode compute in: a
     leaf takes the ``model`` entry of the reference's
     :func:`param_shardings` spec where the port's split form computes in
@@ -420,7 +553,13 @@ def compute_shardings(params, mesh, cfg, moe_impl: str | None = None):
     dropped (data parallelism keeps every leaf whole on the data axes).
 
     * MoE expert stacks split as ``moe_apply``'s ``ep`` (experts) or ``tp``
-      (the FFN hidden dim) form splits them; the router stays whole.
+      (the FFN hidden dim) form splits them, and the dense form over a mesh
+      as the config's own spec does (``_MOE_EP``: the experts, ``_MOE_TP``:
+      the hidden units); the router stays whole. With ``moe_fsdp`` (ZeRO-3,
+      the reference's ``optimized`` cells) this is their storage layout:
+      the ``_MOE_EP_FSDP`` or ``_MOE_TP_FSDP`` spec, split over the data
+      axes too (``rules``' ``fsdp``), which the model gathers one layer at a
+      time at use (``models/moe.py::gather_experts``).
     * Dense leaves split as :func:`tp_plan` says: ``wq``/``wo`` when the
       query heads divide the axis and each rank's heads read whole KV
       heads (the axis divides ``n_kv_heads``, or ``n_kv_heads`` divides
@@ -436,17 +575,24 @@ def compute_shardings(params, mesh, cfg, moe_impl: str | None = None):
     alone splits them. Leaves that are whole in the spec but per channel or
     per head (conv weights, gates, RWKV's ``u``, decays and group-norm
     scale) stay whole: each rank computes with its slice of them."""
-    impl = moe_impl or (cfg.moe_impl if cfg is not None else "dense")
-    if cfg is not None and cfg.is_moe and impl != cfg.moe_impl:
-        cfg = dataclasses.replace(cfg, moe_impl=impl)
+    if cfg is not None and cfg.is_moe:
+        impl = _spec_impl(cfg, moe_impl)
+        if impl != cfg.moe_impl:
+            cfg = dataclasses.replace(cfg, moe_impl=impl)
     specs = param_shardings(params, mesh, cfg)
+    stored = None
+    if moe_fsdp:
+        rules = {"fsdp": ("pod", "data"), **(rules or {})}
+        stored = param_shardings(params, mesh, cfg, rules, moe_fsdp=True)
     n = mesh_shape(mesh).get("model", 1)
     plan = _tp_numbers(cfg, n, 0) if cfg is not None and n > 1 else None
 
     def one(name, leaf):
         spec = _get(specs, name)
         if _is_expert(name, leaf, cfg):
-            keep = impl != "dense"
+            if stored is not None:
+                return _get(stored, name)
+            keep = True
         else:
             keep = _tp_split(name, plan)
         if not keep:

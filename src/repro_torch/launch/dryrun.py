@@ -9,13 +9,16 @@ step itself as rank 0 of the production mesh would, on ``meta`` tensors
 ``torch.distributed``'s ``fake`` backend at world 256 or 512 (its
 collectives return at once), under ``launch/cost.py``'s counters:
 
-1. builds the cell (``launch/specs.py``: spec for spec the reference's)
-   and rank 0's arguments in the port's layout: its parameters in the
-   compute layout (``distributed/sharding.py::compute_shardings``: dense
-   tensor parallelism over ``model``), for a train cell its AdamW moments
-   as the ZeRO layout's shards (``param_shardings(..., extra_batch_dim=
-   True)``) and the step with ``n_microbatches``, its rows of the batch,
-   for a decode cell its cache (its rows, its KV heads);
+1. builds the cell (``launch/specs.py``: spec for spec the reference's,
+   ``--opt`` its optimized cell) and rank 0's arguments in the port's
+   layout: its parameters in the compute layout
+   (``distributed/sharding.py::compute_shardings``: dense tensor
+   parallelism over ``model``; under ``--opt`` the MoE experts in their
+   ZeRO-3 storage split over the data axes too), for a train cell its
+   AdamW moments as the ZeRO layout's shards (``param_shardings(...,
+   extra_batch_dim=True)``) and the step with ``n_microbatches``, its
+   rows of the batch, for a decode cell its cache (its rows; every KV
+   head for its block of the slots, ``seq_kv``);
 2. runs one step (the train step, the prefill, or one decode step at the
    cache's last position) under ``cost.CostMode``: K4 and K4′ take their
    fake implementations, so attention is counted as the kernels compute
@@ -40,14 +43,13 @@ others, and names them under ``replaces``: ``trace_s`` for ``lower_s``
 and ``compile_s``, ``memory.peak_bytes`` for the temporaries and aliases
 of ``memory_analysis()``, ``roofline.counted_flops_total`` for
 ``hlo_flops_total``; ``cost_analysis_raw`` has none. A decode cell is
-counted in the port's layout (the cache split by local KV heads over
-``model``); the reference's split of the cache's sequence over ``model``
-(``seq_kv``) is not ported, and ``meta["layout"]`` says which was
-counted.
+counted in the reference's layout of the cache, its sequence split over
+``seq_kv``'s axes (``model``; ``data`` and ``model`` for ``long_500k``)
+with every KV head on each rank, and ``meta["layout"]`` says so.
 
 Usage (the CPU is enough):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-34b \\
-      --shape train_4k [--multipod] [--out experiments/dryrun_torch]
+      --shape train_4k [--multipod] [--opt] [--out experiments/dryrun_torch]
 """
 
 from __future__ import annotations
@@ -68,8 +70,11 @@ __all__ = ["count_cell", "count_train_step", "main", "run_cell",
            "start_fake_group"]
 
 LAYOUT = ("port: dense tensor parallelism over model (compute_shardings), "
-          "batch rows over the data axes, the KV cache split by local KV "
-          "heads over model; the reference's seq_kv split is not ported")
+          "batch rows over the data axes, the decode cache's sequence split "
+          "over seq_kv's axes with every KV head a rank")
+LAYOUT_OPT = LAYOUT + ("; optimized: Megatron-SP residual over model in "
+                       "train cells, the MoE experts stored split over the "
+                       "data axes (ZeRO-3) and gathered a layer at a time")
 
 
 def start_fake_group(world: int, rank: int = 0) -> None:
@@ -109,17 +114,19 @@ def count_cell(cell, mesh):
     from ..training.optimizer import _data_rows, opt_init
     from ..tree import tree_map
     cfg = get_config(cell.arch)
+    opt = cell.meta["optimized"]
     sizes = mesh_shape(mesh)
     n_data = 1
     for a in batch_axes(mesh):
         n_data *= sizes[a]
     moe_impl = cell.meta["moe_impl"]
     p_specs = cell.args[0]
-    osh = compute_shardings(p_specs, mesh, cfg, moe_impl)
+    osh = compute_shardings(p_specs, mesh, cfg, moe_impl, moe_fsdp=opt,
+                            rules=cell.rules)
     params = _local(p_specs, osh)
     if cell.mode == "train":
         zsh = param_shardings(p_specs, mesh, cfg, cell.rules,
-                              extra_batch_dim=True)
+                              extra_batch_dim=True, moe_fsdp=opt)
         state = opt_init(params, zero_shardings=zsh, out_shardings=osh)
         batch = cell.args[2]
         _, cost = count(cell.fn, params, state, batch, track=(params, state),
@@ -137,7 +144,7 @@ def count_cell(cell, mesh):
     seq = cell.meta["seq"]
     dec_len = seq // 8 if cfg.is_encdec else seq
     local = cache_specs(cfg, b, dec_len, enc_len=seq if cfg.is_encdec else 0,
-                        mesh=mesh)
+                        mesh=mesh, rules=cell.rules)
     cache = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
                                            device="meta"), local)
     toks = torch.empty((b,), dtype=torch.int32, device="meta")
@@ -146,11 +153,14 @@ def count_cell(cell, mesh):
     return cost
 
 
-def count_train_step(cfg, mesh, batch: int, seq: int, *, opt=None):
+def count_train_step(cfg, mesh, batch: int, seq: int, *, opt=None,
+                     rules=None):
     """This rank's counts of ``make_train_step(cfg, opt, mesh=mesh)`` (the
     compute layout, whole AdamW moments of the rank's shards, no ZeRO
-    layout) on a ``(batch, seq)`` token batch whole on every rank: the step
-    ``chip_smoke.py``'s phase 21 runs on the card, counted without it."""
+    layout) on a ``(batch, seq)`` token batch whole on every rank, under
+    the axis ``rules`` (Megatron-SP with ``{"seq_sp": "model"}``): the
+    steps ``chip_smoke.py``'s phases 21 and 23 run on the card, counted
+    without it."""
     from ..distributed.sharding import compute_shardings
     from ..models import param_specs
     from ..training.optimizer import OptConfig, make_train_step, opt_init
@@ -160,7 +170,7 @@ def count_train_step(cfg, mesh, batch: int, seq: int, *, opt=None):
     state = opt_init(params)
     tokens = torch.empty((batch, seq), dtype=torch.int32, device="meta")
     rows = {"tokens": tokens, "labels": tokens.clone()}
-    step = make_train_step(cfg, opt, mesh=mesh)
+    step = make_train_step(cfg, opt, mesh=mesh, rules=rules)
     _, cost = count(step, params, state, rows, track=(params, state, rows))
     return cost
 
@@ -173,13 +183,11 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool, out_dir: str | None,
     mesh_name = "multi" if multi_pod else "single"
     record: dict = {"arch": arch, "shape": shape, "mesh": mesh_name,
                     "optimized": optimized}
-    if optimized:
-        specs.build_cell(arch, shape, None, optimized=True)   # raises
     t0 = time.time()
     start_fake_group(512 if multi_pod else 256)
     mesh = make_production_mesh(device_type="cpu", multi_pod=multi_pod)
     n_dev = mesh.size()
-    cell = specs.build_cell(arch, shape, mesh)
+    cell = specs.build_cell(arch, shape, mesh, optimized=optimized)
     if cell.skipped:
         record["skipped"] = cell.skipped
         print(f"[dryrun] SKIP {arch} × {shape} ({mesh_name}): {cell.skipped}")
@@ -223,7 +231,8 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool, out_dir: str | None,
                 "useful_ratio": model_flops / total if total else 0.0,
                 "tokens_per_step": cell.tokens_per_step,
             },
-            "meta": dict(cell.meta, layout=LAYOUT),
+            "meta": dict(cell.meta,
+                         layout=LAYOUT_OPT if optimized else LAYOUT),
             "replaces": {"lower_s": "trace_s", "compile_s": "trace_s",
                          "memory.temp_bytes": "memory.peak_bytes",
                          "memory.output_bytes": "memory.peak_bytes",
@@ -252,7 +261,8 @@ def _write(record: dict, out_dir: str | None) -> dict:
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(
             out_dir, f"{record['arch']}__{record['shape']}__"
-                     f"{record['mesh']}.json")
+                     f"{record['mesh']}"
+                     f"{'__opt' if record['optimized'] else ''}.json")
         with open(path, "w") as f:
             json.dump(record, f, indent=1, default=float)
     return record
@@ -265,7 +275,8 @@ def main(argv=None):
     ap.add_argument("--multipod", action="store_true")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--opt", action="store_true",
-                    help="beyond-baseline levers (not ported: raises)")
+                    help="the reference's optimized cell: Megatron-SP in "
+                         "train cells, ZeRO-3 of the MoE experts")
     args = ap.parse_args(argv)
     rec = run_cell(args.arch, args.shape, multi_pod=args.multipod,
                    out_dir=args.out, optimized=args.opt)

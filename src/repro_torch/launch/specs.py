@@ -21,8 +21,15 @@ count; the decoder's length is seq // 8.
 
 ``mesh`` is a ``DeviceMesh`` (the step can then run on it) or a
 ``MeshShape`` (names and sizes only, for the specs). ``optimized=True``
-(the reference's Megatron-SP over ``seq_sp`` and ZeRO-3 of the MoE
-experts over ``fsdp``) is not ported: it raises, naming ROADMAP queue 1.
+is the reference's optimized cell: Megatron-SP (``seq_sp`` → ``model``)
+for train cells, ZeRO-3 of the MoE expert stacks (``fsdp`` → the data
+axes, ``param_shardings(..., moe_fsdp=True)``), ``moe_psum_late`` for a
+``tp``-form MoE config, and for the train step the ZeRO layout of the
+moments as the gradient's, the parameters written back to their storage
+layout (the compute layout of the dense leaves, the ZeRO-3 split of the
+experts) and a bf16 gradient accumulator. Every cell's step is handed
+its ``rules`` (``rules=``), from which the model code reads ``seq_sp``,
+``fsdp`` and the decode cells' ``seq_kv`` (the cache split by sequence).
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ from typing import Any, Callable
 import torch
 
 from ..configs import ARCHS, get_config, long_context_ok
-from ..distributed.sharding import (batch_axes, mesh_shape,
+from ..distributed.sharding import (batch_axes, compute_shardings,
+                                    mesh_shape,
                                     named_sharding_for, param_shardings)
 from ..models import cache_specs, decode_step, param_specs, prefill
 from ..training.optimizer import OptConfig, make_train_step, opt_init
@@ -132,12 +140,10 @@ def _batch(cfg, batch: int, dec_len: int, seq: int, mesh, rules, *,
 def build_cell(arch: str, shape: str, mesh, *, rules: dict | None = None,
                optimized: bool = False) -> CellSpec:
     """Reference ``build_cell`` (specs.py:97): the cell of ``arch`` ×
-    ``shape`` on ``mesh``."""
-    if optimized:
-        raise NotImplementedError(
-            "optimized=True (Megatron-SP over seq_sp, ZeRO-3 of the MoE "
-            "experts over fsdp) is not ported yet: ROADMAP queue 1")
+    ``shape`` on ``mesh``; ``optimized`` as the module says."""
     cfg = get_config(arch)
+    if optimized and cfg.is_moe and cfg.moe_impl != "ep":
+        cfg = dataclasses.replace(cfg, moe_psum_late=True)
     info = SHAPES[shape]
     seq, batch, mode = info["seq"], info["batch"], info["mode"]
 
@@ -148,6 +154,12 @@ def build_cell(arch: str, shape: str, mesh, *, rules: dict | None = None,
                                 "(DESIGN.md §Arch-applicability)")
 
     rules = dict(rules or {})
+    if optimized and mode == "train":
+        # Megatron-SP targets the remat-saved residual: a training memory
+        # concern (the reference keeps it off prefill)
+        rules.setdefault("seq_sp", "model")
+    if optimized:
+        rules.setdefault("fsdp", ("pod", "data"))
     if shape == "long_500k":
         # a batch of 1 cannot shard; the reference shards the KV/sequence
         # axis instead
@@ -158,7 +170,7 @@ def build_cell(arch: str, shape: str, mesh, *, rules: dict | None = None,
 
     moe_impl = _choose_moe_impl(cfg, mode, batch, mesh)
     p_specs = param_specs(cfg)
-    p_shard = param_shardings(p_specs, mesh, cfg, rules)
+    p_shard = param_shardings(p_specs, mesh, cfg, rules, moe_fsdp=optimized)
     meta = dict(params=cfg.param_count(),
                 active_params=cfg.active_param_count(), moe_impl=moe_impl,
                 seq=seq, batch=batch, optimized=optimized)
@@ -167,16 +179,23 @@ def build_cell(arch: str, shape: str, mesh, *, rules: dict | None = None,
     if mode == "train":
         opt_specs = opt_init(p_specs)
         opt_shard = param_shardings(opt_specs, mesh, cfg, rules,
-                                    extra_batch_dim=True)
+                                    extra_batch_dim=True, moe_fsdp=optimized)
         batch_args, batch_shard = _batch(cfg, batch, dec_len, seq, mesh,
                                          rules, labels=True)
         n_micro = max(1, batch // _n_data(mesh))  # 1 sample a rank a micro
         meta["n_microbatches"] = n_micro
-        step = make_train_step(cfg, OptConfig(), mesh=mesh,
-                               moe_impl=moe_impl, n_microbatches=n_micro,
-                               grad_shardings=param_shardings(
-                                   p_specs, mesh, cfg, rules,
-                                   extra_batch_dim=True))
+        # ZeRO-2: each microbatch's gradient reduce-scattered into the
+        # moments' layout; under optimized the parameters are written back
+        # to their storage layout and the accumulator is bf16
+        step = make_train_step(
+            cfg, OptConfig(), mesh=mesh, moe_impl=moe_impl,
+            n_microbatches=n_micro, grad_shardings=opt_shard["m"],
+            param_out_shardings=compute_shardings(
+                p_specs, mesh, cfg, moe_impl, moe_fsdp=True, rules=rules)
+            if optimized else None,
+            accum_dtype=torch.bfloat16 if optimized else torch.float32,
+            rules=rules)
+
         return CellSpec(arch, shape, mode, step,
                         (p_specs, opt_specs, batch_args),
                         (p_shard, opt_shard, batch_shard), donate=(0, 1),
@@ -189,7 +208,7 @@ def build_cell(arch: str, shape: str, mesh, *, rules: dict | None = None,
 
         def fn(params, b):
             return prefill(params, b, cfg, cache_len=dec_len, mesh=mesh,
-                           moe_impl=moe_impl)
+                           moe_impl=moe_impl, rules=rules)
 
         return CellSpec(arch, shape, mode, fn, (p_specs, batch_args),
                         (p_shard, batch_shard), donate=(),
@@ -208,7 +227,9 @@ def build_cell(arch: str, shape: str, mesh, *, rules: dict | None = None,
 
     def fn(params, c, t, p):
         return decode_step(params, c, t, p, cfg, mesh=mesh,
-                           moe_impl=moe_impl or "dense")
+                           moe_impl=moe_impl or "dense", rules=rules,
+                           cache_len=dec_len,
+                           enc_len=seq if cfg.is_encdec else 0)
 
     return CellSpec(arch, shape, mode, fn, (p_specs, cache, tok, pos),
                     (p_shard, cache_shard, tok_shard, pos_shard),

@@ -34,6 +34,18 @@ that head's columns alone from the whole ``wk`` and ``wv``. Every shape
 here is read from the tensors, so K4 and K4′ run on the rank's (B, T,
 heads, Dh) and (B, T, KV heads, Dh) as they are, and the cache holds the
 rank's KV heads.
+
+Under the reference's ``seq_kv`` layout (a ``KVSplit`` ``kv``,
+``distributed/sharding.py::kv_split``) the decode cache holds every KV
+head for the rank's block of the slots instead. A decode step makes the
+new token's K/V and every query head whole on each rank (gathered over
+``model`` where the plan splits them), the rank that holds the token's
+slot writes it, and each rank scores its block: its float32 max, sum and
+weighted values are combined over the cache's axes (``_attend_split``)
+into the whole softmax; the out projection stays row-parallel on the
+rank's heads. Under Megatron-SP the plan's ``enter`` has gathered the
+input's sequence before these functions, and ``_out``'s ``leave`` keeps
+the rank's block.
 """
 
 from __future__ import annotations
@@ -41,7 +53,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.collectives import tp_exit
+from ..distributed.collectives import all_gather, max_over, sum_over
 from ..kernels.attn import attn as attn_kernel
 from .common import TensorSpec
 from .layers import apply_rotary, dense_init, rms_norm, rotary_cos_sin
@@ -85,9 +97,9 @@ def _kv_weight(w, cfg, tp):
 
 def _out(o, params, tp):
     """``o`` (B, T, heads, Dh) through ``wo``, summed over ``model`` when
-    the heads are split."""
+    the heads are split (``TPPlan.leave``)."""
     y = o.reshape(o.shape[0], o.shape[1], -1) @ params["wo"]
-    return tp_exit(y, tp.mesh) if tp is not None and tp.attn else y
+    return y if tp is None else tp.leave(y, tp.attn)
 
 
 def _project(params, x, cfg, positions, *, rope: bool = True, tp=None):
@@ -235,6 +247,66 @@ def _write_slot(buf, new, slot: int):
     return torch.cat([buf[:, :slot], new, buf[:, slot + 1:]], dim=1)
 
 
+def _all_heads(t, cfg, tp, kv_heads: bool = True):
+    """``t`` (B, T, this rank's heads, Dh) — K or V, or with
+    ``kv_heads=False`` the queries — with every head of the layer:
+    gathered over ``model`` where the plan splits the heads. K/V computed
+    one KV head a rank (the KV heads do not divide the axis) gather one
+    head a rank, of which every (n / n_kv)-th rank's is a distinct one."""
+    if tp is None or not tp.attn:
+        return t
+    g = all_gather(t, tp.mesh, "model", dim=2)
+    if not kv_heads or tp.kv_split:
+        return g
+    return g[:, :, ::tp.n // cfg.n_kv_heads]
+
+
+def kv_block(cache, cfg, tp, kv, length: int):
+    """A cache ``{"k", "v"}`` of (B, ``length``, this rank's KV heads, Dh)
+    in the ``seq_kv`` layout: every KV head, this rank's block of the
+    slots (fresh tensors)."""
+    start, size = kv.span(length)
+    return {n: _all_heads(c, cfg, tp).narrow(1, start, size).clone()
+            for n, c in cache.items()}
+
+
+def _attend_split(q, k, v, valid, kv, length: int):
+    """:func:`_attend_one` over a cache split by slots: q (B, Hkv, G, Dh)
+    scaled, with every query head; k, v (B, L_block, Hkv, Dh) this rank's
+    block of a cache of ``length`` slots, ``valid`` its mask. Each rank
+    keeps its float32 max m, sum l and weighted values; M is their max
+    over the cache's axes, and the sums of l·e^(m−M) and of the values
+    times e^(m−M) over the axes (one all-reduce of both) give the softmax.
+    A rank whose block holds no valid slot adds zeros. A cache the axes do
+    not split is whole on every rank: :func:`_attend_one`."""
+    if not kv.splits(length):
+        return _attend_one(q, k, v, valid)
+    s = torch.einsum("bhgd,bkhd->bhgk", q.float(), k.float())
+    neg = torch.tensor(NEG, device=s.device)
+    if valid is not None:
+        s = torch.where(valid, s, neg)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    if valid is not None:
+        p = torch.where(valid, p, 0.0)
+    acc = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    big = m
+    for ax in kv.axes:
+        big = max_over(big, kv.mesh, ax)
+    scale = torch.exp(m - big)[..., None]
+    both = sum_over(torch.cat([acc * scale, p.sum(-1, keepdim=True)
+                               * scale], dim=-1), kv.mesh, kv.axes)
+    return both[..., :-1] / both[..., -1:]
+
+
+def _local_heads(o, tp):
+    """o (B, T, every head, Dh) → this rank's query heads under the plan
+    ``tp``."""
+    if tp is None or not tp.attn:
+        return o
+    return o[:, :, tp.rank * tp.heads:(tp.rank + 1) * tp.heads]
+
+
 # ---------------------------------------------------------------------------
 # train (forward) and prefill entry points
 # ---------------------------------------------------------------------------
@@ -253,21 +325,27 @@ def attn_train(params, x, cfg, kind: str, *, rope: bool = True,
     return _out(o, params, tp)
 
 
-def cache_spec(cfg, kind: str, batch: int, seq_len: int, dtype, tp=None):
+def cache_spec(cfg, kind: str, batch: int, seq_len: int, dtype, tp=None,
+               kv=None):
     """Shape of the KV cache for one attention layer of the given kind (of
-    this rank's KV heads under the plan ``tp``)."""
+    this rank's KV heads under the plan ``tp``; under ``kv`` every KV head
+    for the rank's block of the slots)."""
     length = min(cfg.window, seq_len) if kind == "local" else seq_len
     heads = cfg.n_kv_heads if tp is None else tp.kv_heads
+    if kv is not None:
+        heads, length = cfg.n_kv_heads, kv.span(length)[1]
     shp = (batch, length, heads, cfg.d_head)
     return {"k": TensorSpec(shp, dtype), "v": TensorSpec(shp, dtype)}
 
 
-def attn_prefill(params, x, cfg, kind: str, cache_len: int, tp=None):
+def attn_prefill(params, x, cfg, kind: str, cache_len: int, tp=None,
+                 kv=None):
     """Full-sequence pass that also returns the populated KV cache.
 
     For "local" layers the cache is the rolling window (last ``window``
     positions, ring-aligned); otherwise the full ``cache_len`` buffer with the
-    first T slots filled.
+    first T slots filled. Under ``kv`` the rank keeps every KV head for its
+    block of the slots.
     """
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None, :]
@@ -294,23 +372,45 @@ def attn_prefill(params, x, cfg, kind: str, cache_len: int, tp=None):
         v_c = v.new_zeros((b, cache_len) + tuple(v.shape[2:]))
         k_c[:, :t] = k
         v_c[:, :t] = v
-    return y, {"k": k_c, "v": v_c}
+    cache = {"k": k_c, "v": v_c}
+    if kv is not None:
+        cache = kv_block(cache, cfg, tp, kv, k_c.shape[1])
+    return y, cache
 
 
-def attn_decode(params, x, cache, pos: int, cfg, kind: str, tp=None):
+def attn_decode(params, x, cache, pos: int, cfg, kind: str, tp=None,
+                kv=None):
     """Reference ``attn_decode`` (attention.py:231): one token x (B, 1, d)
     at absolute position ``pos``. Its K/V go into a new cache: slot ``pos
     % length`` of a "local" ring, else slot ``pos`` (clamped to the last,
     as the reference's update clamps). The query scores the whole cache
     under the reference's ``valid`` mask: the ring's slots hold positions
     ``pos - age``, valid while ≥ 0 and inside the window. Returns (y (B,
-    1, d), {"k", "v"})."""
+    1, d), {"k", "v"}).
+
+    Under ``kv`` the cache is the rank's block of the slots for every KV
+    head: the new K/V and every query head are made whole on each rank,
+    the rank whose block holds the (global, clamped) slot writes it, the
+    mask is cut to the block, the scores are combined over the cache's
+    axes (:func:`_attend_split`), and the rank's heads go through the
+    row-parallel ``wo``."""
     b = x.shape[0]
     dh = cfg.d_head
     positions = torch.full((b, 1), pos, device=x.device)
     q, k_new, v_new = _project(params, x, cfg, positions, tp=tp)
-    length = cache["k"].shape[1]
-    slots = torch.arange(length, device=x.device)
+    if kv is None:
+        length = cache["k"].shape[1]
+        start, size = 0, length
+    else:
+        q = _all_heads(q, cfg, tp, kv_heads=False)
+        k_new, v_new = _all_heads(k_new, cfg, tp), _all_heads(v_new, cfg, tp)
+        length = min(cfg.window, kv.cache_len) if kind == "local" \
+            else kv.cache_len
+        start, size = kv.span(length)
+        if cache["k"].shape[1] != size:
+            raise ValueError(f"the rank's cache holds {cache['k'].shape[1]}"
+                             f" slots, not its {size} of {length}")
+    slots = start + torch.arange(size, device=x.device)
     if kind == "local":
         slot = pos % length
         abs_pos = pos - (pos - slots) % length
@@ -318,12 +418,21 @@ def attn_decode(params, x, cache, pos: int, cfg, kind: str, tp=None):
     else:
         slot = pos
         valid = slots <= pos
-    k_c = _write_slot(cache["k"], k_new, slot)
-    v_c = _write_slot(cache["v"], v_new, slot)
+    slot = min(max(slot, 0), length - 1) - start
+    if 0 <= slot < size:
+        k_c = _write_slot(cache["k"], k_new, slot)
+        v_c = _write_slot(cache["v"], v_new, slot)
+    else:
+        k_c, v_c = cache["k"], cache["v"]
     hkv = k_new.shape[2]
     qh = (q * dh ** -0.5).reshape(b, hkv, q.shape[2] // hkv, dh)
-    o = _attend_one(qh, k_c, v_c, valid).to(x.dtype)
-    return _out(o.reshape(b, 1, -1, dh), params, tp), {"k": k_c, "v": v_c}
+    if kv is None:
+        o = _attend_one(qh, k_c, v_c, valid)
+    else:
+        o = _attend_split(qh, k_c, v_c, valid, kv, length)
+    o = _local_heads(o.to(x.dtype).reshape(b, 1, -1, dh),
+                     None if kv is None else tp)
+    return _out(o, params, tp), {"k": k_c, "v": v_c}
 
 
 # --- cross attention (whisper decoder) --------------------------------------
@@ -344,13 +453,21 @@ def cross_attn_train(params, x, enc, cfg, tp=None):
     return _out(o, params, tp), {"k": k, "v": v}
 
 
-def cross_attn_decode(params, x, cross_cache, cfg, tp=None):
+def cross_attn_decode(params, x, cross_cache, cfg, tp=None, kv=None):
     """Reference ``cross_attn_decode`` (attention.py:280): one decoder
     token x (B, 1, d) against the prefill's cross cache; no RoPE, no
-    mask."""
+    mask. Under ``kv`` the cross cache is the rank's block of the encoder
+    positions for every KV head, as :func:`attn_decode`'s."""
     b = x.shape[0]
     dh = cfg.d_head
     hkv = cross_cache["k"].shape[2]
-    q = (x @ params["wq"]).reshape(b, hkv, -1, dh) * dh ** -0.5
-    o = _attend_one(q, cross_cache["k"], cross_cache["v"]).to(x.dtype)
-    return _out(o.reshape(b, 1, -1, dh), params, tp)
+    if kv is None:
+        q = (x @ params["wq"]).reshape(b, hkv, -1, dh) * dh ** -0.5
+        o = _attend_one(q, cross_cache["k"], cross_cache["v"]).to(x.dtype)
+        return _out(o.reshape(b, 1, -1, dh), params, tp)
+    q = _all_heads((x @ params["wq"]).reshape(b, 1, -1, dh), cfg, tp,
+                   kv_heads=False)
+    q = q.reshape(b, hkv, -1, dh) * dh ** -0.5
+    o = _attend_split(q, cross_cache["k"], cross_cache["v"], None, kv,
+                      kv.enc_len).to(x.dtype)
+    return _out(_local_heads(o.reshape(b, 1, -1, dh), tp), params, tp)

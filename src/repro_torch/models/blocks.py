@@ -13,6 +13,17 @@ MoE FFN takes ``moe_apply``'s form ``moe_impl`` over ``mesh``, and over a
 mesh with a ``model`` axis of several ranks the dense layers compute in
 their split forms (``distributed/sharding.py::tp_plan``), in the training
 forward, prefill and decode alike.
+
+The training forward takes two more layouts of the reference's
+``optimized`` cells, read from its rules by ``models/model.py`` and
+handed down: ``sp`` (Megatron-SP, ``seq_sp`` → ``model``: the residual is
+the rank's block of the sequence; the norms run on the block, and each
+split region gathers its normed input, ``TPPlan.enter``, and leaves by
+``TPPlan.leave``) and ``fsdp`` (ZeRO-3: the MoE expert stacks are stored
+split over those data axes and gathered here, one layer at a time,
+``moe.gather_experts``). Prefill and decode take ``fsdp`` too, and ``kv``
+(``distributed/sharding.py::KVSplit``, ``seq_kv``): the KV caches hold
+every KV head for the rank's block of the slots.
 """
 
 from __future__ import annotations
@@ -46,14 +57,21 @@ def _ffn_init(generator, cfg, dtype, device):
                     device=device)
 
 
-def _ffn_apply(params, x, cfg, mesh=None, moe_impl=None, tp=None):
+def _ffn_apply(params, x, cfg, mesh=None, moe_impl=None, tp=None,
+               fsdp=()):
     """Reference ``_ffn_apply`` (blocks.py:30): an MoE FFN takes
     ``moe_apply``'s form ``moe_impl`` over ``mesh`` (the dense form with no
-    mesh); a dense FFN its split form under the plan ``tp``."""
+    mesh), its experts first gathered over the ``fsdp`` axes; a dense FFN
+    its split form under the plan ``tp``."""
     if cfg.is_moe:
+        if fsdp:
+            params = moe_mod.gather_experts(params, cfg, mesh, fsdp,
+                                            moe_impl)
         return moe_mod.moe_apply(params, x, cfg, impl=moe_impl, mesh=mesh,
-                                 psum_late=cfg.moe_psum_late)
-    return mlp_apply(params, x, cfg.mlp_kind, tp=tp)
+                                 psum_late=cfg.moe_psum_late,
+                                 sp=tp is not None and tp.sp)
+    return mlp_apply(params, x if tp is None else tp.enter(x), cfg.mlp_kind,
+                     tp=tp)
 
 
 def block_init(generator, cfg, kind: str, dtype, *, cross: bool = False,
@@ -80,53 +98,64 @@ def block_init(generator, cfg, kind: str, dtype, *, cross: bool = False,
 
 
 def block_train(params, x, cfg, kind: str, *, mesh=None, moe_impl=None,
-                enc=None, causal: bool = True):
+                enc=None, causal: bool = True, sp: bool = False, fsdp=()):
     """Reference ``block_train`` (blocks.py:57), forward: x (B, T, d) →
-    (B, T, d). ``causal=False`` is the encoder's bidirectional "attn";
-    ``mesh`` and ``moe_impl`` as the module says."""
+    (B, T, d), under ``sp`` the rank's block (B, T / n, d) of each.
+    ``causal=False`` is the encoder's bidirectional "attn"; ``mesh``,
+    ``moe_impl``, ``sp`` and ``fsdp`` as the module says."""
     _kind(kind)
     eps = cfg.norm_eps
-    tp = tp_plan(cfg, mesh)
+    tp = tp_plan(cfg, mesh, sp=sp)
+
+    def entry(h):
+        return h if tp is None else tp.enter(h)
+
+    def ffn(h):
+        return _ffn_apply(params["ffn"], rms_norm(h, params["ln2"], eps),
+                          cfg, mesh, moe_impl, tp, fsdp)
     if kind in ("attn", "local"):
         x = x + attn.attn_train(params["attn"],
-                                rms_norm(x, params["ln1"], eps), cfg, kind,
-                                causal=causal, tp=tp)
+                                entry(rms_norm(x, params["ln1"], eps)), cfg,
+                                kind, causal=causal, tp=tp)
         if "cross" in params:
             c, _ = attn.cross_attn_train(
-                params["cross"], rms_norm(x, params["ln_cross"], eps), enc,
-                cfg, tp)
+                params["cross"], entry(rms_norm(x, params["ln_cross"], eps)),
+                enc, cfg, tp)
             x = x + c
-        return x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                              cfg, mesh, moe_impl, tp)
+        return x + ffn(x)
     if kind == "rec":
-        h, _ = rec.rglru_train(params["rec"], rms_norm(x, params["ln1"], eps),
-                               cfg, tp=tp)
+        h, _ = rec.rglru_train(params["rec"],
+                               entry(rms_norm(x, params["ln1"], eps)), cfg,
+                               tp=tp)
         x = x + h
-        return x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                              cfg, mesh, moe_impl, tp)
-    h, _ = rwkv_mod.rwkv_time_mix(params, rms_norm(x, params["ln1"], eps), cfg,
-                                  tp=tp)
+        return x + ffn(x)
+    h, _ = rwkv_mod.rwkv_time_mix(
+        params, entry(rms_norm(x, params["ln1"], eps)), cfg, tp=tp)
     x = x + h
-    h, _ = rwkv_mod.rwkv_channel_mix(params, rms_norm(x, params["ln2"], eps),
-                                     cfg, tp=tp)
+    h, _ = rwkv_mod.rwkv_channel_mix(
+        params, entry(rms_norm(x, params["ln2"], eps)), cfg, tp=tp)
     return x + h
 
 
 def block_cache_spec(cfg, kind: str, batch: int, cache_len: int, dtype,
-                     *, cross_len: int = 0, tp=None):
+                     *, cross_len: int = 0, tp=None, kv=None):
     """Reference ``block_cache_spec`` (blocks.py:89): the KV cache of an
     attention kind or the state of a recurrent one, plus the cross cache
     of ``cross_len`` encoder positions; this rank's heads and channels
-    under the plan ``tp``."""
+    under the plan ``tp``, and under ``kv`` its block of the KV caches'
+    slots for every KV head."""
     _kind(kind)
     if kind in ("attn", "local"):
-        spec = attn.cache_spec(cfg, kind, batch, cache_len, dtype, tp)
+        spec = attn.cache_spec(cfg, kind, batch, cache_len, dtype, tp, kv)
     elif kind == "rec":
         spec = rec.rglru_state_spec(cfg, batch, dtype, tp)
     else:
         spec = rwkv_mod.rwkv_state_spec(cfg, batch, dtype, tp)
     if cross_len:
-        heads = cfg.n_kv_heads if tp is None else tp.kv_heads
+        if kv is not None:
+            heads, cross_len = cfg.n_kv_heads, kv.span(cross_len)[1]
+        else:
+            heads = cfg.n_kv_heads if tp is None else tp.kv_heads
         shp = (batch, cross_len, heads, cfg.d_head)
         spec = dict(spec)
         spec["cross"] = {"k": TensorSpec(shp, dtype),
@@ -135,7 +164,7 @@ def block_cache_spec(cfg, kind: str, batch: int, cache_len: int, dtype,
 
 
 def block_prefill(params, x, cfg, kind: str, cache_len: int, *, mesh=None,
-                  moe_impl=None, enc=None):
+                  moe_impl=None, enc=None, fsdp=(), kv=None):
     """Reference ``block_prefill`` (blocks.py:104): (x, the block's
     cache)."""
     _kind(kind)
@@ -144,15 +173,17 @@ def block_prefill(params, x, cfg, kind: str, cache_len: int, *, mesh=None,
     if kind in ("attn", "local"):
         h, cache = attn.attn_prefill(params["attn"],
                                      rms_norm(x, params["ln1"], eps), cfg,
-                                     kind, cache_len, tp)
+                                     kind, cache_len, tp, kv)
         x = x + h
         if "cross" in params:
-            c, cache["cross"] = attn.cross_attn_train(
+            c, cross = attn.cross_attn_train(
                 params["cross"], rms_norm(x, params["ln_cross"], eps), enc,
                 cfg, tp)
+            cache["cross"] = cross if kv is None \
+                else attn.kv_block(cross, cfg, tp, kv, kv.enc_len)
             x = x + c
         x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                           cfg, mesh, moe_impl, tp)
+                           cfg, mesh, moe_impl, tp, fsdp)
         return x, cache
     if kind == "rec":
         h, state = rec.rglru_train(params["rec"],
@@ -160,7 +191,7 @@ def block_prefill(params, x, cfg, kind: str, cache_len: int, *, mesh=None,
                                    tp=tp)
         x = x + h
         x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                           cfg, mesh, moe_impl, tp)
+                           cfg, mesh, moe_impl, tp, fsdp)
         return x, state
     h, st_att = rwkv_mod.rwkv_time_mix(params, rms_norm(x, params["ln1"], eps),
                                        cfg, tp=tp)
@@ -171,7 +202,7 @@ def block_prefill(params, x, cfg, kind: str, cache_len: int, *, mesh=None,
 
 
 def block_decode(params, x, cache, pos: int, cfg, kind: str, *, mesh=None,
-                 moe_impl="dense"):
+                 moe_impl="dense", fsdp=(), kv=None):
     """Reference ``block_decode`` (blocks.py:137): one token x (B, 1, d) at
     absolute position ``pos`` → (x, the block's new cache). An MoE FFN
     takes the form ``moe_impl``, the dense form by default. The cross
@@ -182,15 +213,15 @@ def block_decode(params, x, cache, pos: int, cfg, kind: str, *, mesh=None,
     if kind in ("attn", "local"):
         h, new_cache = attn.attn_decode(params["attn"],
                                         rms_norm(x, params["ln1"], eps),
-                                        cache, pos, cfg, kind, tp)
+                                        cache, pos, cfg, kind, tp, kv)
         x = x + h
         if "cross" in params:
             x = x + attn.cross_attn_decode(
                 params["cross"], rms_norm(x, params["ln_cross"], eps),
-                cache["cross"], cfg, tp)
+                cache["cross"], cfg, tp, kv)
             new_cache["cross"] = cache["cross"]
         x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                           cfg, mesh, moe_impl, tp)
+                           cfg, mesh, moe_impl, tp, fsdp)
         return x, new_cache
     if kind == "rec":
         h, state = rec.rglru_decode(params["rec"],
@@ -198,7 +229,7 @@ def block_decode(params, x, cache, pos: int, cfg, kind: str, *, mesh=None,
                                     cfg, tp)
         x = x + h
         x = x + _ffn_apply(params["ffn"], rms_norm(x, params["ln2"], eps),
-                           cfg, mesh, moe_impl, tp)
+                           cfg, mesh, moe_impl, tp, fsdp)
         return x, state
     h, st_att = rwkv_mod.rwkv_time_mix(
         params, rms_norm(x, params["ln1"], eps), cfg,

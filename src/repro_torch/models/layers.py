@@ -13,7 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..distributed.collectives import all_reduce, max_over, tp_exit
+from ..distributed.collectives import all_reduce, max_over
 
 __all__ = ["dense_init", "rms_norm", "mlp_init", "mlp_apply",
            "rotary_cos_sin", "apply_rotary", "softcap", "cross_entropy",
@@ -71,16 +71,15 @@ def mlp_apply(params, x, kind: str, *, tp=None):
     """The FFN. Under a :class:`~repro_torch.distributed.sharding.TPPlan`
     ``tp`` whose ``ff`` is set, ``w_gate``/``w_up`` are this rank's columns
     and ``w_down`` its rows of the hidden dimension, and the partial outputs
-    are summed over ``model`` (``collectives.tp_exit``)."""
+    are summed over ``model`` (``TPPlan.leave``: ``collectives.tp_exit``,
+    under Megatron-SP ``seq_exit``)."""
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else _gelu
         h = act(x @ params["w_gate"]) * (x @ params["w_up"])
         y = h @ params["w_down"]
     else:
         y = _gelu(x @ params["w_up"]) @ params["w_down"]
-    if tp is not None and tp.ff:
-        y = tp_exit(y, tp.mesh)
-    return y
+    return y if tp is None else tp.leave(y, tp.ff)
 
 
 # --- rotary position embeddings ----------------------------------------------

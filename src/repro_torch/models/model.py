@@ -28,6 +28,16 @@ over ``model``, the head computes the rank's columns, the loss is the
 vocab-parallel cross-entropy, and the logits that ``forward_train``,
 ``prefill`` and ``decode_step`` return are whole on every rank (the sum of
 the ranks' zero-padded blocks).
+
+The entry points take the reference's axis ``rules`` (``rules=``, the
+mapping its ``axis_rules`` context holds, as ``launch/specs.py``'s cells
+set them) and hand what they decide down: ``seq_sp`` → ``model`` puts the
+training forward's residual in Megatron-SP's layout (each rank its block
+of the sequence; the embedding leaves by ``seq_exit``, the head gathers
+after the final norm; the encoder keeps ``seq``), ``fsdp`` names the data
+axes the MoE expert stacks are stored split over (ZeRO-3), and
+``seq_kv`` puts the decode cache in the sequence-split layout
+(``KVSplit``: every KV head, the rank's block of the slots).
 """
 
 from __future__ import annotations
@@ -40,8 +50,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-from ..distributed.collectives import all_reduce, tp_exit
-from ..distributed.sharding import tp_plan
+from ..distributed.collectives import all_reduce
+from ..distributed.sharding import fsdp_axes, kv_split, seq_parallel, tp_plan
 from ..tree import tree_map
 from . import blocks
 from .layers import cross_entropy_sums, dense_init, rms_norm, softcap
@@ -164,15 +174,16 @@ def _maybe_remat(fn, cfg):
     return body
 
 
-def _encode(params, enc_input, cfg, mesh=None):
+def _encode(params, enc_input, cfg, mesh=None, fsdp=()):
     """Reference ``_encode`` (model.py:102): the stub frame embeddings
     through the input adapter, the bidirectional "attn" stack (RoPE,
-    ``causal=False``) and the encoder's final norm."""
+    ``causal=False``) and the encoder's final norm. Its sequence stays
+    whole under Megatron-SP (``seq``, as the reference constrains it)."""
     x = enc_input.to(_dtype(cfg)) @ params["enc_in_proj"]
 
     def body(h, rep):
         return blocks.block_train(rep, h, cfg, "attn", mesh=mesh,
-                                  causal=False)
+                                  causal=False, fsdp=fsdp)
     body = _maybe_remat(body, cfg)
     stack = params["enc"]["scan"]["pos0"]
     for r in range(cfg.encoder_layers):
@@ -192,21 +203,27 @@ def _embed(params, tokens, cfg, tp=None):
     sums thousands of contributions). Vocab-parallel under the plan ``tp``:
     ids outside the rank's rows read zeros (and add nothing to the
     gradient), and the ranks' lookups are summed over ``model``, one
-    nonzero term an element."""
+    nonzero term an element. Under Megatron-SP the rank keeps its block of
+    the sequence (``TPPlan.leave``)."""
     tokens = tokens.long()
     if not _vocab(tp):
-        return F.embedding(tokens, params["embed"])
+        x = F.embedding(tokens, params["embed"])
+        return x if tp is None else tp.leave(x, False)
     rows = params["embed"].shape[0]
     local = tokens - tp.rank * rows
     mine = (local >= 0) & (local < rows)
     x = F.embedding(torch.where(mine, local, 0), params["embed"])
-    return tp_exit(x * mine[..., None].to(x.dtype), tp.mesh)
+    return tp.leave(x * mine[..., None].to(x.dtype), True)
 
 
-def _head(params, x, cfg):
+def _head(params, x, cfg, tp=None):
     """The final norm, the tied or untied head and the soft cap (the
-    rank's block of the vocabulary where its head is a block)."""
+    rank's block of the vocabulary where its head is a block). Under
+    Megatron-SP the norm runs on the rank's block of the sequence, which
+    is then gathered."""
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    if tp is not None:
+        x = tp.enter(x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return softcap(x @ head, cfg.logit_softcap)
 
@@ -223,7 +240,7 @@ def _whole(logits, tp):
     return all_reduce(full, tp.mesh, "model").to(logits.dtype)
 
 
-def _frames(params, batch, cfg, mesh=None):
+def _frames(params, batch, cfg, mesh=None, fsdp=()):
     """An encoder-decoder's encoded ``batch["enc_input"]``, else None."""
     if not cfg.is_encdec:
         return None
@@ -231,30 +248,40 @@ def _frames(params, batch, cfg, mesh=None):
         raise ValueError(f"{cfg.name} is an encoder-decoder: it needs "
                          "batch['enc_input'], the (B, frames, d_model) "
                          "frame embeddings")
-    return _encode(params, batch["enc_input"], cfg, mesh)
+    return _encode(params, batch["enc_input"], cfg, mesh, fsdp)
 
 
-def _logits(params, batch, cfg, mesh, moe_impl):
-    """The training forward to the head: (this rank's logits, the plan)."""
-    tp = tp_plan(cfg, mesh)
-    enc = _frames(params, batch, cfg, mesh)
+def _logits(params, batch, cfg, mesh, moe_impl, rules):
+    """The training forward to the head: (this rank's logits, the plan).
+    Under Megatron-SP the residual, and so the remat-saved carry, is the
+    rank's block of the sequence."""
+    sp = seq_parallel(mesh, rules)
+    tp = tp_plan(cfg, mesh, sp=sp)
+    fsdp = fsdp_axes(mesh, rules)
+    t = batch["tokens"].shape[1]
+    if sp and t % tp.n:
+        raise ValueError(f"Megatron-SP splits the sequence over the "
+                         f"{tp.n}-way model axis: T = {t} does not divide")
+    enc = _frames(params, batch, cfg, mesh, fsdp)
     x = _embed(params, batch["tokens"], cfg, tp)
 
     def body(h, rep):
         for i, kind in enumerate(cfg.block_pattern):
             h = blocks.block_train(rep[f"pos{i}"], h, cfg, kind, mesh=mesh,
-                                   moe_impl=moe_impl, enc=enc)
+                                   moe_impl=moe_impl, enc=enc, sp=sp,
+                                   fsdp=fsdp)
         return h
     body = _maybe_remat(body, cfg)
     for r in range(cfg.n_repeats):
         x = body(x, _repeat(params["scan"], r))
     for p, kind in zip(params.get("rem", ()), cfg.remainder_kinds):
         x = blocks.block_train(p, x, cfg, kind, mesh=mesh, moe_impl=moe_impl,
-                               enc=enc)
-    return _head(params, x, cfg), tp
+                               enc=enc, sp=sp, fsdp=fsdp)
+    return _head(params, x, cfg, tp), tp
 
 
-def forward_train(params, batch, cfg, *, mesh=None, moe_impl=None):
+def forward_train(params, batch, cfg, *, mesh=None, moe_impl=None,
+                  rules=None):
     """Reference ``forward_train`` (model.py:116): the logits (B, T, vocab)
     of ``batch["tokens"]`` (B, T) at every position, differentiable. An
     encoder-decoder first encodes ``batch["enc_input"]``. Each repeat of
@@ -262,27 +289,28 @@ def forward_train(params, batch, cfg, *, mesh=None, moe_impl=None):
     FFN is the dense form, as the reference's on one device; over a
     ``DeviceMesh`` ``params`` and ``batch`` are this rank's shards, an
     MoE FFN takes the form ``moe_impl`` (``models/moe.py::moe_apply``),
-    the dense layers their split forms, and the logits are whole."""
-    logits, tp = _logits(params, batch, cfg, mesh, moe_impl)
+    the dense layers their split forms, and the logits are whole.
+    ``rules`` as the module says (``seq_sp``, ``fsdp``)."""
+    logits, tp = _logits(params, batch, cfg, mesh, moe_impl, rules)
     return _whole(logits, tp)
 
 
-def loss_sums(params, batch, cfg, *, mesh=None, moe_impl=None):
+def loss_sums(params, batch, cfg, *, mesh=None, moe_impl=None, rules=None):
     """The token CE of ``batch`` summed over its labels that are not -100,
     and their count (``layers.py::cross_entropy_sums``), float32 0-d; over
     a mesh the vocab-parallel CE of this rank's rows, the same on every
     rank of ``model``."""
-    logits, tp = _logits(params, batch, cfg, mesh, moe_impl)
+    logits, tp = _logits(params, batch, cfg, mesh, moe_impl, rules)
     return cross_entropy_sums(logits, batch["labels"], tp=tp)
 
 
-def loss_fn(params, batch, cfg, *, mesh=None, moe_impl=None):
+def loss_fn(params, batch, cfg, *, mesh=None, moe_impl=None, rules=None):
     """Reference ``loss_fn`` (model.py:145): the token CE of
     :func:`forward_train`'s logits against ``batch["labels"]`` → (loss,
     {"loss": loss}); the mean over the labels that are not -100 (0 when
     all are)."""
     total, count = loss_sums(params, batch, cfg, mesh=mesh,
-                             moe_impl=moe_impl)
+                             moe_impl=moe_impl, rules=rules)
     loss = total / torch.clamp(count, min=1.0)
     return loss, {"loss": loss}
 
@@ -292,15 +320,18 @@ def loss_fn(params, batch, cfg, *, mesh=None, moe_impl=None):
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg, batch: int, cache_len: int, *, enc_len: int = 0,
-                mesh=None):
+                mesh=None, rules=None):
     """Shape/dtype tree of the KV and state cache (``TensorSpec`` leaves);
     an encoder-decoder's blocks add the cross cache of ``enc_len`` encoder
     positions. Reference ``cache_specs`` (model.py:155). With ``mesh``, the
     cache of ``batch`` rows as this rank holds it: its KV heads, RG-LRU
-    channels and RWKV heads (``distributed/sharding.py::tp_plan``)."""
+    channels and RWKV heads (``distributed/sharding.py::tp_plan``); where
+    ``rules`` map ``seq_kv`` to the mesh, every KV head for its block of
+    the KV caches' slots (``KVSplit``)."""
     dtype = _dtype(cfg)
     cross_len = enc_len if cfg.is_encdec else 0
     tp = tp_plan(cfg, mesh)
+    kv = kv_split(mesh, rules, cache_len, cross_len)
 
     def stack(spec):
         return tree_map(lambda s: type(s)((cfg.n_repeats,) + s.shape,
@@ -309,28 +340,29 @@ def cache_specs(cfg, batch: int, cache_len: int, *, enc_len: int = 0,
     cache = {"scan": {
         f"pos{i}": stack(blocks.block_cache_spec(cfg, kind, batch, cache_len,
                                                  dtype, cross_len=cross_len,
-                                                 tp=tp))
+                                                 tp=tp, kv=kv))
         for i, kind in enumerate(cfg.block_pattern)}}
     rem = cfg.remainder_kinds
     if rem:
         cache["rem"] = tuple(
             blocks.block_cache_spec(cfg, kind, batch, cache_len, dtype,
-                                    cross_len=cross_len, tp=tp)
+                                    cross_len=cross_len, tp=tp, kv=kv)
             for kind in rem)
     return cache
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, enc_len: int = 0,
-               device="cuda", mesh=None):
+               device="cuda", mesh=None, rules=None):
     """Reference ``init_cache`` (model.py:178): the zero cache (this rank's
-    with ``mesh``)."""
-    specs = cache_specs(cfg, batch, cache_len, enc_len=enc_len, mesh=mesh)
+    with ``mesh``, laid out as ``rules`` say)."""
+    specs = cache_specs(cfg, batch, cache_len, enc_len=enc_len, mesh=mesh,
+                        rules=rules)
     return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                            device=device), specs)
 
 
 def prefill(params, batch, cfg, cache_len: int, *, mesh=None,
-            moe_impl=None):
+            moe_impl=None, rules=None):
     """Full forward over the prompt; returns (last-token logits, cache).
     Reference ``prefill`` (model.py:183): an encoder-decoder first encodes
     ``batch["enc_input"]`` (B, frames, d) and its decoder blocks attend to
@@ -338,9 +370,12 @@ def prefill(params, batch, cfg, cache_len: int, *, mesh=None,
     one device; over a ``DeviceMesh`` ``params`` and ``batch`` are this
     rank's shards, an MoE FFN takes the form ``moe_impl``, the dense layers
     their split forms, the cache is this rank's (``cache_specs(...,
-    mesh=)``) and the logits are whole."""
+    mesh=, rules=)``) and the logits are whole."""
     tp = tp_plan(cfg, mesh)
-    enc = _frames(params, batch, cfg, mesh)
+    fsdp = fsdp_axes(mesh, rules)
+    enc = _frames(params, batch, cfg, mesh, fsdp)
+    kv = kv_split(mesh, rules, cache_len,
+                  enc.shape[1] if enc is not None else 0)
     x = _embed(params, batch["tokens"], cfg, tp)
     per_rep = []
     for r in range(cfg.n_repeats):
@@ -349,7 +384,7 @@ def prefill(params, batch, cfg, cache_len: int, *, mesh=None,
             rep = _repeat(params["scan"][f"pos{i}"], r)
             x, caches[f"pos{i}"] = blocks.block_prefill(
                 rep, x, cfg, kind, cache_len, mesh=mesh, moe_impl=moe_impl,
-                enc=enc)
+                enc=enc, fsdp=fsdp, kv=kv)
         per_rep.append(caches)
     cache = {"scan": tree_map(lambda *xs: torch.stack(xs), *per_rep)}
     if params.get("rem"):
@@ -357,14 +392,15 @@ def prefill(params, batch, cfg, cache_len: int, *, mesh=None,
         for p, kind in zip(params["rem"], cfg.remainder_kinds):
             x, c = blocks.block_prefill(p, x, cfg, kind, cache_len,
                                         mesh=mesh, moe_impl=moe_impl,
-                                        enc=enc)
+                                        enc=enc, fsdp=fsdp, kv=kv)
             rem_caches.append(c)
         cache["rem"] = tuple(rem_caches)
     return _whole(_head(params, x[:, -1:], cfg), tp)[:, 0], cache
 
 
 def decode_step(params, cache, tokens, pos: int, cfg, *, mesh=None,
-                moe_impl="dense"):
+                moe_impl="dense", rules=None, cache_len: int | None = None,
+                enc_len: int = 0):
     """One decode step. Reference ``decode_step`` (model.py:216): tokens
     (B,) at absolute position ``pos`` (an int) → (logits (B, vocab), new
     cache). Each repeat's blocks decode against that repeat's cache, and
@@ -372,8 +408,13 @@ def decode_step(params, cache, tokens, pos: int, cfg, *, mesh=None,
     caller's cache is unchanged. An MoE FFN takes the form ``moe_impl``,
     the dense form by default, as the reference's decode does; over a
     ``DeviceMesh`` the arguments are this rank's shards (the cache as
-    :func:`prefill` returns it there) and the logits are whole."""
+    :func:`prefill` returns it there with the same ``rules``) and the
+    logits are whole. Where ``rules`` split the cache by sequence
+    (``seq_kv``), ``cache_len`` and an encoder-decoder's ``enc_len`` are
+    the whole caches' lengths, which a rank's block does not tell."""
     tp = tp_plan(cfg, mesh)
+    fsdp = fsdp_axes(mesh, rules)
+    kv = kv_split(mesh, rules, cache_len, enc_len)
     x = _embed(params, tokens[:, None], cfg, tp)
     per_rep = []
     for r in range(cfg.n_repeats):
@@ -383,7 +424,8 @@ def decode_step(params, cache, tokens, pos: int, cfg, *, mesh=None,
                                 (params["scan"][f"pos{i}"],
                                  cache["scan"][f"pos{i}"]))
             x, new[f"pos{i}"] = blocks.block_decode(
-                rep, x, rc, pos, cfg, kind, mesh=mesh, moe_impl=moe_impl)
+                rep, x, rc, pos, cfg, kind, mesh=mesh, moe_impl=moe_impl,
+                fsdp=fsdp, kv=kv)
         per_rep.append(new)
     new_cache = {"scan": tree_map(lambda *xs: torch.stack(xs), *per_rep)}
     if params.get("rem"):
@@ -391,7 +433,7 @@ def decode_step(params, cache, tokens, pos: int, cfg, *, mesh=None,
         for p, kind, c in zip(params["rem"], cfg.remainder_kinds,
                               cache["rem"]):
             x, nc = blocks.block_decode(p, x, c, pos, cfg, kind, mesh=mesh,
-                                        moe_impl=moe_impl)
+                                        moe_impl=moe_impl, fsdp=fsdp, kv=kv)
             rem_new.append(nc)
         new_cache["rem"] = tuple(rem_new)
     return _whole(_head(params, x, cfg), tp)[:, 0], new_cache

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from ..distributed import collectives as C
 from .layers import dense_init
 
-__all__ = ["moe_init", "moe_apply"]
+__all__ = ["gather_experts", "moe_init", "moe_apply"]
 
 
 def moe_init(generator, cfg, dtype=torch.float32, device=None):
@@ -172,7 +172,7 @@ def _moe_local(params, x, cfg, *, capacity_scale: float = 1.0, mesh=None,
     return out.reshape(b, t, d)
 
 
-def _moe_dense(params, x, cfg):
+def _moe_dense(params, x, cfg, *, first: int = 0, rounded: bool = True):
     """Reference ``_moe_dense`` (moe.py:149): every expert on every token,
     combined with the gates scattered to (b, t, e) and cast to x's type.
 
@@ -180,7 +180,10 @@ def _moe_dense(params, x, cfg):
     its output times its combine weight added into a float32 sum, rounded
     to x's type at the end: the reference's last einsum (bf16 products are
     exact in float32) without its (b, t, e, f) and (b, t, e, d)
-    transients."""
+    transients. The expert weights may be a slice of the stacks: experts
+    ``first`` onwards, or every expert's block of the hidden units; then
+    the float32 sum is this slice's partial (``rounded=False``: not
+    rounded)."""
     b, t, d = x.shape
     n = b * t
     gates, idx = _route(params, x, cfg)
@@ -189,46 +192,113 @@ def _moe_dense(params, x, cfg):
     w = w.to(x.dtype).float()
     x2 = x.reshape(n, d)
     out = torch.zeros((n, d), dtype=torch.float32, device=x.device)
-    for e in range(cfg.n_experts):
-        h = F.silu(x2 @ params["w_gate"][e]) * (x2 @ params["w_up"][e])
-        out += (h @ params["w_down"][e]).float() * w[:, e, None]
-    return out.to(x.dtype).reshape(b, t, d)
+    for j in range(params["w_gate"].shape[0]):
+        e = first + j
+        h = F.silu(x2 @ params["w_gate"][j]) * (x2 @ params["w_up"][j])
+        out += (h @ params["w_down"][j]).float() * w[:, e, None]
+    out = out.reshape(b, t, d)
+    return out.to(x.dtype) if rounded else out
+
+
+def gather_experts(params, cfg, mesh, axes, impl: str | None = None):
+    """ZeRO-3 of the expert stacks (the reference's ``optimized`` cells):
+    ``params``' ``w_gate``, ``w_up`` and ``w_down`` as stored, split over
+    the data axes ``axes`` on the dimension ``_MOE_EP_FSDP`` or
+    ``_MOE_TP_FSDP`` names (``sharding.expert_fsdp_dim``) where they divide
+    it, gathered back to the layout form ``impl`` computes in. The gather's
+    backward reduce-scatters, so each rank's gradient of its stored block
+    arrives summed over the data ranks. Called per layer, inside the
+    checkpointed body: the gathered copy lives for the layer, and the
+    recompute gathers again."""
+    from ..distributed.sharding import expert_fsdp_dim, mesh_shape
+    n = math.prod(mesh_shape(mesh)[a] for a in axes)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_expert
+    shapes = {"w_gate": (e, d, f), "w_up": (e, d, f), "w_down": (e, f, d)}
+    out = dict(params)
+    for name, shape in shapes.items():
+        dim = expert_fsdp_dim(cfg, name, impl)
+        if shape[dim] % n:
+            continue
+        w = params[name]
+        for ax in reversed(axes):
+            w = C.all_gather(w, mesh, ax, dim)
+        out[name] = w
+    return out
 
 
 def moe_apply(params, x, cfg, *, impl: str | None = None, mesh=None,
-              model_axis: str = "model", psum_late: bool = False):
-    """Reference ``moe_apply`` (moe.py:159). With ``impl == "dense"`` or
-    no mesh this is :func:`_moe_dense`, as the reference computes on one
-    device. With a ``DeviceMesh`` it is the reference's ``shard_map`` body
-    on this rank's shards: ``x`` is this rank's batch rows (split over the
-    data axes, whole over ``model_axis``) and the expert weights are its
-    slice as ``distributed.sharding.compute_shardings`` lays them out
-    (``ep``: ``E / n`` experts; ``tp``: ``d_expert / n`` of the hidden
-    dimension). The output is x's shape, whole over ``model_axis``."""
+              model_axis: str = "model", psum_late: bool = False,
+              sp: bool = False):
+    """Reference ``moe_apply`` (moe.py:159). With no mesh this is
+    :func:`_moe_dense`, as the reference computes on one device. With a
+    ``DeviceMesh`` it is the reference's ``shard_map`` body on this rank's
+    shards: ``x`` is this rank's batch rows (split over the data axes,
+    whole over ``model_axis``) and the expert weights are its slice as
+    ``distributed.sharding.compute_shardings`` lays them out (``ep``: ``E
+    / n`` experts; ``tp``: ``d_expert / n`` of the hidden dimension; the
+    dense form: the config's spec, either of the two, or whole). A split
+    dense form computes its slice's float32 partial and sums it over
+    ``model_axis`` before the one rounding. The output is x's shape, whole
+    over ``model_axis``.
+
+    ``sp`` (Megatron-SP): ``x`` and the output are this rank's block of the
+    sequence. ``ep`` routes the block as it is (the tokens it dispatches
+    without SP); the other split forms gather it and leave through
+    ``collectives.seq_exit`` (``tp`` with ``psum_late``, the split dense
+    form), or keep their block of an output already whole (``tp`` summing
+    its buckets); the whole dense form is token-wise and computes on the
+    block."""
     impl = impl or cfg.moe_impl
-    if impl == "dense" or mesh is None:
+    local = params["w_gate"].shape
+    whole = local[0] == cfg.n_experts and local[-1] == cfg.d_expert
+    if mesh is None or (impl == "dense" and whole):
         return _moe_dense(params, x, cfg)
     n = C.axis_size(mesh, model_axis)
-    local = params["w_gate"].shape
+    rank = C.axis_index(mesh, model_axis)
+
+    def entry(h):
+        return C.all_gather(h, mesh, model_axis, dim=1) if sp else h
+
+    def block(y):
+        t = y.shape[1] // n
+        return y.narrow(1, rank * t, t) if sp else y
+
+    if impl == "dense":
+        if local[0] * n == cfg.n_experts:
+            first = rank * local[0]
+        elif local[-1] * n == cfg.d_expert:
+            first = 0
+        else:
+            raise ValueError(f"dense: the rank holds {tuple(local)} of the "
+                             f"({cfg.n_experts}, {cfg.d_model}, "
+                             f"{cfg.d_expert}) experts, not a 1/{n} slice")
+        y = _moe_dense(params, entry(x), cfg, first=first, rounded=False)
+        y = C.seq_exit(y, mesh, model_axis) if sp \
+            else C.tp_exit(y, mesh, model_axis)
+        return y.to(x.dtype)
     if impl == "ep":
         # tokens are sequence-split over the model axis for the dispatch, so
-        # every rank routes a unique token shard
-        if cfg.n_experts % n or x.shape[1] % n:
+        # every rank routes a unique token shard (under SP, its block)
+        t_all = x.shape[1] * (n if sp else 1)
+        if cfg.n_experts % n or t_all % n:
             raise ValueError(f"ep needs E ({cfg.n_experts}) and T "
-                             f"({x.shape[1]}) divisible by the {n}-way "
+                             f"({t_all}) divisible by the {n}-way "
                              f"{model_axis!r} axis")
         if local[0] * n != cfg.n_experts:
             raise ValueError(f"ep: the rank holds {local[0]} experts, not "
                              f"{cfg.n_experts} // {n}")
-        t = x.shape[1] // n
-        mine = x.narrow(1, C.axis_index(mesh, model_axis) * t, t)
+        t = x.shape[1] if sp else x.shape[1] // n
+        mine = x if sp else x.narrow(1, rank * t, t)
         y = _moe_local(params, mine, cfg, mesh=mesh, ep_axis=model_axis,
                        n_ep=n)
-        return C.all_gather(y, mesh, model_axis, dim=1)
+        return y if sp else C.all_gather(y, mesh, model_axis, dim=1)
     if impl == "tp":
         if local[-1] * n != cfg.d_expert:
             raise ValueError(f"tp: the rank holds {local[-1]} of the FFN's "
                              f"{cfg.d_expert} hidden units, not 1/{n}")
-        return _moe_local(params, x, cfg, mesh=mesh, psum_axis=model_axis,
-                          psum_late=psum_late)
+        if sp and psum_late:
+            y = _moe_local(params, entry(x), cfg)
+            return C.seq_exit(y, mesh, model_axis)
+        return block(_moe_local(params, entry(x), cfg, mesh=mesh,
+                                psum_axis=model_axis, psum_late=psum_late))
     raise ValueError(impl)

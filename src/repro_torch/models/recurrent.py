@@ -24,7 +24,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.collectives import tp_exit
 from .common import TensorSpec
 from .layers import _gelu, dense_init
 
@@ -168,7 +167,7 @@ def _channels(params, tp):
 
 
 def _exit(y, tp):
-    return tp_exit(y, tp.mesh) if _split(tp) else y
+    return y if tp is None else tp.leave(y, tp.rnn)
 
 
 def rglru_state_spec(cfg, batch: int, dtype, tp=None):

@@ -29,7 +29,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.collectives import tp_exit
 from .common import TensorSpec
 from .layers import dense_init
 
@@ -206,8 +205,8 @@ def rwkv_time_mix(params, x, cfg, state=None, tp=None):
     o, s_last = _wkv_chunked(r, k, v, logw, p["u"], s0, cfg.chunk_rec)
     o = _group_norm(o.reshape(bsz, t, h * n).to(x.dtype), p["ln_x"], n)
     y = (o * g) @ p["w_o"]
-    if tp is not None and tp.rwkv:
-        y = tp_exit(y, tp.mesh)
+    if tp is not None:
+        y = tp.leave(y, tp.rwkv)
     return y, {"s": s_last, "x_att": x[:, -1, :]}
 
 
@@ -221,8 +220,10 @@ def rwkv_channel_mix(params, x, cfg, state=None, tp=None):
     k = torch.square(torch.relu(_mix(x, xs, p["mu_k"]) @ p["w_k"]))
     r = torch.sigmoid(_mix(x, xs, p["mu_r"]) @ p["w_r"])
     kv = k @ p["w_v"]
-    if tp is not None and tp.ff:
-        kv = tp_exit(kv, tp.mesh)
+    if tp is not None:
+        # under Megatron-SP both factors are the rank's block of the
+        # sequence: ``r`` (``w_r`` whole) keeps its block with no sum
+        kv, r = tp.leave(kv, tp.ff), tp.leave(r, False)
     return r * kv, {"x_ffn": x[:, -1, :]}
 
 

@@ -23,11 +23,18 @@ With ``grad_shardings`` (the reference's ZeRO layout,
 ``param_shardings(..., extra_batch_dim=True)``) that sum is a
 reduce-scatter into the layout, once a microbatch (ZeRO-2); the float32
 moments live as those shards and AdamW runs on them (ZeRO-1), and only
-the result, in the parameter's type, is gathered back.
+the result, in the parameter's type, is gathered back. A leaf stored split
+over the data axes too (ZeRO-3 of the MoE experts, the reference's
+``optimized`` cells: ``param_out_shardings`` is its storage layout) is
+gathered by the model at use, whose backward reduce-scatters its gradient
+over the data ranks: the layout then holds it over every axis, so the
+step sums and scatters it no further, its moments are its block, and
+nothing is gathered back.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -38,7 +45,8 @@ from ..distributed.collectives import (all_gather, axis_index, axis_size,
 from ..tree import leaves, rebuild, tree_map
 
 __all__ = ["OptConfig", "global_norm", "loss_and_grads", "lr_schedule",
-           "make_train_step", "opt_init", "opt_update", "split_repeats"]
+           "make_train_step", "opt_init", "opt_update", "recorded_reduced",
+           "split_repeats"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -359,7 +367,8 @@ def _data_rows(batch, mesh):
     return _micro(batch, n, k)
 
 
-def _mesh_loss_and_grads(params, batch, cfg, mesh, moe_impl=None):
+def _mesh_loss_and_grads(params, batch, cfg, mesh, moe_impl=None,
+                         rules=None):
     """:func:`loss_and_grads` of one rank of a ``DeviceMesh``: ``params``
     and ``batch`` are its shards → (the loss of the whole batch, this
     rank's gradient shares). The loss is the sum of the CE terms over the
@@ -375,7 +384,7 @@ def _mesh_loss_and_grads(params, batch, cfg, mesh, moe_impl=None):
     split = split_repeats(params)
     with torch.enable_grad():
         total, count = loss_sums(split, batch, cfg, mesh=mesh,
-                                 moe_impl=moe_impl)
+                                 moe_impl=moe_impl, rules=rules)
         loss = total / torch.clamp(sum_over(count.detach(), mesh, data),
                                    min=1.0)
         grads = torch.autograd.grad(
@@ -384,9 +393,32 @@ def _mesh_loss_and_grads(params, batch, cfg, mesh, moe_impl=None):
     return sum_over(loss.detach(), mesh, data), rebuild(split, grads)
 
 
+# the lists that :func:`recorded_reduced` blocks are open for, with the
+# device each keeps its copies on
+_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def recorded_reduced(device=None):
+    """Within the block, each mesh train step appends a copy (on
+    ``device``, the block's own by default) of every reduced gradient
+    block it hands the update to the list this yields: the leaves in
+    order, a stacked leaf's repeats in turn, a microbatch after another.
+    That is the step's own gradient, to be held against a meshless one
+    without a second run; a copy in host memory leaves the card's peak
+    as it was."""
+    blocks: list = []
+    _RECORDERS.append((blocks, device))
+    try:
+        yield blocks
+    finally:
+        _RECORDERS.pop()
+
+
 def make_train_step(cfg, opt: OptConfig, *, mesh=None, moe_impl=None,
                     n_microbatches: int = 1, grad_shardings=None,
-                    param_out_shardings=None, accum_dtype=torch.float32):
+                    param_out_shardings=None, accum_dtype=torch.float32,
+                    rules=None):
     """Reference ``make_train_step`` (optimizer.py:109): the train step
     (loss → grads → clip → AdamW) ``step(params, opt_state, batch) ->
     (params, opt_state, metrics)`` with metrics ``loss``, ``lr`` and
@@ -407,7 +439,9 @@ def make_train_step(cfg, opt: OptConfig, *, mesh=None, moe_impl=None,
     extra_batch_dim=True)``) each microbatch's gradient shares are
     reduce-scattered into that layout and accumulated there, and
     ``opt_update`` runs ZeRO-1 on it; without, the shares are summed
-    whole (data parallelism) and the moments are whole."""
+    whole (data parallelism) and the moments are whole. ``rules`` are the
+    reference's axis rules the forward computes under (``models.loss_sums``:
+    Megatron-SP with ``seq_sp``, the ZeRO-3 experts' ``fsdp``)."""
     if mesh is None:
         return _train_step(cfg, opt, n_microbatches, accum_dtype)
     if param_out_shardings is None:
@@ -426,11 +460,16 @@ def make_train_step(cfg, opt: OptConfig, *, mesh=None, moe_impl=None,
         for i in range(m):
             loss_i, g = _mesh_loss_and_grads(
                 params, rows if m == 1 else _micro(rows, m, i), cfg, mesh,
-                moe_impl)
+                moe_impl, rules)
             red = [tuple(lay.reduce(u) for u in node)
                    if isinstance(node, tuple) else lay.reduce(node)
                    for (_, node, _), lay in zip(_param_leaves(params, g),
                                                 layouts)]
+            for blocks, device in _RECORDERS:
+                blocks.extend(u.to(device or u.device, copy=True)
+                              for node in red for u in (
+                                  node if isinstance(node, tuple)
+                                  else (node,)))
             if m > 1:
                 gacc = tree_map(lambda x: x.to(accum_dtype), red) \
                     if gacc is None else tree_map(

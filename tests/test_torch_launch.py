@@ -1,10 +1,11 @@
 """The port's ``launch/`` against the reference's, on the CPU.
 
 * ``launch/specs.py::build_cell`` against the reference's ``build_cell``,
-  spec for spec, for every arch × shape on the single-pod mesh and a
-  multi-pod sample: the argument trees' shapes and dtypes, every input
-  sharding, ``meta``, ``tokens_per_step``, ``mode``, ``donate`` and the
-  skip reason. The reference's cells are built in one subprocess with 512
+  spec for spec, for every arch × shape on the single-pod mesh, plain and
+  ``optimized`` (Megatron-SP, ZeRO-3 of the MoE experts), and a multi-pod
+  sample: the argument trees' shapes and dtypes, every input sharding,
+  ``meta``, ``tokens_per_step``, ``mode``, ``donate`` and the skip
+  reason. The reference's cells are built in one subprocess with 512
   placeholder host devices (``XLA_FLAGS``, set before JAX starts); the
   port's on a ``MeshShape`` of the same names and sizes.
 * ``launch/cost.py``'s product flops of ``loss_fn`` on three smoke configs
@@ -15,8 +16,12 @@
   against every key). Doubling the depth doubles the layer flops.
 * ``launch/dryrun.py::run_cell`` on a train and a prefill production cell
   (in a subprocess: its default group is the ``fake`` backend at 256
-  ranks) writes a record with ``fits_hbm`` and a dominant term;
-  ``optimized=True`` raises with its reason.
+  ranks) writes a record with ``fits_hbm`` and a dominant term, and so
+  does ``run_cell(..., optimized=True)`` on mixtral-8x7b's train cell (at
+  2 of its 32 layers), whose Megatron-SP exits are reduce-scatters and
+  whose expert gathers all-gathers, as the fake group reports them, and
+  on its decode cell; the train cell stores 1/256 of the experts a rank
+  (ZeRO-3 over the 16 data ranks, beside the 16 of ``model``).
 * K4's and K4′'s fake implementations: fake CUDA tensors under
   ``FakeTensorMode`` and ``meta`` tensors launch nothing and come out in
   the right shapes.
@@ -41,7 +46,8 @@ from repro.launch.hlo_analysis import analyze_hlo  # noqa: E402
 from repro.models import init_params as j_init  # noqa: E402
 from repro.models import loss_fn as j_loss_fn  # noqa: E402
 
-from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.distributed import sharding as S  # noqa: E402
 from repro_torch.distributed.sharding import MeshShape  # noqa: E402
 from repro_torch.kernels.attn import attn as A  # noqa: E402
 from repro_torch.launch import cost, specs  # noqa: E402
@@ -70,9 +76,9 @@ devs = np.array(jax.devices())
 meshes = {"single": Mesh(devs[:256].reshape(16, 16), ("data", "model")),
           "multi": Mesh(devs.reshape(2, 16, 16), ("pod", "data", "model"))}
 out = {}
-for mesh_name, arch, shape in json.loads(sys.argv[1]):
-    cell = specs.build_cell(arch, shape, meshes[mesh_name])
-    out[f"{mesh_name}/{arch}/{shape}"] = dict(
+for mesh_name, arch, shape, opt in json.loads(sys.argv[1]):
+    cell = specs.build_cell(arch, shape, meshes[mesh_name], optimized=opt)
+    out[f"{mesh_name}/{arch}/{shape}/{opt}"] = dict(
         mode=cell.mode, skipped=cell.skipped,
         tokens_per_step=cell.tokens_per_step, meta=cell.meta,
         donate=list(cell.donate),
@@ -85,8 +91,8 @@ json.dump(out, open(sys.argv[2], "w"))
 @pytest.fixture(scope="module")
 def reference_cells(tmp_path_factory):
     path = tmp_path_factory.mktemp("cells") / "cells.json"
-    todo = [("single", a, s) for a, s in SINGLE] \
-        + [("multi", a, s) for a, s in MULTI]
+    todo = [("single", a, s, o) for a, s in SINGLE for o in (False, True)] \
+        + [("multi", a, s, False) for a, s in MULTI]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=512")
@@ -101,10 +107,10 @@ def _spec(entry):
     return [list(e) if isinstance(e, tuple) else e for e in entry]
 
 
-def _port_cell(mesh_name, arch, shape):
+def _port_cell(mesh_name, arch, shape, optimized):
     mesh = MeshShape((16, 16), ("data", "model")) if mesh_name == "single" \
         else MeshShape((2, 16, 16), ("pod", "data", "model"))
-    cell = specs.build_cell(arch, shape, mesh)
+    cell = specs.build_cell(arch, shape, mesh, optimized=optimized)
     return dict(
         mode=cell.mode, skipped=cell.skipped,
         tokens_per_step=cell.tokens_per_step, meta=cell.meta,
@@ -114,29 +120,20 @@ def _port_cell(mesh_name, arch, shape):
         shardings=[_spec(s.spec) for s in leaves(cell.in_shardings)])
 
 
-@pytest.mark.parametrize("mesh_name,arch,shape",
-                         [("single", a, s) for a, s in SINGLE]
-                         + [("multi", a, s) for a, s in MULTI])
+@pytest.mark.parametrize("mesh_name,arch,shape,optimized",
+                         [("single", a, s, o) for a, s in SINGLE
+                          for o in (False, True)]
+                         + [("multi", a, s, False) for a, s in MULTI])
 def test_build_cell_matches_reference(reference_cells, mesh_name, arch,
-                                      shape):
-    want = reference_cells[f"{mesh_name}/{arch}/{shape}"]
-    got = _port_cell(mesh_name, arch, shape)
+                                      shape, optimized):
+    want = reference_cells[f"{mesh_name}/{arch}/{shape}/{optimized}"]
+    got = _port_cell(mesh_name, arch, shape, optimized)
     for key in ("mode", "skipped", "tokens_per_step", "meta", "donate"):
         assert got[key] == want[key], key
     assert got["args"] == want["args"]
     assert len(got["shardings"]) == len(want["shardings"])
     for i, (g, w) in enumerate(zip(got["shardings"], want["shardings"])):
         assert g == w, i
-
-
-def test_optimized_cells_raise_with_their_reason():
-    mesh = MeshShape((16, 16), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        specs.build_cell("mixtral-8x7b", "train_4k", mesh, optimized=True)
-    from repro_torch.launch import dryrun
-    with pytest.raises(NotImplementedError, match="Megatron-SP"):
-        dryrun.run_cell("mixtral-8x7b", "train_4k", multi_pod=False,
-                        out_dir=None, optimized=True)
 
 
 # --- product flops against the reference's HLO analysis --------------------
@@ -216,15 +213,17 @@ def test_cost_counts_storages_and_collectives_on_meta_tensors():
 RUN = """
 import json, sys
 from repro_torch.launch import dryrun
-recs = [dryrun.run_cell(a, s, multi_pod=False, out_dir=sys.argv[2])
-        for a, s in json.loads(sys.argv[1])]
+recs = [dryrun.run_cell(a, s, multi_pod=False, out_dir=sys.argv[2],
+                        optimized=o)
+        for a, s, o in json.loads(sys.argv[1])]
 json.dump(recs, open(sys.argv[2] + "/all.json", "w"), default=float)
 """
 
 
 def test_run_cell_writes_production_records(tmp_path):
-    cells = [("whisper-tiny", "train_4k"), ("chatglm3-6b", "prefill_32k"),
-             ("granite-34b", "long_500k")]
+    cells = [("whisper-tiny", "train_4k", False),
+             ("chatglm3-6b", "prefill_32k", False),
+             ("granite-34b", "long_500k", False)]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", textwrap.dedent(RUN),
                            json.dumps(cells), str(tmp_path)], env=env,
@@ -246,6 +245,90 @@ def test_run_cell_writes_production_records(tmp_path):
     assert recs[0]["mode"] == "train" and recs[1]["mode"] == "prefill"
     assert "reduce-scatter" in recs[0]["per_device"]["collective_counts"]
     assert recs[2]["skipped"].startswith("pure full attention")
+
+
+# ``run_cell(..., optimized=True)`` on [arch, shape, layers]: a cell whose
+# layers are given is counted at that depth (the config's widths, fewer
+# layers), so that a train cell's 16 microbatches trace in seconds
+RUN_OPT = """
+import dataclasses, json, sys
+from repro_torch import configs
+from repro_torch.launch import dryrun, specs
+whole = configs.get_config
+recs = []
+for a, s, layers in json.loads(sys.argv[1]):
+    def cut(arch, layers=layers):
+        cfg = whole(arch)
+        return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+    configs.get_config = specs.get_config = cut
+    recs.append(dryrun.run_cell(a, s, multi_pod=False, out_dir=sys.argv[2],
+                                optimized=True))
+json.dump(recs, open(sys.argv[2] + "/all.json", "w"), default=float)
+"""
+
+
+def _expert_bytes(shardings, p_specs, sizes) -> tuple[int, int]:
+    """(one rank's bytes, the whole's) of the expert stacks of ``p_specs``
+    laid out as ``shardings`` on a mesh of axis ``sizes``."""
+    mine = whole = 0
+    for leaf in ("w_gate", "w_up", "w_down"):
+        t = p_specs["scan"]["pos0"]["ffn"][leaf]
+        n = int(np.prod([sizes[a] for e in shardings["scan"]["pos0"]["ffn"][
+            leaf].spec for a in S.spec_axes(e)]))
+        whole += t.numel() * t.element_size()
+        mine += t.numel() * t.element_size() // n
+    return mine, whole
+
+
+def test_run_cell_writes_optimized_records(tmp_path):
+    """``run_cell(..., optimized=True)`` on mixtral-8x7b: its train_4k cell
+    (counted at 2 of its 32 layers) with Megatron-SP (its exits
+    reduce-scatters, its entries all-gathers), the experts stored split
+    over the data axes (ZeRO-3: 1/256 of them a rank, gathered a layer at
+    a time) and the bf16 accumulator; its decode_32k cell, whole, with
+    the cache split by sequence. Each record fits the card and says which
+    layout it counted."""
+    sizes = {"data": 16, "model": 16}
+    mesh = MeshShape((16, 16), ("data", "model"))
+    cfg = get_config("mixtral-8x7b")
+    cell = specs.build_cell("mixtral-8x7b", "train_4k", mesh, optimized=True)
+    p_specs = param_specs(cfg)
+    stored = S.compute_shardings(p_specs, mesh, cfg, cell.meta["moe_impl"],
+                                 moe_fsdp=True, rules=cell.rules)
+    mine, whole = _expert_bytes(stored, p_specs, sizes)
+    assert mine * 256 == whole and whole == 3 * 8 * 4096 * 14336 * 32 * 2
+    plain = S.compute_shardings(p_specs, mesh, cfg, cell.meta["moe_impl"])
+    assert _expert_bytes(plain, p_specs, sizes)[0] == 16 * mine
+
+    cells = [("mixtral-8x7b", "train_4k", 2),
+             ("mixtral-8x7b", "decode_32k", None)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(RUN_OPT),
+                           json.dumps(cells), str(tmp_path)], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    train, dec = json.loads((tmp_path / "all.json").read_text())
+    for rec in (train, dec):
+        assert "error" not in rec, rec.get("traceback")
+        assert rec["optimized"] and rec["meta"]["optimized"]
+        assert "optimized" in rec["meta"]["layout"]
+        assert rec["memory"]["fits_hbm"]
+        assert (tmp_path / f"{rec['arch']}__{rec['shape']}__single__opt"
+                           ".json").exists()
+    assert train["meta"]["moe_impl"] == "tp"
+    assert train["meta"]["n_microbatches"] == 16
+    counts = train["per_device"]["collective_counts"]
+    assert counts["reduce-scatter"] > 0 and counts["all-gather"] > 0
+    # the two layers' parameters and moments a rank: the experts' 1/256
+    # (bf16, two float32 moments) beside the dense leaves' shards
+    cut = dataclasses.replace(cfg, n_layers=2)
+    cut_specs = param_specs(cut)
+    cut_mine, _ = _expert_bytes(
+        S.compute_shardings(cut_specs, mesh, cut, "tp", moe_fsdp=True,
+                            rules=cell.rules), cut_specs, sizes)
+    assert train["memory"]["argument_bytes"] >= 5 * cut_mine
+    assert dec["per_device"]["collective_counts"]["all-gather"] > 0
+    assert dec["meta"]["moe_impl"] == "tp"
 
 
 # --- K4's and K4′'s fake implementations -----------------------------------

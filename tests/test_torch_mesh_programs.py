@@ -159,15 +159,8 @@ params = tree_map(lambda t, sh: S.shard_of(t, sh).clone(), inputs["params"],
 state = O.opt_init(params, zero_shardings=zsh, out_shardings=osh)
 step = O.make_train_step(cfg, O.OptConfig(**inputs["opt"]), mesh=mesh,
                          grad_shardings=zsh, param_out_shardings=osh)
-reduced, reduce = [], O._Layout.reduce
-
-def record(lay, g):
-    out = reduce(lay, g)
-    reduced.append(out.clone())
-    return out
-O._Layout.reduce = record
-params, state, m = step(params, state, inputs["batch"])
-O._Layout.reduce = reduce
+with O.recorded_reduced() as reduced:
+    params, state, m = step(params, state, inputs["batch"])
 result["train"] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                        params=params, m=state["m"], grads=reduced,
                        zspec=[z.spec for z in leaves(zsh)],

@@ -125,17 +125,8 @@ for key, shape in inputs["meshes"].items():
         step = O.make_train_step(cfg, O.OptConfig(**inputs["opt"]),
                                  mesh=mesh, grad_shardings=zsh,
                                  param_out_shardings=osh)
-        reduced, reduce = [], O._Layout.reduce
-
-        def record(lay, g):
-            r = reduce(lay, g)
-            reduced.append(r.clone())
-            return r
-        O._Layout.reduce = record
-        try:
+        with O.recorded_reduced() as reduced:
             params, state, m = step(params, state, batch)
-        finally:
-            O._Layout.reduce = reduce
         res.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                    grads=reduced, params=params,
                    zspec=[z.spec for z in leaves(zsh)],
