@@ -191,20 +191,24 @@ kernel of those paths against its plain PyTorch version:
    against its plain version ``flash_attention_bwd_ref`` in float32 on the
    same inputs at chatglm3-6b's (2, 2048, 32/2, 128) and gemma3-12b's
    global (2, 2048, 16/8, 256) causal shapes, the whisper-tiny encoder
-   (2, 1500, 6/6, 64) and cross-attention (448 over 1500), non-causal, in
-   bf16, and (2, 512, 8/2, 64), (2, 333, 4/4, 320), (1, 40 over 100,
-   4/2, 320) and slice 12's ``train_lm`` (8, 256, 12/4, 64, causal) in
-   float32, element by element: every bf16 shape with Dh <=
-   128 on both routes — the tensor-core kernel (``csrc/
-   flash_attn_bwd_tc.cu``, the route, given K4's LSE) within
-   ``K4B_TC_TOL`` and the CUDA-core kernel within ``K4B_BF16_TOL`` — and
-   the rest on the CUDA-core kernel within ``K4B_BF16_TOL`` or
-   ``K4B_F32_TOL`` (float32 again given the plain LSE); on each route a
-   repeat bit for bit and a launch a pass (3 and 4); once through
-   ``FlashAttention``'s backward, bit for bit the direct call's given the
-   same LSE; at the first three shapes, on each route, ms a call and
-   device µs by pass, and the plain version and SDPA's backward beside
-   the bound;
+   (2, 1500, 6/6, 64) and cross-attention (448 over 1500), non-causal,
+   slice 15's DP 256 tile edges (Dh 200; (2, 333, 4/2, 256) causal; 40
+   over 100 at Dh 256) in bf16, and (2, 512, 8/2, 64), (2, 333, 4/4,
+   320), (1, 40 over 100, 4/2, 320) and slice 12's ``train_lm`` (8, 256,
+   12/4, 64, causal) in float32, element by element: every bf16 shape
+   with Dh % 8 == 0 and Dh <= 256 on both routes — the tensor-core kernel
+   (``csrc/flash_attn_bwd_tc.cu``, the route, given K4's LSE) within
+   ``K4B_TC_TOL`` and the CUDA-core kernel within
+   ``K4B_BF16_TOL`` — and the rest on the CUDA-core kernel within
+   ``K4B_BF16_TOL`` or ``K4B_F32_TOL`` (float32 again given the plain
+   LSE); on each route a repeat bit for bit and a launch a pass (3 and
+   4); once through ``FlashAttention``'s backward, bit for bit the direct
+   call's given the same LSE; at ``K4B_TIMED``'s shapes (chatglm3-6b's,
+   gemma3-12b's, the whisper encoder's, train_lm's float32), on each
+   route, ms a call and device µs by pass, the plain version and SDPA's
+   backward beside the bound, and K4's forward beside SDPA's forward and
+   its bound; at every bf16 shape K4's LSE within ``K4_LSE_TOL`` of the
+   plain version's;
 16. SLICE 10's gradient check (after phase 14): chatglm3-6b at 4 layers,
    full width, bf16, B = 2, T = 2048, remat on, ``loss_and_grads`` on a
    ``TokenStream`` batch through K4 and K4′ (2 and 3 launches a layer,
@@ -212,6 +216,9 @@ kernel of those paths against its plain PyTorch version:
    K4's plain version with autograd, each gradient leaf's rms difference
    within ``TRAIN_GRAD_TOL`` of its rms (the largest element's printed),
    and one ``make_train_step`` step a side: loss, grad_norm and lr agree;
+   after phase 17, the same check on gemma3-12b at 6 layers (slice 15: one
+   whole pattern, whose global layer, Dh 256, launches K4 2 and K4′ 3
+   times, on the DP 256 tiles);
 17. SLICE 10'S MAIN PATH: ``make_train_step`` on chatglm3-6b at full width
    and the most layers whose 12 bytes a parameter of training state fit
    the card's free memory beside ``TRAIN_RESERVE`` (``fitting_depth``),
@@ -221,7 +228,12 @@ kernel of those paths against its plain PyTorch version:
    (all on the tensor-core kernel), K4′ 3, all on its tensor-core route;
    s a step, tokens/s, peak memory, the busy share and K4′'s share of a
    traced step, the step's bound (8 × parameters × tokens at the bf16
-   peak);
+   peak); then SLICE 15'S MAIN PATH, the same on gemma3-12b at the whole
+   patterns that fit beside ``GEMMA_TRAIN_RESERVE`` (18 of its 48 layers
+   on an 80 GB H100: 3 global layers, K4 6 and K4′ 9 launches a step, all
+   on the tensor cores), ``GEMMA_TRAIN_STEPS`` steps, and one more step
+   whose every K4′ call is held against the plain version on its own
+   inputs (``K4BChecked``);
 18. the loop end to end: ``python -m repro_torch.launch.train --smoke
    --device cuda --steps 8``, and ``train()`` on the chatglm3-6b smoke
    config with ``checkpoint_every=4`` uninterrupted, crashed at step 6 and
@@ -320,6 +332,7 @@ and cuDNN), so the plain versions are exact float32 references.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -413,7 +426,17 @@ K4B_SHAPES = ((2, 2048, 2048, 32, 2, 128, True, "bfloat16"),
               # slice 13: phase 21's tp = 2 train step on each rank;
               # slice 14: phase 23's SP step at tp = 4 (one KV head a rank)
               (2, 2048, 2048, 16, 1, 128, True, "bfloat16"),
-              (2, 2048, 2048, 8, 1, 128, True, "bfloat16"))
+              (2, 2048, 2048, 8, 1, 128, True, "bfloat16"),
+              # slice 15: the tensor-core route's DP 256 tiles at their
+              # edges — Dh 200 (zero-padded to 256), lengths not a whole
+              # number of 64-row tiles, and Tq != Tk
+              (2, 300, 300, 8, 4, 200, True, "bfloat16"),
+              (2, 333, 333, 4, 2, 256, True, "bfloat16"),
+              (1, 40, 100, 4, 2, 256, False, "bfloat16"))
+# the K4′ shapes phase 15 times: chatglm3-6b's and gemma3-12b's training
+# shapes, the whisper-tiny encoder, and train_lm's float32 one (with K4's
+# forward and SDPA's forward beside it there)
+K4B_TIMED = (K4B_SHAPES[0], K4B_SHAPES[1], K4B_SHAPES[2], K4B_SHAPES[7])
 # K4′ against its plain version in float32 on the same inputs, element by
 # element: |out - ref| <= a |ref| + b rms(ref's row over Dh) + c rms(ref).
 # bfloat16 (a, b, c) = (2^-7, 2^-10, 2^-16): a is twice the outputs'
@@ -427,7 +450,7 @@ K4B_SHAPES = ((2, 2048, 2048, 32, 2, 128, True, "bfloat16"),
 # failed at 4.6x on the first run, at (2, 512, 8/2, 64))
 K4B_BF16_TOL = (2 ** -7, 2 ** -10, 2 ** -16)
 K4B_F32_TOL = (2 ** -14, 2 ** -14, 2 ** -14)
-# K4′'s tensor-core route (bf16, Dh <= 128; ``csrc/flash_attn_bwd_tc.cu``),
+# K4′'s tensor-core route (bf16, Dh <= 256; ``csrc/flash_attn_bwd_tc.cu``),
 # the shape of K4's own bf16 check: b = 2^-6, since P^T, dS^T and dS are
 # rounded to bf16 before their products (about 2^-9.8 of a row's rms an
 # element, under 2^-7.2 at 6 sigma), and P comes from K4's LSE. c = 2^-14,
@@ -562,6 +585,16 @@ KV_RING_ARCH, KV_RING_LAYERS = "gemma3-12b", 6
 TRAIN_CHECK_LAYERS = 4
 TRAIN_GRAD_TOL = 0.02
 TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-3, 1e-2
+# slice 15: gemma3-12b's training, whose 8 global layers (Dh 256) take
+# K4′'s DP 256 tiles. The gradient check at one whole pattern (6 layers:
+# the first global layer is the 6th, so 4 would launch neither K4 nor
+# K4′); the main path at the most whole patterns whose training state
+# fits beside GEMMA_TRAIN_RESERVE (the 262,144-entry vocabulary's bf16
+# logits and the loss's float32 copies of them, 2 and 4 GiB each at B = 2,
+# T = 2048, a pattern's recompute, and the float64 references of
+# K4BChecked's held step), GEMMA_TRAIN_STEPS steps
+GEMMA_ARCH, GEMMA_CHECK_LAYERS, GEMMA_TRAIN_STEPS = "gemma3-12b", 6, 3
+GEMMA_TRAIN_RESERVE = 16 * 2 ** 30
 
 
 def log(*args):
@@ -1732,6 +1765,12 @@ def k4b_work(shape, esize):
     return nbytes, fwd * 10 // 4
 
 
+def peak_of(dtype: str) -> float:
+    """The card's peak FLOP/s for work on ``dtype`` inputs: float32 outside
+    the tensor cores, bf16 on them."""
+    return F32_FLOP_PER_S if dtype == "float32" else BF16_FLOP_PER_S
+
+
 # K4′'s kernels by route, as torch.profiler names them
 K4B_PASS_NAMES = {
     "cuda_cores": ("bwd_rows_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel",
@@ -1767,21 +1806,22 @@ def k4b_kernel(route):
             "cuda_cores": PA.FLASH_BWD_CORE_KERNEL}[route]
 
 
-def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=3):
+def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=K4B_TIMED):
     """K4′ against its plain version ``flash_attention_bwd_ref`` in float32
     on the same inputs (q, k, v and dO unit normals, o K4's output) on both
-    routes: every bf16 shape the tensor-core route takes (Dh <= 128) on it
-    — ``flash_attention_bwd`` given K4's LSE, the path's route — within
-    ``K4B_TC_TOL``, and held on the CUDA-core kernel (``bwd_launch``)
-    within ``K4B_BF16_TOL``; the other shapes on the CUDA-core route, the
-    float32 ones within ``K4B_F32_TOL`` and once more given the plain
-    version's LSE. On each route: a repeat bit for bit, a launch a pass
-    (``BWD_PASSES``) on that route's kernel. Once through ``FlashAttention``'s
-    backward (autograd, its forward writing the LSE), bit for bit the
-    direct call given the same LSE. The first ``timed`` shapes are timed
-    on each route: ms a call (CUDA events), device µs by pass
-    (``torch.profiler``), the plain version and SDPA's backward
-    (``enable_gqa``, a yardstick the port never calls), beside the bound.
+    routes: every bf16 shape the tensor-core route takes (Dh % 8 == 0, Dh
+    <= 256) on it — ``flash_attention_bwd`` given K4's LSE, the path's
+    route — within ``K4B_TC_TOL``, and held on the CUDA-core
+    kernel (``bwd_launch``) within ``K4B_BF16_TOL``; the other shapes on
+    the CUDA-core route, the float32 ones within ``K4B_F32_TOL`` and once
+    more given the plain version's LSE. On each route: a repeat bit for
+    bit, a launch a pass (``BWD_PASSES``) on that route's kernel. Once
+    through ``FlashAttention``'s backward (autograd, its forward writing
+    the LSE), bit for bit the direct call given the same LSE. The shapes in
+    ``timed`` are timed on each route: ms a call (CUDA events), device µs
+    by pass (``torch.profiler``), the plain version and SDPA's backward
+    (``enable_gqa``, a yardstick the port never calls), beside the bound;
+    and K4's forward and SDPA's forward at the shape beside theirs.
     Returns the kernels-line rows, tensor-core route first."""
     import numpy as np
     import torch
@@ -1809,6 +1849,19 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=3):
         if q.dtype == torch.bfloat16:
             out, lse = PA.launch("tensor_cores", q, k, v, causal=causal,
                                  with_lse=True)
+            # the LSE K4 hands the route, against the plain version's
+            _, lref = PA.flash_attention_fwd_ref(q.float(), k.float(),
+                                                 v.float(), causal=causal,
+                                                 with_lse=True)
+            lse_err = (lse - lref).abs().max().item()
+            del lref
+            if not lse_err <= K4_LSE_TOL:
+                raise AssertionError(f"K4 {shape}: the LSE is {lse_err:.3g} "
+                                     "from the plain LSE (bound "
+                                     f"{K4_LSE_TOL})")
+            log(f"[K4′] {shape}: K4's LSE within {lse_err:.3g} of the plain "
+                f"LSE (bound {K4_LSE_TOL})")
+            err["k4_lse"] = max(err.get("k4_lse", 0.0), lse_err)
         else:
             out, lse = PA.flash_attention_fwd(q, k, v, causal=causal), None
         ref = PA.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
@@ -1874,7 +1927,7 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=3):
                 " a repeat bit for bit"
                 + (f"; of the first floor {K4B_TC_FLOOR} (unbounded): "
                    + ", ".join(first) if first else ""))
-            if n < timed:
+            if shape in timed:
                 row = rows[route]
                 iters = 20 if tc else 5
                 ms = cuda_ms(call, iters=iters, warmup=1)
@@ -1923,7 +1976,7 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=3):
                 f"writing the LSE; {n_l} launches on the {path} route) bit for "
                 "bit the direct call's given K4's LSE")
             del ins, want
-        if n < timed:
+        if shape in timed:
             plain = cuda_ms(lambda: PA.flash_attention_bwd_ref(
                 q, k, v, out, dout, causal=causal), iters=2, warmup=1)
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -1936,11 +1989,20 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=3):
                 o_lib, (qt, kt, vt), do_lib, retain_graph=True), iters=10)
             del qt, kt, vt, o_lib
             # K4's own device time at the shape, while the profiler still
-            # reports every launch (late in a run it drops records, §7)
+            # reports every launch (late in a run it drops records, §7),
+            # its time a call and SDPA's forward's beside its bound
             fwd_us = device_us(lambda: PA.flash_attention_fwd(
                 q, k, v, causal=causal), "flash_", iters=20)
+            fwd_ms = cuda_ms(lambda: PA.flash_attention_fwd(
+                q, k, v, causal=causal), iters=20)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), iters=20)
+            del qt, kt, vt
+            fb, ff = k4_work(tuple(geo) + (causal,), q.element_size())
+            fwd_bound = max(fb / HBM_BYTES_PER_S, ff / peak_of(dtype)) * 1e3
             nbytes, flops = k4b_work(shape, q.element_size())
-            peak = F32_FLOP_PER_S if dtype == "float32" else BF16_FLOP_PER_S
+            peak = peak_of(dtype)
             bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
             by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak \
                 else "operations"
@@ -1952,7 +2014,8 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=3):
             log(f"[time] K4′ {shape}: "
                 + ", ".join(f"{r} {m:.4f} ms" for r, m in mss.items())
                 + f"; plain {plain:.3f} ms; SDPA backward {lib:.3f} ms; "
-                f"K4 forward device {fmt_us(fwd_us)}; "
+                f"K4 forward {fwd_ms:.4f} ms (device {fmt_us(fwd_us)}), "
+                f"SDPA forward {lib_fwd:.4f} ms, bound {fwd_bound:.4f} ms; "
                 f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB: bound "
                 f"{bound:.4f} ms ({by}), f32 CUDA-core bound "
                 f"{f32_bound:.3f} ms")
@@ -1962,7 +2025,8 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=3):
                     plain_ms=plain, library_ms=lib, bound_ms=bound,
                     bound_by=by, bound_ms_f32_cuda_cores=f32_bound,
                     k4_fwd_device_ms=None if fwd_us is None
-                    else fwd_us / 1e3)
+                    else fwd_us / 1e3, k4_fwd_ms=fwd_ms,
+                    sdpa_fwd_ms=lib_fwd, k4_fwd_bound_ms=fwd_bound)
                 if "ms" not in row:
                     row.update({x: row["shapes"][key][x] for x in (
                         "ms", "plain_ms", "library_ms", "bound_ms",
@@ -1977,6 +2041,7 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=3):
                    tolerance_share={d: x for (r, d), x in worst.items()
                                     if r == route})
     rows["cuda_cores"]["max_abs_err_f32"] = err.get(("cuda_cores", "float32"))
+    rows["tensor_cores"]["k4_lse_max_abs_err"] = err.get("k4_lse")
     rows["tensor_cores"]["tolerance"] = list(K4B_TC_TOL)
     rows["cuda_cores"]["tolerance"] = dict(bfloat16=list(K4B_BF16_TOL),
                                            float32=list(K4B_F32_TOL))
@@ -3069,11 +3134,13 @@ def train_batch(dev, cfg, b, t, step=0):
 
 
 def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
-    """The slice's step at full width, gradient check: chatglm3-6b at
-    ``TRAIN_CHECK_LAYERS`` layers, bf16, remat on, one ``TokenStream``
-    batch: ``loss_and_grads`` through K4 and K4′ (2 launches a layer, and
-    K4′'s passes on its route for the config: the tensor cores, 3, given
-    K4's LSE) against a twin whose attention is K4's plain version with autograd
+    """The slice's step at full width, gradient check: ``cfg`` (by default
+    chatglm3-6b at ``TRAIN_CHECK_LAYERS`` layers; gemma3-12b at
+    ``GEMMA_CHECK_LAYERS``), bf16, remat on, one ``TokenStream``
+    batch: ``loss_and_grads`` through K4 and K4′ (2 launches a
+    full-attention layer, at least one such layer, and K4′'s passes on its
+    route for the config: the tensor cores, 3, given K4's LSE) against a
+    twin whose attention is K4's plain version with autograd
     (``PlainAttention``), each gradient leaf's rms difference within
     ``TRAIN_GRAD_TOL`` of its rms (``leaf_rms``); then one
     ``make_train_step`` step on each side from the same weights: loss,
@@ -3088,6 +3155,10 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH),
                                      n_layers=TRAIN_CHECK_LAYERS, remat=True)
     layers = attention_layers(cfg)[1]
+    if layers == 0:
+        raise AssertionError(f"{cfg.name} at {cfg.n_layers} layers has no "
+                             "full-attention layer: K4 and K4′ would not "
+                             "launch")
     route = PA.bwd_route(torch.bfloat16, cfg.d_head)
     params = lm_model(dev, cfg)
     batch = train_batch(dev, cfg, b, t)
@@ -3176,9 +3247,11 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(loss=float(loss), twin_loss=float(tloss),
-                worst_rms_share=worst_rms, worst_max_share=worst_max,
-                step=got, twin_step=want, k4b_route=route)
+    return dict(arch=cfg.name, layers=cfg.n_layers, loss=float(loss),
+                twin_loss=float(tloss), worst_rms_share=worst_rms,
+                worst_max_share=worst_max, step=got, twin_step=want,
+                k4_launches=fwd, k4_bwd_launches=bwd, k4b_route=route,
+                phase_s=time.perf_counter() - t0)
 
 
 def _clone(tree):
@@ -3211,19 +3284,24 @@ def train_step_groups(kern: dict) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
-    """SLICE 10'S MAIN PATH: ``make_train_step`` on chatglm3-6b at full width
-    and the fitting depth (``fitting_depth`` at 12 bytes a parameter beside
-    ``TRAIN_RESERVE``), bf16, remat on, ``OptConfig(warmup_steps=1)``,
-    ``TokenStream(global_batch=2, seq_len=2048)``, ``steps`` steps, the
-    counts zeroed just before and read just after: loss and grad_norm
-    finite at every step, K4 2 launches a layer a step (the forward and
-    remat's recompute, all on the tensor-core kernel, writing the LSE), K4′
-    its passes a layer a step, all on its tensor-core route (3). Reports s
-    a step, tokens/s, peak memory, one more step's two halves (``loss_and_grads``, ``opt_update``) timed apart, the busy
-    share, K4′'s share and the device time by kind of a step
-    (``torch.profiler`` over one more step) and the step's bound (8 ×
-    parameters × tokens at the bf16 peak)."""
+def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS,
+                arch=TRAIN_ARCH, reserve=TRAIN_RESERVE, held=False):
+    """SLICE 10'S MAIN PATH: ``make_train_step`` on ``arch`` (chatglm3-6b;
+    slice 15's gemma3-12b) at full width and the fitting depth
+    (``fitting_depth`` at 12 bytes a parameter beside ``reserve``), bf16,
+    remat on, ``OptConfig(warmup_steps=1)``, ``TokenStream(global_batch=2,
+    seq_len=2048)``, ``steps`` steps, the counts zeroed just before and read
+    just after: loss and grad_norm finite at every step, K4 2 launches a
+    full-attention layer a step (the forward and remat's recompute, all on
+    the tensor-core kernel, writing the LSE), K4′ its passes a layer a
+    step, all on its tensor-core route (3). Reports s a step, tokens/s, peak
+    memory, one more step's two halves (``loss_and_grads``,
+    ``opt_update``) timed apart, the busy share, K4′'s share and the device
+    time by kind of a step (``torch.profiler`` over one more step) and the
+    step's bound (8 × parameters × tokens at the bf16 peak). With ``held``,
+    one more step under ``K4BChecked``: every K4′ call of it held against
+    the plain version on its own inputs, the checked launches those
+    counted."""
     import dataclasses
     import math
     import torch
@@ -3241,9 +3319,9 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
         f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved by "
         "PyTorch")
     if cfg is None:
-        cfg = fitting_depth(dataclasses.replace(get_config(TRAIN_ARCH),
+        cfg = fitting_depth(dataclasses.replace(get_config(arch),
                                                 remat=True), free,
-                            TRAIN_BYTES_PER_PARAM, TRAIN_RESERVE)
+                            TRAIN_BYTES_PER_PARAM, reserve)
     layers = attention_layers(cfg)[1]
     route = PA.bwd_route(torch.bfloat16, cfg.d_head)
     params = lm_model(dev, cfg)
@@ -3254,7 +3332,8 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
         f"{get_config(cfg.name).n_layers}): {n_params / 1e9:.3f} B "
         f"parameters, training state {n_params * TRAIN_BYTES_PER_PARAM / 1e9:.2f}"
         f" GB (12 bytes a parameter) of {free / 2 ** 30:.2f} GiB free, "
-        f"reserve {TRAIN_RESERVE / 2 ** 30:.0f} GiB")
+        f"reserve {reserve / 2 ** 30:.0f} GiB; {layers} full-attention "
+        "layers")
     opt = OptConfig(warmup_steps=1)
     step = make_train_step(cfg, opt)
     batches = [train_batch(dev, cfg, b, t, s) for s in range(steps)]
@@ -3307,6 +3386,26 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
     groups = train_step_groups(kern)
     log("[train] the traced step's device time by kind: " + ", ".join(
         f"{g} {us / 1e3:.1f} ms" for g, us in groups.items()))
+    checked = None
+    if held:
+        before = PA.FLASH_BWD_KERNEL.launches
+        torch.cuda.reset_peak_memory_stats()
+        with K4BChecked() as kc:
+            step(params, state, batches[0])
+        torch.cuda.synchronize()
+        n_l = PA.FLASH_BWD_KERNEL.launches - before
+        kc.held(f"{cfg.name} at {cfg.n_layers} layers, one train step")
+        if kc.calls != layers or kc.launches != n_l:
+            raise AssertionError(f"train: {kc.calls} K4′ calls checked "
+                                 f"({kc.launches} launches) of {n_l} "
+                                 f"launches, {layers} full-attention layers")
+        checked = dict(calls=kc.calls, launches=kc.launches,
+                       worst=kc.worst, phase15_share=kc.phase15,
+                       over_phase15=kc.over, without_rss=kc.no_rss,
+                       check_s=kc.check_s,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        log(f"[train] the held step's peak {checked['peak_gib']:.2f} GiB, "
+            f"its checks {kc.check_s:.1f} s")
     steady = sorted(secs[1:])[len(secs[1:]) // 2]
     tokens = b * t
     bound = 8 * n_params * tokens / BF16_FLOP_PER_S
@@ -3324,7 +3423,8 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
     del params, state, batches
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(layers=cfg.n_layers, params_b=n_params / 1e9,
+    return dict(arch=cfg.name, layers=cfg.n_layers,
+                attention_layers=layers, params_b=n_params / 1e9,
                 state_gb=n_params * TRAIN_BYTES_PER_PARAM / 1e9,
                 step_s=secs, step_s_median=steady,
                 tokens_per_s=tokens / steady, peak_gib=peak / 2 ** 30,
@@ -3336,7 +3436,8 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS):
                 traced_ms_by_kind={g: us / 1e3 for g, us in groups.items()},
                 grads_s=split[0], update_s=split[1],
                 loss=[m["loss"] for m in history],
-                grad_norm=[m["grad_norm"] for m in history])
+                grad_norm=[m["grad_norm"] for m in history], held=checked,
+                phase_s=time.perf_counter() - t_phase)
 
 
 def phase_train_loop(dev, steps=8):
@@ -5301,7 +5402,8 @@ def tc_report(log_text: str | None):
 
 def bwd_tc_report(log_text: str | None):
     """The tensor-core K4′'s ptxas lines (when this run built it) and the
-    launch configuration of its dQ and dK/dV kernels, from the library."""
+    launch configuration of its dQ and dK/dV kernels at each padded head
+    width, from the library."""
     import ctypes
     from repro_torch.kernels.attn import attn as PA
     for line in (log_text or "").splitlines():
@@ -5310,22 +5412,23 @@ def bwd_tc_report(log_text: str | None):
     fn = PA.FLASH_BWD_TC_KERNEL.library().flash_attn_bwd_tc_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 8)()
     report = {}
     for p, what in ((0, "dq"), (1, "dkdv")):
-        for dh in (64, 128):
+        for dh in (64, 128, 256):
             code = fn(p, dh, out)
             if code != 0:
                 raise RuntimeError(f"flash_attn_bwd_tc_info({p}, {dh}): CUDA "
                                    f"error {code}")
-            report[f"{what}_{dh}"] = dict(threads=out[0], smem_bytes=out[1],
-                                          registers=out[2],
-                                          spill_bytes=out[3], stages=out[4])
+            report[f"{what}_{dh}"] = dict(
+                threads=out[0], smem_bytes=out[1], registers=out[2],
+                spill_bytes=out[3], stages=out[4], producer_regs=out[5],
+                consumer_regs=out[6], keys=out[7])
             log(f"[ptxas] bwd_tc_{what}_kernel for Dh <= {dh}: {out[0]} "
                 f"threads, {out[1]} B dynamic shared memory, {out[2]} "
-                f"registers at launch (setmaxnreg: producer "
-                f"{24 if p == 0 else 40}, consumers {160 if p == 0 else 232}), "
-                f"{out[3]} B local (spills), {out[4]} stages")
+                f"registers at launch (setmaxnreg: producer {out[5]}, "
+                f"consumers {out[6]}), {out[3]} B local (spills), {out[4]} "
+                f"stages, {out[7]} keys a {'tile' if p == 0 else 'block'}")
     return report
 
 
@@ -5546,8 +5649,15 @@ def main() -> int:
     t0 = time.perf_counter()
     train_grads = phase_train_grads(dev)
     train_main = phase_train(dev)
+    # slice 15: gemma3-12b, its global layers on K4′'s DP 256 tiles
+    gemma_grads = phase_train_grads(dev, dataclasses.replace(
+        get_config(GEMMA_ARCH), n_layers=GEMMA_CHECK_LAYERS, remat=True))
+    gemma_main = phase_train(dev, steps=GEMMA_TRAIN_STEPS, arch=GEMMA_ARCH,
+                             reserve=GEMMA_TRAIN_RESERVE, held=True)
     train_loop = phase_train_loop(dev)
-    log(f"[train] phases 16-18: {time.perf_counter() - t0:.1f} s on {card}")
+    log(f"[train] phases 16-18: {time.perf_counter() - t0:.1f} s on {card} "
+        f"(gemma3-12b's check and main path {gemma_grads['phase_s']:.1f} "
+        f"and {gemma_main['phase_s']:.1f} s)")
     gc.collect()
     torch.cuda.empty_cache()
     examples = phase_examples(dev, card)
@@ -5581,6 +5691,11 @@ def main() -> int:
                              for name, row in decode.items()}
     k4["decode"] = dict(decode, float32=decode_f32, phase_s=phase14_s)
     k4["launches_train"] = train_main["k4_launches"]
+    k4["launches_train_gemma3"] = gemma_main["k4_launches"]
+    k4["phase15_shapes"] = {
+        key: {x: row.get(x) for x in ("k4_fwd_ms", "k4_fwd_device_ms",
+                                      "sdpa_fwd_ms", "k4_fwd_bound_ms")}
+        for key, row in k4b_rows["cuda_cores"]["shapes"].items()}
     k4["device_ms_phase15"] = {
         key: row["k4_fwd_device_ms"]
         for key, row in k4b_rows["cuda_cores"]["shapes"].items()}
@@ -5592,8 +5707,11 @@ def main() -> int:
         built.get("flash_attn_bwd_tc.cu", {}).get("log"))
     k4b["launches"] = train_main["k4_bwd_launches_by_route"]["tensor_cores"]
     k4b["launches_path"] = "phase 17, the training step"
+    k4b["launches_train_gemma3"] = \
+        gemma_main["k4_bwd_launches_by_route"]["tensor_cores"]
     k4b["train"] = dict(train_main, gradient_check=train_grads,
                         loop=train_loop)
+    k4b["train_gemma3"] = dict(gemma_main, gradient_check=gemma_grads)
     k4b_core["launches"] = \
         train_loop["k4_bwd_launches_by_route"]["cuda_cores"]
     k4b_core["launches_path"] = "phase 18, the float32 smoke loop"

@@ -26,11 +26,13 @@ width; its backward is :func:`flash_attention_bwd`, K4′, and
 by :func:`bwd_route`:
 
 - ``"tensor_cores"`` (``csrc/flash_attn_bwd_tc.cu``): bf16 with
-  ``Dh % 8 == 0`` and ``Dh <= 128``. ``wgmma`` products on TMA tiles, P
-  from the forward's log-sum-exp, which it requires.
-- ``"cuda_cores"`` (``csrc/flash_attn_bwd.cu``): every other input up to
-  Dh 512. f32 FMAs, each row's log-sum-exp recomputed by its first pass
-  unless given.
+  ``Dh % 8 == 0`` and ``Dh <= 256``, the forward's tensor-core inputs.
+  ``wgmma`` products on TMA tiles, P from the forward's log-sum-exp, which
+  it requires. At Dh 129–256 (padded to 256: gemma3's global layers) its
+  dK/dV pass splits the head's columns over two warpgroups.
+- ``"cuda_cores"`` (``csrc/flash_attn_bwd.cu``): float32, bf16 with
+  ``Dh % 8 != 0`` and Dh 257–512. f32 FMAs, each row's log-sum-exp
+  recomputed by its first pass unless given.
 
 Each makes a launch a pass (``BWD_PASSES``: 3 and 4), counted in
 ``FLASH_BWD_TC_KERNEL`` or ``FLASH_BWD_CORE_KERNEL``, both in
@@ -65,7 +67,7 @@ from torch._subclasses.fake_tensor import is_fake
 
 from .._build import CudaKernel, current_stream
 
-__all__ = ["BWD_PASSES", "BWD_TC_MAX_HEAD_DIM", "FLASH_BWD_CORE_KERNEL",
+__all__ = ["BWD_PASSES", "FLASH_BWD_CORE_KERNEL",
            "FLASH_BWD_KERNEL", "FLASH_BWD_TC_KERNEL", "FLASH_CORE_KERNEL",
            "FLASH_KERNEL", "FLASH_TC_KERNEL", "FlashAttention",
            "MAX_HEAD_DIM", "NEG", "TC_MAX_HEAD_DIM", "bwd_groups",
@@ -99,12 +101,12 @@ BWD_PASSES = {"tensor_cores": 3, "cuda_cores": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the widest head each kernel has a tile for: the CUDA-core kernel's widest
 # instantiation is Dh 512 (32 x 16, 135 KB of the 227 KB a block may use);
-# the tensor-core kernel pads Dh to 64, 128 or 256
+# the tensor-core kernels (K4's and K4′'s) pad Dh to 64, 128 or 256 (at 256
+# K4′'s dK/dV pass splits the head's columns over two warpgroups: one
+# thread's dK and dV of the whole head would be 256 registers, over the 255
+# it may hold)
 MAX_HEAD_DIM = 512
 TC_MAX_HEAD_DIM = 256
-# K4′ on the tensor cores pads Dh to 64 or 128: at 256 a thread's dK and
-# dV accumulators alone would be 256 registers, over the 255 it may hold
-BWD_TC_MAX_HEAD_DIM = 128
 # TMA takes 16-byte-aligned bases and row strides: Dh % 8 bf16
 TC_HEAD_MULTIPLE = 8
 
@@ -133,30 +135,20 @@ FLASH_BWD_KERNEL = _Launches(FLASH_BWD_CORE_KERNEL, FLASH_BWD_TC_KERNEL)
 
 
 def route(dtype: torch.dtype, dh: int) -> str:
-    """Which kernel computes K4 for ``dtype`` at head width ``dh``, chosen
-    by shape alone: ``"tensor_cores"`` for bf16 with ``dh % 8 == 0`` and
-    ``dh <= 256``; ``"cuda_cores"`` for float32, for other bf16 widths and
-    for every ``dh > 256`` (its Dh ≤ 512 tile; the tensor-core kernel's
-    tiles stop at 256). Not a fallback: no route is taken because another
-    failed."""
+    """Which kernel computes K4, and K4′, for ``dtype`` at head width
+    ``dh``, chosen by shape alone: ``"tensor_cores"`` for bf16 with
+    ``dh % 8 == 0`` and ``dh <= 256``; ``"cuda_cores"`` for float32, for
+    other bf16 widths and for every ``dh > 256`` (its Dh ≤ 512 tile; the
+    tensor-core kernels' tiles stop at 256). Not a fallback: no route is
+    taken because another failed."""
     if dtype == torch.bfloat16 and dh % TC_HEAD_MULTIPLE == 0 \
             and dh <= TC_MAX_HEAD_DIM:
         return "tensor_cores"
     return "cuda_cores"
 
 
-def bwd_route(dtype: torch.dtype, dh: int) -> str:
-    """Which kernel computes K4′ for ``dtype`` at head width ``dh``, chosen
-    by shape alone: ``"tensor_cores"`` for bf16 with ``dh % 8 == 0`` and
-    ``dh <= 128``; ``"cuda_cores"`` for float32, for other bf16 widths and
-    for every ``dh > 128``. At Dh 256 (gemma3's global layers) a thread's
-    dK and dV accumulators alone would be 256 f32 registers, over the 255 a
-    thread may hold, so that width stays on the CUDA cores. Not a
-    fallback: no route is taken because another failed."""
-    if dtype == torch.bfloat16 and dh % TC_HEAD_MULTIPLE == 0 \
-            and dh <= BWD_TC_MAX_HEAD_DIM:
-        return "tensor_cores"
-    return "cuda_cores"
+# K4′'s route is K4's: the backward's name for :func:`route`
+bwd_route = route
 
 
 def bwd_groups(g: int) -> int:

@@ -1,8 +1,9 @@
 // K4', CUDA-core route: the gradient of K4 (causal or non-causal GQA flash
 // attention) for the training backward: dQ, dK and dV from q, k, v, the
 // forward's output o and its incoming gradient dO. It takes float32, bf16
-// of widths the tensor-core route (flash_attn_bwd_tc.cu: bf16, Dh % 8 == 0,
-// Dh <= 128) does not, and every Dh up to 512.
+// with Dh % 8 != 0, and bf16 at Dh 257-512: what the tensor-core route
+// (flash_attn_bwd_tc.cu: bf16, Dh % 8 == 0, Dh <= 256) does not, up to
+// Dh 512.
 //
 // Replaces the reference's gradient of its training attention, which is the
 // recompute VJP of the jnp chunked flash attention
@@ -49,7 +50,8 @@
 // written, bf16) are 88 MB, 26 us. This design recomputes S in every pass
 // and dP in two (16 Dh flops a visible (query, key) pair against the
 // function's 10 Dh), so its own f32 floor is ~4.1 ms. Operations bound it:
-// bf16 at Dh <= 128 takes the wgmma design of flash_attn_bwd_tc.cu.
+// bf16 with Dh % 8 == 0 at Dh <= 256 takes the wgmma design of
+// flash_attn_bwd_tc.cu.
 //
 // Tiles (BQ query rows x BK keys, 256 threads as a 16 x 16 grid, every
 // operand in shared memory as f32 at a pitch of Dh + 4 floats, so the

@@ -180,14 +180,19 @@ def test_plain_backward_unchanged_given_the_lse(b, tq, tk, hq, hkv, dh,
 @pytest.mark.parametrize("dtype,dh,want", [
     (torch.bfloat16, 128, "tensor_cores"), (torch.bfloat16, 64, "tensor_cores"),
     (torch.bfloat16, 120, "tensor_cores"), (torch.bfloat16, 8, "tensor_cores"),
-    (torch.bfloat16, 136, "cuda_cores"), (torch.bfloat16, 256, "cuda_cores"),
+    (torch.bfloat16, 136, "tensor_cores"),
+    (torch.bfloat16, 256, "tensor_cores"),
+    (torch.bfloat16, 200, "tensor_cores"), (torch.bfloat16, 264, "cuda_cores"),
     (torch.bfloat16, 12, "cuda_cores"), (torch.bfloat16, 320, "cuda_cores"),
-    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores")])
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+    (torch.float32, 256, "cuda_cores")])
 def test_bwd_route_choice(dtype, dh, want):
-    """K4′ takes the tensor cores for bf16 with Dh % 8 == 0 and Dh <= 128
-    (dK and dV accumulators of a 256-wide head would not fit a thread's
-    registers); everything else stays on the CUDA cores."""
+    """K4′ takes the tensor cores for bf16 with Dh % 8 == 0 and Dh <= 256,
+    as K4 does (at Dh 129-256 its dK/dV pass splits the head over two
+    warpgroups); float32, other bf16 widths and Dh > 256 stay on the CUDA
+    cores."""
     assert PA.bwd_route(dtype, dh) == want
+    assert PA.bwd_route(dtype, dh) == PA.route(dtype, dh)
     assert PA.BWD_PASSES[want] == {"tensor_cores": 3, "cuda_cores": 4}[want]
 
 
@@ -199,19 +204,20 @@ def test_bwd_groups(g, want):
     assert PA.bwd_groups(g) == want and g % want == 0
 
 
-def test_tc_route_refuses_a_call_without_lse():
+@pytest.mark.parametrize("dh", [128, 256])
+def test_tc_route_refuses_a_call_without_lse(dh):
     """The tensor-core K4′ needs the forward's LSE: ``flash_attention_bwd``
     raises without it, on its argument checks, before any CUDA call (so
     this runs on ``meta`` tensors, with no card). With the LSE the same
     call passes every check and, on ``meta`` tensors, takes the operator's
     fake implementation (the dry run's path: the gradients' shapes, no
     launch), while ``bwd_launch`` itself gets as far as the device check.
-    The other argument checks come first too."""
+    The other argument checks come first too. Dh 128 and gemma3's 256."""
     def meta(*shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, device="meta")
-    q, k, o = meta(1, 64, 8, 128), meta(1, 64, 2, 128), meta(1, 64, 8, 128)
+    q, k, o = meta(1, 64, 8, dh), meta(1, 64, 2, dh), meta(1, 64, 8, dh)
     lse = meta(1, 8, 64, dtype=torch.float32)
-    assert PA.bwd_route(q.dtype, 128) == "tensor_cores"
+    assert PA.bwd_route(q.dtype, dh) == "tensor_cores"
     with pytest.raises(ValueError, match="needs the forward's log-sum-exp"):
         PA.flash_attention_bwd(q, k, k, o, o)
     with pytest.raises(ValueError, match="needs the forward's log-sum-exp"):
@@ -226,7 +232,7 @@ def test_tc_route_refuses_a_call_without_lse():
     with pytest.raises(ValueError, match="must be torch.float32"):
         PA.flash_attention_bwd(q, k, k, o, o, lse=lse[:, :, :5])
     with pytest.raises(ValueError, match="not a tensor-core input"):
-        f = meta(1, 64, 8, 128, dtype=torch.float32)
+        f = meta(1, 64, 8, dh, dtype=torch.float32)
         PA.bwd_launch("tensor_cores", f, f[:, :, :2], f[:, :, :2], f, f,
                       lse=lse)
     with pytest.raises(ValueError, match="unknown K4′ kernel"):
@@ -296,7 +302,9 @@ def _tc_bwd_model(q, k, v, out, dout, causal):
 
 @pytest.mark.parametrize("b,tq,tk,hq,hkv,dh,causal", [
     (1, 256, 256, 8, 1, 128, True), (1, 300, 300, 2, 2, 64, False),
-    (1, 64, 300, 2, 2, 64, False)])
+    (1, 64, 300, 2, 2, 64, False), (1, 130, 130, 4, 2, 256, True),
+    (1, 40, 100, 4, 2, 256, False), (1, 77, 77, 4, 2, 200, True),
+    (1, 64, 96, 2, 1, 200, False)])
 def test_tc_bwd_model_within_its_tolerance(b, tq, tk, hq, hkv, dh, causal):
     """A host model of the tensor-core K4′'s rounding (``_tc_bwd_model``)
     stays within the tensor-core tolerance of the plain version, which the

@@ -704,7 +704,7 @@ def test_flash_bwd_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
                                                 rng):
     """K4′ against ``flash_attention_bwd_ref`` at Dh 16–320, G 1–4,
     Tq != Tk and lengths not a multiple of a tile, on the route
-    ``flash_attention_bwd`` takes (bf16 at Dh 16, 64 and 128:
+    ``flash_attention_bwd`` takes (bf16 at Dh 16, 64, 128 and 256:
     ``csrc/flash_attn_bwd_tc.cu``, given K4's LSE; the rest
     ``csrc/flash_attn_bwd.cu``): a launch a pass on that route's kernel, a
     repeat bit for bit, within ``_BWD_TC_TOL`` or ``_BWD_TOL``."""
@@ -745,7 +745,8 @@ def test_flash_bwd_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
 @pytest.mark.parametrize("b,tq,tk,hq,hkv,dh,causal", [
     (2, 256, 256, 16, 2, 128, True), (2, 77, 77, 8, 2, 64, True),
     (1, 130, 130, 4, 2, 120, True), (2, 40, 100, 6, 6, 64, False),
-    (1, 1, 1, 2, 1, 16, True)])
+    (1, 1, 1, 2, 1, 16, True), (1, 130, 130, 4, 2, 256, True),
+    (1, 40, 100, 4, 2, 200, False)])
 def test_flash_bwd_tc_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
                                                    causal, cuda_device, rng):
     """The tensor-core K4′ (``csrc/flash_attn_bwd_tc.cu``) given K4's LSE
