@@ -88,9 +88,9 @@ kernel of those paths against its plain PyTorch version:
    same inputs (``K4_BF16_TOL``); at the whisper encoder's shape the
    tensor-core kernel with its 28-key tail tile dropped, or with the tail
    left unmasked (K and V zero-filled to a whole tile), must fail that
-   tolerance; the tensor-core kernel's second launch writes each row's
-   log-sum-exp, its output bit for bit the first's and the LSE within
-   ``K4_LSE_TOL`` (2^-8) of the plain version's;
+   tolerance; each kernel's second launch writes each row's log-sum-exp,
+   its output bit for bit the first's and the LSE within ``K4_LSE_TOL``
+   (2^-8) of the plain version's;
 9. SLICE 3'S MAIN PATH: an ``EdgeServingEngine`` on the Colosseum pool
    with chatglm3-6b at full width (bf16, random weights from a seeded
    generator) registered as ``launch/serve.py`` registers its model,
@@ -118,11 +118,16 @@ kernel of those paths against its plain PyTorch version:
    shape, at (2, 2048) and at slice 8's qwen3-moe prefill and whisper-tiny
    encoder shapes, beside SDPA, with the tensor-core kernel's ptxas report and
    launch configuration, and K4 writing the LSE at those shapes (output bit
-   for bit, LSE within ``K4_LSE_TOL``, its time) — and prints the
-   ``{"kernels": [...]}`` line (K4′'s two rows, one a route, from phases
-   15, 17 and 18, with the tensor-core K4′'s ptxas report and launch
-   configuration), the card's name and power limit, and finally the
-   ``{"ok": true, ...}`` line;
+   for bit, LSE within ``K4_LSE_TOL``, its time); at each, the float32
+   CUDA-core kernel with and without the LSE and float32 SDPA's forward
+   in turn (median, least and largest over 5 repeats), its device µs and
+   f32 bound, and the CUDA-core kernels' registers and spills by
+   instantiation — and prints the seconds of every phase, the
+   ``{"kernels": [...]}`` line (K4's two rows, one a kernel, the CUDA-core
+   one's launches from phases 18 and 19; K4′'s two rows, one a route,
+   from phases 15, 17 and 18, with the tensor-core K4′'s ptxas report and
+   launch configuration), the card's name and power limit, and finally
+   the ``{"ok": true, ...}`` line;
 11. SLICE 7'S MAIN PATH, the sharded metro solve (run after phase 7): the
    1024-cell day (``metro_diurnal_trace(1024, n_domains=64)``, 24576
    coupled rows in 1536 groups of 16, stacked group-major at Tmax 32)
@@ -195,20 +200,22 @@ kernel of those paths against its plain PyTorch version:
    slice 15's DP 256 tile edges (Dh 200; (2, 333, 4/2, 256) causal; 40
    over 100 at Dh 256) in bf16, and (2, 512, 8/2, 64), (2, 333, 4/4,
    320), (1, 40 over 100, 4/2, 320) and slice 12's ``train_lm`` (8, 256,
-   12/4, 64, causal) in float32, element by element: every bf16 shape
-   with Dh % 8 == 0 and Dh <= 256 on both routes — the tensor-core kernel
-   (``csrc/flash_attn_bwd_tc.cu``, the route, given K4's LSE) within
-   ``K4B_TC_TOL`` and the CUDA-core kernel within
-   ``K4B_BF16_TOL`` — and the rest on the CUDA-core kernel within
-   ``K4B_BF16_TOL`` or ``K4B_F32_TOL`` (float32 again given the plain
-   LSE); on each route a repeat bit for bit and a launch a pass (3 and
-   4); once through ``FlashAttention``'s backward, bit for bit the direct
-   call's given the same LSE; at ``K4B_TIMED``'s shapes (chatglm3-6b's,
-   gemma3-12b's, the whisper encoder's, train_lm's float32), on each
-   route, ms a call and device µs by pass, the plain version and SDPA's
-   backward beside the bound, and K4's forward beside SDPA's forward and
-   its bound; at every bf16 shape K4's LSE within ``K4_LSE_TOL`` of the
-   plain version's;
+   12/4, 64, causal), chatglm3-6b's and the whisper encoder's in float32,
+   element by element, each route given its own K4's LSE: every bf16
+   shape with Dh % 8 == 0 and Dh <= 256 on both routes — the tensor-core
+   kernel (``csrc/flash_attn_bwd_tc.cu``, the route) within
+   ``K4B_TC_TOL`` and the CUDA-core kernel within ``K4B_BF16_TOL`` — and
+   the rest on the CUDA-core kernel within ``K4B_BF16_TOL`` or
+   ``K4B_F32_TOL`` (float32 again given the plain LSE); on each route a
+   repeat bit for bit and a launch a pass (3 on both); once through
+   ``FlashAttention``'s backward, bit for bit the direct call's given the
+   same LSE; at ``K4B_TIMED``'s shapes (chatglm3-6b's, gemma3-12b's, the
+   whisper encoder's in bf16; train_lm's, chatglm3-6b's and the whisper
+   encoder's in float32), on each route, ms a call and device µs by
+   pass, the plain version and SDPA's backward beside the bound, K4's
+   forward beside SDPA's forward and its bound, and the kernels and SDPA
+   in turn (median, least and largest over 5 repeats); at every shape
+   each route's K4 LSE within ``K4_LSE_TOL`` of the plain version's;
 16. SLICE 10's gradient check (after phase 14): chatglm3-6b at 4 layers,
    full width, bf16, B = 2, T = 2048, remat on, ``loss_and_grads`` on a
    ``TokenStream`` batch through K4 and K4′ (2 and 3 launches a layer,
@@ -239,7 +246,8 @@ kernel of those paths against its plain PyTorch version:
    config with ``checkpoint_every=4`` uninterrupted, crashed at step 6 and
    restarted: the restart resumes at step 5 and ends on the uninterrupted
    run's final loss within rel 1e-4 (whether bit for bit is printed); the
-   float32 smoke configs' K4′ launches all on its CUDA-core route;
+   float32 smoke configs' K4 and K4′ launches all on their CUDA-core
+   routes;
 19. SLICE 12, THE EXAMPLES on the card, in-process through their ``main``,
    each with the counts zeroed just before and read just after:
    ``quickstart`` (K2's round launched; its six algorithms decide bit for
@@ -432,11 +440,17 @@ K4B_SHAPES = ((2, 2048, 2048, 32, 2, 128, True, "bfloat16"),
               # number of 64-row tiles, and Tq != Tk
               (2, 300, 300, 8, 4, 200, True, "bfloat16"),
               (2, 333, 333, 4, 2, 256, True, "bfloat16"),
-              (1, 40, 100, 4, 2, 256, False, "bfloat16"))
+              (1, 40, 100, 4, 2, 256, False, "bfloat16"),
+              # slice 16: the CUDA-core route in float32 at chatglm3-6b's
+              # and the whisper-tiny encoder's shapes
+              (2, 2048, 2048, 32, 2, 128, True, "float32"),
+              (2, 1500, 1500, 6, 6, 64, False, "float32"))
 # the K4′ shapes phase 15 times: chatglm3-6b's and gemma3-12b's training
-# shapes, the whisper-tiny encoder, and train_lm's float32 one (with K4's
-# forward and SDPA's forward beside it there)
-K4B_TIMED = (K4B_SHAPES[0], K4B_SHAPES[1], K4B_SHAPES[2], K4B_SHAPES[7])
+# shapes, the whisper-tiny encoder, and the float32 ones of train_lm,
+# chatglm3-6b and the whisper encoder (with K4's forward and SDPA's
+# forward and backward beside each)
+K4B_TIMED = (K4B_SHAPES[0], K4B_SHAPES[1], K4B_SHAPES[2], K4B_SHAPES[7],
+             K4B_SHAPES[13], K4B_SHAPES[14])
 # K4′ against its plain version in float32 on the same inputs, element by
 # element: |out - ref| <= a |ref| + b rms(ref's row over Dh) + c rms(ref).
 # bfloat16 (a, b, c) = (2^-7, 2^-10, 2^-16): a is twice the outputs'
@@ -1636,17 +1650,15 @@ def phase_k4(dev, shapes=K4_SHAPES):
     CUDA-core kernel, bfloat16 on the tensor-core kernel (the route
     ``flash_attention_fwd`` takes) and, held there by ``launch``, on the
     CUDA-core kernel; a second launch on the same inputs must agree bit
-    for bit — on the tensor-core kernel the second writes the log-sum-exp
-    too, which must lie within ``K4_LSE_TOL`` of the plain version's.
-    Returns the max abs error by (kernel, dtype), against the plain
-    version in float32 on the same inputs (the LSE's under
-    ("tensor_cores", "lse"))."""
+    for bit, and writes the log-sum-exp too, which must lie within
+    ``K4_LSE_TOL`` of the plain version's. Returns the max abs error by
+    (kernel, dtype), against the plain version in float32 on the same
+    inputs (the LSE's under (kernel, "lse"))."""
     import numpy as np
     import torch
     from repro_torch.kernels.attn import attn as PA
     rng = np.random.default_rng(5)
     err, excess = {}, {}
-    lse_err = []
     checks = (("cuda_cores", "float32"), ("tensor_cores", "bfloat16"),
               ("cuda_cores", "bfloat16"))
 
@@ -1667,7 +1679,7 @@ def phase_k4(dev, shapes=K4_SHAPES):
         excess[key] = max(excess.get(key, 0.0), x)
         return x
     for kernel, dtype in checks:
-        by_shape = []
+        by_shape, lse_err = [], []
         for shape in shapes:
             q, k, v = k4_inputs(rng, shape, dev, dtype)
             causal = shape[-1]
@@ -1675,21 +1687,21 @@ def phase_k4(dev, shapes=K4_SHAPES):
                 out = PA.flash_attention_fwd(q, k, v, causal=causal)
             else:
                 out = PA.launch(kernel, q, k, v, causal=causal)
-            tc = kernel == "tensor_cores"
-            # the tensor-core kernel's second launch writes the LSE: its
-            # output must still be the first's, bit for bit
-            again = PA.launch(kernel, q, k, v, causal=causal, with_lse=tc)
-            ref = PA.flash_attention_fwd_ref(q.float(), k.float(), v.float(),
-                                             causal=causal, with_lse=tc)
-            if tc:
-                (again, lse), (ref, lref) = again, ref
-                torch.cuda.synchronize()
-                e = (lse - lref).abs().max().item()
-                if not e <= K4_LSE_TOL:
-                    raise AssertionError(f"K4 {shape}: the LSE is {e:.3g} from "
-                                         f"the plain LSE (bound {K4_LSE_TOL})")
-                lse_err.append(e)
-                del lse, lref
+            # the second launch writes the LSE: its output must still be
+            # the first's, bit for bit
+            again, lse = PA.launch(kernel, q, k, v, causal=causal,
+                                   with_lse=True)
+            ref, lref = PA.flash_attention_fwd_ref(
+                q.float(), k.float(), v.float(), causal=causal,
+                with_lse=True)
+            torch.cuda.synchronize()
+            e = (lse - lref).abs().max().item()
+            if not e <= K4_LSE_TOL:
+                raise AssertionError(f"K4 {kernel} {shape} {dtype}: the LSE "
+                                     f"is {e:.3g} from the plain LSE (bound "
+                                     f"{K4_LSE_TOL})")
+            lse_err.append(e)
+            del lse, lref
             by_shape.append(check(q, out, again, ref,
                                   f"{kernel} {shape} {dtype}",
                                   (kernel, dtype)))
@@ -1698,13 +1710,11 @@ def phase_k4(dev, shapes=K4_SHAPES):
             f"Hkv, Dh, causal) within the tolerance; max abs err "
             f"{err[kernel, dtype]:.3g}; share of the tolerance by shape "
             + " ".join(f"{x:.3f}" for x in by_shape))
-        if kernel == "tensor_cores":
-            err["tensor_cores", "lse"] = max(lse_err)
-            log(f"[K4] tensor_cores bfloat16 with the LSE written: the output "
-                f"bit for bit the same at all {len(shapes)} shapes; the LSE "
-                f"within {max(lse_err):.3g} of the plain LSE (bound "
-                f"{K4_LSE_TOL}), by shape "
-                + " ".join(f"{x:.2g}" for x in lse_err))
+        err[kernel, "lse"] = max(err.get((kernel, "lse"), 0.0), *lse_err)
+        log(f"[K4] {kernel} {dtype} with the LSE written: the output bit for "
+            f"bit the same at all {len(shapes)} shapes; the LSE within "
+            f"{max(lse_err):.3g} of the plain LSE (bound {K4_LSE_TOL}), by "
+            "shape " + " ".join(f"{x:.2g}" for x in lse_err))
     for dtype in ("float32", "bfloat16"):
         key = ("cuda_cores", f"{dtype} Dh=320")
         for shape in K4_WIDE_SHAPES:
@@ -1773,8 +1783,7 @@ def peak_of(dtype: str) -> float:
 
 # K4′'s kernels by route, as torch.profiler names them
 K4B_PASS_NAMES = {
-    "cuda_cores": ("bwd_rows_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel",
-                   "bwd_reduce_kernel"),
+    "cuda_cores": ("bwd_dq_kernel", "bwd_dkdv_kernel", "bwd_reduce_kernel"),
     "tensor_cores": ("bwd_tc_dq_kernel", "bwd_tc_dkdv_kernel",
                      "bwd_tc_reduce_kernel")}
 
@@ -1809,20 +1818,23 @@ def k4b_kernel(route):
 def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=K4B_TIMED):
     """K4′ against its plain version ``flash_attention_bwd_ref`` in float32
     on the same inputs (q, k, v and dO unit normals, o K4's output) on both
-    routes: every bf16 shape the tensor-core route takes (Dh % 8 == 0, Dh
-    <= 256) on it — ``flash_attention_bwd`` given K4's LSE, the path's
-    route — within ``K4B_TC_TOL``, and held on the CUDA-core
-    kernel (``bwd_launch``) within ``K4B_BF16_TOL``; the other shapes on
-    the CUDA-core route, the float32 ones within ``K4B_F32_TOL`` and once
-    more given the plain version's LSE. On each route: a repeat bit for
-    bit, a launch a pass (``BWD_PASSES``) on that route's kernel. Once
-    through ``FlashAttention``'s backward (autograd, its forward writing
-    the LSE), bit for bit the direct call given the same LSE. The shapes in
+    routes, each given its own K4's LSE (within ``K4_LSE_TOL`` of the
+    plain LSE): every bf16 shape the tensor-core route takes (Dh % 8 == 0,
+    Dh <= 256) on it — ``flash_attention_bwd``, the path's route — within
+    ``K4B_TC_TOL``, and held on the CUDA-core kernel (``bwd_launch``)
+    within ``K4B_BF16_TOL``; the other shapes on the CUDA-core route, the
+    float32 ones within ``K4B_F32_TOL`` and once more given the plain
+    version's LSE. On each route: a repeat bit for bit, a launch a pass
+    (``BWD_PASSES``) on that route's kernel. Once through
+    ``FlashAttention``'s backward (autograd, its forward writing the LSE),
+    bit for bit the direct call given the same LSE. The shapes in
     ``timed`` are timed on each route: ms a call (CUDA events), device µs
     by pass (``torch.profiler``), the plain version and SDPA's backward
     (``enable_gqa``, a yardstick the port never calls), beside the bound;
-    and K4's forward and SDPA's forward at the shape beside theirs.
-    Returns the kernels-line rows, tensor-core route first."""
+    K4's forward and SDPA's forward at the shape beside theirs; and the
+    kernels' and SDPA's median, least and largest ms over interleaved
+    repeats (``interleaved``). Returns the kernels-line rows, tensor-core
+    route first."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1845,30 +1857,35 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=K4B_TIMED):
         q, k, v = k4_inputs(rng, tuple(geo) + (causal,), dev, dtype)
         dout = torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(
             np.float32)).to(dev, q.dtype)
-        path = PA.bwd_route(q.dtype, q.shape[3])
-        if q.dtype == torch.bfloat16:
-            out, lse = PA.launch("tensor_cores", q, k, v, causal=causal,
-                                 with_lse=True)
-            # the LSE K4 hands the route, against the plain version's
-            _, lref = PA.flash_attention_fwd_ref(q.float(), k.float(),
-                                                 v.float(), causal=causal,
-                                                 with_lse=True)
-            lse_err = (lse - lref).abs().max().item()
-            del lref
+        path = PA.route(q.dtype, q.shape[3])
+        routes = ("tensor_cores", "cuda_cores") if path == "tensor_cores" \
+            else ("cuda_cores",)
+        # each route's K4 and its LSE, against the plain version's: the
+        # path's output and LSE, and the CUDA-core K4's LSE for a bf16 call
+        # held on the CUDA-core K4′
+        _, lref = PA.flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                             causal=causal, with_lse=True)
+        lses = {}
+        for route in routes:
+            o_r, lses[route] = PA.launch(route, q, k, v, causal=causal,
+                                         with_lse=True)
+            if route == path:
+                out, lse = o_r, lses[route]
+            del o_r
+            lse_err = (lses[route] - lref).abs().max().item()
             if not lse_err <= K4_LSE_TOL:
-                raise AssertionError(f"K4 {shape}: the LSE is {lse_err:.3g} "
-                                     "from the plain LSE (bound "
-                                     f"{K4_LSE_TOL})")
-            log(f"[K4′] {shape}: K4's LSE within {lse_err:.3g} of the plain "
-                f"LSE (bound {K4_LSE_TOL})")
-            err["k4_lse"] = max(err.get("k4_lse", 0.0), lse_err)
-        else:
-            out, lse = PA.flash_attention_fwd(q, k, v, causal=causal), None
+                raise AssertionError(f"K4 {shape} {route}: the LSE is "
+                                     f"{lse_err:.3g} from the plain LSE "
+                                     f"(bound {K4_LSE_TOL})")
+            log(f"[K4′] {shape}: K4's LSE on {route} within {lse_err:.3g} "
+                f"of the plain LSE (bound {K4_LSE_TOL})")
+            key = "k4_lse" if route == "tensor_cores" else "k4_lse_core"
+            err[key] = max(err.get(key, 0.0), lse_err)
+        del lref
         ref = PA.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                          out.float(), dout.float(),
                                          causal=causal)
-        routes = ("tensor_cores", "cuda_cores") if path == "tensor_cores" \
-            else ("cuda_cores",)
+        calls = {}
         for route in routes:
             tc = route == "tensor_cores"
             tol = K4B_TC_TOL if tc else K4B_F32_TOL \
@@ -1876,13 +1893,13 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=K4B_TIMED):
             counter = k4b_kernel(route)
             before, total = counter.launches, PA.FLASH_BWD_KERNEL.launches
 
-            def call(route=route, tc=tc):
+            def call(route=route):
                 if route == path:
                     return PA.flash_attention_bwd(q, k, v, out, dout,
-                                                  causal=causal,
-                                                  lse=lse if tc else None)
+                                                  causal=causal, lse=lse)
                 return PA.bwd_launch(route, q, k, v, out, dout,
-                                     causal=causal)
+                                     causal=causal, lse=lses[route])
+            calls[route] = call
             got, again = call(), call()
             torch.cuda.synchronize()
             n_l = counter.launches - before
@@ -1998,7 +2015,27 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=K4B_TIMED):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True), iters=20)
-            del qt, kt, vt
+            # the same calls in turn: median and range over the repeats
+            qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qg, kg, vg,
+                                                   is_causal=causal,
+                                                   enable_gqa=True)
+            fns = {f"k4b_{r}": calls[r] for r in routes}
+            fns.update(
+                sdpa_bwd=lambda: torch.autograd.grad(
+                    o_lib, (qg, kg, vg), do_lib, retain_graph=True),
+                k4_fwd=lambda: PA.flash_attention_fwd(q, k, v,
+                                                      causal=causal),
+                sdpa_fwd=lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True))
+            spread = interleaved(fns, reps=5,
+                                 iters=5 if max(geo[1:3]) >= 1024 else 20,
+                                 warm=2)
+            del qt, kt, vt, qg, kg, vg, o_lib
+            log(f"[time] K4′ {shape} in turn, 5 repeats, median [least, "
+                "largest]: " + ", ".join(f"{n} {fmt_spread(x)}"
+                                         for n, x in spread.items()))
             fb, ff = k4_work(tuple(geo) + (causal,), q.element_size())
             fwd_bound = max(fb / HBM_BYTES_PER_S, ff / peak_of(dtype)) * 1e3
             nbytes, flops = k4b_work(shape, q.element_size())
@@ -2026,12 +2063,13 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=K4B_TIMED):
                     bound_by=by, bound_ms_f32_cuda_cores=f32_bound,
                     k4_fwd_device_ms=None if fwd_us is None
                     else fwd_us / 1e3, k4_fwd_ms=fwd_ms,
-                    sdpa_fwd_ms=lib_fwd, k4_fwd_bound_ms=fwd_bound)
+                    sdpa_fwd_ms=lib_fwd, k4_fwd_bound_ms=fwd_bound,
+                    interleaved=spread)
                 if "ms" not in row:
                     row.update({x: row["shapes"][key][x] for x in (
                         "ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by", "device_ms")}, shape=list(shape))
-        del q, k, v, dout, out, lse
+        del q, k, v, dout, out, lse, lses
         torch.cuda.empty_cache()
     for (route, dtype), x in sorted(worst.items()):
         log(f"[K4′] {route} {dtype}: max abs err {err[route, dtype]:.3g}, "
@@ -2042,6 +2080,7 @@ def phase_k4_bwd(dev, shapes=K4B_SHAPES, timed=K4B_TIMED):
                                     if r == route})
     rows["cuda_cores"]["max_abs_err_f32"] = err.get(("cuda_cores", "float32"))
     rows["tensor_cores"]["k4_lse_max_abs_err"] = err.get("k4_lse")
+    rows["cuda_cores"]["k4_lse_max_abs_err"] = err.get("k4_lse_core")
     rows["tensor_cores"]["tolerance"] = list(K4B_TC_TOL)
     rows["cuda_cores"]["tolerance"] = dict(bfloat16=list(K4B_BF16_TOL),
                                            float32=list(K4B_F32_TOL))
@@ -2563,7 +2602,7 @@ class K4BChecked:
             got = self._bwd(q, k, v, out, dout, causal=causal, lse=lse)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            route = PA.bwd_route(q.dtype, q.shape[-1])
+            route = PA.route(q.dtype, q.shape[-1])
             tol = K4B_TC_TOL if route == "tensor_cores" else K4B_F32_TOL \
                 if q.dtype == torch.float32 else K4B_BF16_TOL
             ins = (q, k, v, out, dout)
@@ -3159,7 +3198,7 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
         raise AssertionError(f"{cfg.name} at {cfg.n_layers} layers has no "
                              "full-attention layer: K4 and K4′ would not "
                              "launch")
-    route = PA.bwd_route(torch.bfloat16, cfg.d_head)
+    route = PA.route(torch.bfloat16, cfg.d_head)
     params = lm_model(dev, cfg)
     batch = train_batch(dev, cfg, b, t)
     PA.FLASH_KERNEL.launches = 0
@@ -3323,7 +3362,7 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS,
                                                 remat=True), free,
                             TRAIN_BYTES_PER_PARAM, reserve)
     layers = attention_layers(cfg)[1]
-    route = PA.bwd_route(torch.bfloat16, cfg.d_head)
+    route = PA.route(torch.bfloat16, cfg.d_head)
     params = lm_model(dev, cfg)
     state = opt_init(params)
     n_params = sum(x.numel() for x in _leaves(params))
@@ -3498,10 +3537,13 @@ def phase_train_loop(dev, steps=8):
                 _named_leaves(resumed["params"]), _named_leaves(ref["params"])))
         fwd, bwd = PA.FLASH_KERNEL.launches, PA.FLASH_BWD_KERNEL.launches
         bwd_routes = {r: k4b_kernel(r).launches for r in PA.BWD_PASSES}
+        fwd_routes = {"cuda_cores": PA.FLASH_CORE_KERNEL.launches,
+                      "tensor_cores": PA.FLASH_TC_KERNEL.launches}
         # float32: the CUDA-core route of both
-        if fwd == 0 or bwd == 0 or bwd_routes["cuda_cores"] != bwd:
-            raise AssertionError(f"the smoke loop launched K4 {fwd}, K4′ "
-                                 f"{bwd_routes} times")
+        if fwd == 0 or bwd == 0 or bwd_routes["cuda_cores"] != bwd \
+                or fwd_routes["cuda_cores"] != fwd:
+            raise AssertionError(f"the smoke loop launched K4 {fwd_routes}, "
+                                 f"K4′ {bwd_routes} times")
         log(f"[train] crash at 6 and restart: resumed at step 5, final loss "
             f"{a:.6f} against {b:.6f} uninterrupted ("
             + ("bit for bit, parameters too" if bitwise else
@@ -3510,6 +3552,7 @@ def phase_train_loop(dev, steps=8):
             f"{bwd_routes}); {time.perf_counter() - t0:.1f} s")
         return dict(final_loss=a, uninterrupted_final_loss=b,
                     bitwise=bitwise, k4_launches=fwd,
+                    k4_launches_by_route=fwd_routes,
                     k4_bwd_launches_by_route=bwd_routes)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4936,19 +4979,31 @@ def phase_metro_serving(dev, shards=8, standing=METRO_STANDING):
 
 # --------------------------------------------------------------- phase 10
 
-def alternating_ms(fns: dict, reps: int = 5, iters: int = 200) -> dict:
+def interleaved(fns: dict, reps: int = 5, iters: int = 200,
+                warm: int = 5) -> dict:
     """Per-call ms of each of ``fns``: CUDA events around ``iters``
-    back-to-back calls, the functions taken in turn, ``reps`` times; the
-    median of each. Comparing within one alternation keeps a host that
-    drifts during the run from favouring either side."""
+    back-to-back calls, the functions taken in turn, ``reps`` times →
+    {name: {"median", "min", "max"}} over the repeats. Comparing within
+    one alternation keeps a host or a card that drifts during the run from
+    favouring either side, and the range shows how far it drifted."""
     import statistics
     times = {k: [] for k in fns}
     for fn in fns.values():
-        cuda_ms(fn, iters=5, warmup=5)
+        cuda_ms(fn, iters=warm, warmup=warm)
     for _ in range(reps):
         for k, fn in fns.items():
             times[k].append(cuda_ms(fn, iters=iters, warmup=1))
-    return {k: statistics.median(v) for k, v in times.items()}
+    return {k: dict(median=statistics.median(v), min=min(v), max=max(v))
+            for k, v in times.items()}
+
+
+def fmt_spread(x: dict) -> str:
+    return f"{x['median']:.4f} ms [{x['min']:.4f}, {x['max']:.4f}]"
+
+
+def alternating_ms(fns: dict, reps: int = 5, iters: int = 200) -> dict:
+    """The median of each of :func:`interleaved`'s times."""
+    return {k: v["median"] for k, v in interleaved(fns, reps, iters).items()}
 
 
 def host_us(steps: dict, iters: int = 2000, reps: int = 5) -> dict:
@@ -5432,13 +5487,61 @@ def bwd_tc_report(log_text: str | None):
     return report
 
 
+def core_report() -> dict:
+    """The CUDA-core K4's and K4′'s instantiations (``flash_fwd_kernel``,
+    with its 64-row tiles for short grids at Dh <= 128, ``bwd_dq_kernel``,
+    ``bwd_dkdv_kernel``, by type and head-width tile),
+    from the libraries (``cudaFuncGetAttributes``): threads, dynamic
+    shared memory, registers and local (spill) bytes a thread, stages of
+    the ring, query rows and keys a tile. Logs each and the spills."""
+    import ctypes
+    from repro_torch.kernels.attn import attn as PA
+    fwd = PA.FLASH_CORE_KERNEL.library().flash_attn_info
+    fwd.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int)]
+    bwd = PA.FLASH_BWD_CORE_KERNEL.library().flash_attn_bwd_info
+    bwd.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int)]
+    fwd.restype = bwd.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    report = {}
+    for dtype, tname in ((0, "f32"), (1, "bf16")):
+        for dh in (64, 128, 256, 512):
+            short = (("flash_fwd_short_grid", fwd, (dtype, dh, 1)),) \
+                if dh <= 128 else ()
+            for what, fn, args in (("flash_fwd", fwd, (dtype, dh, 0)),
+                                   *short,
+                                   ("bwd_dq", bwd, (0, dtype, dh)),
+                                   ("bwd_dkdv", bwd, (1, dtype, dh))):
+                code = fn(*args, out)
+                if code != 0:
+                    raise RuntimeError(f"{what} info {tname} Dh {dh}: CUDA "
+                                       f"error {code}")
+                report[f"{what}_{tname}_{dh}"] = x = dict(
+                    threads=out[0], smem_bytes=out[1], registers=out[2],
+                    spill_bytes=out[3], stages=out[4], rows=out[5],
+                    keys=out[6])
+                log(f"[ptxas] {what}_kernel {tname} Dh <= {dh}: "
+                    f"{x['threads']} threads, {x['smem_bytes']} B dynamic "
+                    f"shared memory, {x['registers']} registers, "
+                    f"{x['spill_bytes']} B local (spills), {x['stages']} "
+                    f"stages, {x['rows']} x {x['keys']} tiles")
+    spills = {k: x["spill_bytes"] for k, x in report.items()
+              if x["spill_bytes"]}
+    log(f"[ptxas] the CUDA-core K4 and K4′: {len(report)} instantiations, "
+        + (f"local bytes in {spills}" if spills else "none spills"))
+    return report
+
+
 def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
     """K4 at the engine's LM job shape and at the 2048-token prefill: the
     tensor-core kernel (the path's), the CUDA-core kernel on the same bf16
     inputs (the old design) and in float32, its plain version and SDPA;
-    then the tensor-core kernel writing the LSE (as a training forward
-    does): its output bit for bit the path's, the LSE within
-    ``K4_LSE_TOL`` of the plain version's, and its time."""
+    then each kernel writing the LSE (as a training forward does): its
+    output bit for bit the path's, the LSE within ``K4_LSE_TOL`` of the
+    plain version's, and its time; the float32 kernel, with and without
+    the LSE, and float32 SDPA in turn (median and range over 5 repeats).
+    Returns the tensor-core kernel's row and the CUDA-core kernel's."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -5456,6 +5559,14 @@ def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
                max_abs_err_bf16_cuda_cores=err["cuda_cores", "bfloat16"],
                cuda_core_source="src/repro_torch/kernels/csrc/flash_attn.cu",
                tc_kernel=tc_report(ptxas))
+    core_row = dict(name="flash_attn_cuda_cores", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attn.cu",
+                replaces="src/repro/kernels/attn/attn.py:63",
+                k4_route="cuda_cores", dtype="float32",
+                max_abs_err=err["cuda_cores", "float32"],
+                max_abs_err_bf16=err["cuda_cores", "bfloat16"],
+                lse_max_abs_err=err["cuda_cores", "lse"],
+                kernel_info=core_report(), shapes={})
     qs, ks, dt, causal = max(engine_shapes)     # the largest LM batch
     big = (PREFILL_B, PREFILL_T, PREFILL_T, 32, 2, 128, True)
     engine = (qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], causal)
@@ -5487,6 +5598,15 @@ def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
                          iters=iters)
         core32_us = device_us(lambda: PA.flash_attention_fwd(
             qf, kf, vf, causal=causal), "flash_fwd_kernel", iters=iters)
+        qft, kft, vft = (x.transpose(1, 2) for x in (qf, kf, vf))
+        f32 = interleaved({
+            "k4": lambda: PA.flash_attention_fwd(qf, kf, vf, causal=causal),
+            "k4_lse": lambda: PA.launch("cuda_cores", qf, kf, vf,
+                                        causal=causal, with_lse=True),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                qft, kft, vft, is_causal=causal, enable_gqa=True)},
+            reps=5, iters=max(iters // 4, 5), warm=2)
+        del qft, kft, vft
         plain = cuda_ms(lambda: PA.flash_attention_fwd_ref(
             q, k, v, causal=causal), iters=10)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -5536,7 +5656,7 @@ def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
             raise AssertionError(f"K4 {what} {shape}: with the LSE written "
                                  "the output differs, or the LSE is "
                                  f"{lse_err:.3g} from the plain LSE")
-        del out_l, lse, lref
+        del out_l, lse
         lse_ms = cuda_ms(lambda: PA.launch("tensor_cores", q, k, v,
                                            causal=causal, with_lse=True),
                          iters=iters)
@@ -5545,6 +5665,37 @@ def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
             f"the same, the LSE within {lse_err:.3g} of the plain LSE (bound "
             f"{K4_LSE_TOL})")
         row.update({f"{pre}lse_ms": lse_ms, f"{pre}lse_max_abs_err": lse_err})
+        # the float32 kernel writing the LSE: the same output, the LSE
+        # within the bound; its times in turn with float32 SDPA's
+        out_l, lse = PA.launch("cuda_cores", qf, kf, vf, causal=causal,
+                               with_lse=True)
+        lse32_err = (lse - lref).abs().max().item()
+        if not torch.equal(out_l, PA.flash_attention_fwd(
+                qf, kf, vf, causal=causal)) or not lse32_err <= K4_LSE_TOL:
+            raise AssertionError(f"K4 {what} {shape} float32: with the LSE "
+                                 "written the output differs, or the LSE is "
+                                 f"{lse32_err:.3g} from the plain LSE")
+        del out_l, lse
+        f32_by = "bytes" if 2 * nbytes / HBM_BYTES_PER_S \
+            >= flops / F32_FLOP_PER_S else "operations"
+        f32_bound_ms = max(2 * nbytes / HBM_BYTES_PER_S,
+                           flops / F32_FLOP_PER_S) * 1e3
+        log(f"[time] K4 {what} {shape} float32 on the CUDA cores, in turn "
+            f"(5 repeats, median [least, largest]): "
+            + ", ".join(f"{n} {fmt_spread(x)}" for n, x in f32.items())
+            + f"; device {fmt_us(core32_us)}; bound {f32_bound_ms:.4f} ms "
+            f"({f32_by}); the LSE within {lse32_err:.3g} of the plain LSE, "
+            "the output bit for bit")
+        core_row["shapes"][what] = dict(
+            shape=list(shape), interleaved=f32, device_ms=ms_of(core32_us),
+            plain_ms=plain, bound_ms=f32_bound_ms, bound_by=f32_by,
+            lse_max_abs_err=lse32_err)
+        if what == "prefill":
+            core_row.update(
+                ms=f32["k4"]["median"], device_ms=ms_of(core32_us),
+                plain_ms=plain, library_ms=f32["sdpa"]["median"],
+                bound_ms=f32_bound_ms, bound_by=f32_by,
+                shape=list(shape[:6]), lse_ms=f32["k4_lse"]["median"])
         # what the dry run's operator would cost the card, which skips it:
         # the entry (autograd Function, then the direct launch), the
         # operator (``torch.library`` dispatch, then the same launch) and
@@ -5564,8 +5715,30 @@ def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
             + ("" if host is None else f"; host us a call: "
                f"{fmt_steps(host)}"))
         row.update({f"{pre}dispatch_ms": alt, f"{pre}dispatch_host_us": host})
-        del q, k, v, qt, kt, vt, qf, kf, vf
-    return row
+        del q, k, v, qt, kt, vt, qf, kf, vf, lref
+    return row, core_row
+
+
+# seconds by phase (the docstring's items), summed over a phase's parts
+PHASE_S: dict = {}
+
+
+class Phase:
+    """Times one part of phase ``n`` (``what``) into ``PHASE_S`` and logs
+    its seconds."""
+
+    def __init__(self, n: int, what: str):
+        self.n, self.what = n, what
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        secs = time.perf_counter() - self.t0
+        PHASE_S[self.n] = PHASE_S.get(self.n, 0.0) + secs
+        if exc[0] is None:
+            log(f"[phase {self.n}] {self.what}: {secs:.1f} s")
 
 
 def main() -> int:
@@ -5594,7 +5767,8 @@ def main() -> int:
     card = nvidia_smi()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda")
-    built = build_kernels()
+    with Phase(1, "the card and the kernels' build"):
+        built = build_kernels()
 
     from repro_torch.core import next_pow2, scenarios, stack_instances
     t0 = time.perf_counter()
@@ -5605,23 +5779,34 @@ def main() -> int:
         f"{metro.max_tasks}, {int(metro.task_mask.sum())} tasks, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    k1_err = phase_k1(dev, metro)
-    phase_k1_solve(dev, metro)
-    k2_err, k2_rounds = phase_k2(dev)
-    k3_err = phase_k3(dev)
-    k4_err = phase_k4(dev)
-    k4b_rows = phase_k4_bwd(dev)
-    metro_stack = phase_metro_solve(dev, metro)
-    launches, serve_stack, zs = phase_serving(dev)
-    eval_launches, big = phase_evaluation(dev)
-    sharded = phase_sharded_solve(dev)
-    metro_launches = phase_metro_serving(dev)
+    with Phase(2, "K1"):
+        k1_err = phase_k1(dev, metro)
+        phase_k1_solve(dev, metro)
+    with Phase(3, "K2"):
+        k2_err, k2_rounds = phase_k2(dev)
+    with Phase(4, "K3"):
+        k3_err = phase_k3(dev)
+    with Phase(8, "K4"):
+        k4_err = phase_k4(dev)
+    with Phase(15, "K4′"):
+        k4b_rows = phase_k4_bwd(dev)
+    with Phase(5, "the metro day's solve"):
+        metro_stack = phase_metro_solve(dev, metro)
+    with Phase(6, "slice 1, the serving loop"):
+        launches, serve_stack, zs = phase_serving(dev)
+    with Phase(7, "slice 2, the evaluation"):
+        eval_launches, big = phase_evaluation(dev)
+    with Phase(11, "slice 7, the sharded solve"):
+        sharded = phase_sharded_solve(dev)
+    with Phase(12, "slice 7, the metro serving engine"):
+        metro_launches = phase_metro_serving(dev)
     torch.cuda.empty_cache()
     from repro_torch.configs import get_config
     cfg = get_config(LM_ARCH)
-    params = lm_model(dev, cfg)
-    lm_launches, k4_shapes = phase_lm_serving(dev, cfg, params)
-    phase_lm_prefill(dev, cfg, params)
+    with Phase(9, "slice 3, chatglm3-6b's engine and prefill"):
+        params = lm_model(dev, cfg)
+        lm_launches, k4_shapes = phase_lm_serving(dev, cfg, params)
+        phase_lm_prefill(dev, cfg, params)
     # slice 9 on the weights phases 9 and 13 draw, then gemma3-12b's
     decode = {}
 
@@ -5630,7 +5815,10 @@ def main() -> int:
     decode_on(cfg, params)
     del params
     torch.cuda.empty_cache()
-    slice8 = phase_slice8(dev, decode=decode_on)
+    with Phase(13, "slice 8, with slice 9's decodes of its models"):
+        slice8 = phase_slice8(dev, decode=decode_on)
+    PHASE_S[13] -= sum(decode[a]["phase_s"] for a in slice8
+                       if a in decode)
     t0 = time.perf_counter()
     cfg9 = get_config("gemma3-12b")
     params = lm_model(dev, cfg9)
@@ -5643,28 +5831,43 @@ def main() -> int:
     log(f"[decode] phase 14: {phase14_s:.1f} s on {card} (the decode "
         "checks of the seven bf16 models, gemma3-12b's draw and the float32 "
         "checks)")
+    PHASE_S[14] = phase14_s
     if sorted(decode) != sorted(SLICE9):
         raise AssertionError(f"slice 9 decoded {sorted(decode)}, not "
                              f"{sorted(SLICE9)}")
     t0 = time.perf_counter()
-    train_grads = phase_train_grads(dev)
-    train_main = phase_train(dev)
+    with Phase(16, "chatglm3-6b's gradient check"):
+        train_grads = phase_train_grads(dev)
+    with Phase(17, "chatglm3-6b's training step"):
+        train_main = phase_train(dev)
     # slice 15: gemma3-12b, its global layers on K4′'s DP 256 tiles
-    gemma_grads = phase_train_grads(dev, dataclasses.replace(
-        get_config(GEMMA_ARCH), n_layers=GEMMA_CHECK_LAYERS, remat=True))
-    gemma_main = phase_train(dev, steps=GEMMA_TRAIN_STEPS, arch=GEMMA_ARCH,
-                             reserve=GEMMA_TRAIN_RESERVE, held=True)
-    train_loop = phase_train_loop(dev)
+    with Phase(16, "gemma3-12b's gradient check"):
+        gemma_grads = phase_train_grads(dev, dataclasses.replace(
+            get_config(GEMMA_ARCH), n_layers=GEMMA_CHECK_LAYERS,
+            remat=True))
+    with Phase(17, "gemma3-12b's training step"):
+        gemma_main = phase_train(dev, steps=GEMMA_TRAIN_STEPS,
+                                 arch=GEMMA_ARCH,
+                                 reserve=GEMMA_TRAIN_RESERVE, held=True)
+    with Phase(18, "the training loop"):
+        train_loop = phase_train_loop(dev)
     log(f"[train] phases 16-18: {time.perf_counter() - t0:.1f} s on {card} "
         f"(gemma3-12b's check and main path {gemma_grads['phase_s']:.1f} "
         f"and {gemma_main['phase_s']:.1f} s)")
     gc.collect()
     torch.cuda.empty_cache()
-    examples = phase_examples(dev, card)
-    mesh = phase_mesh(dev, card)
-    tp = phase_tp(dev, card)
-    dry = phase_dryrun(card, tp)
-    slice14 = phase_slice14(dev, card, tp)
+    with Phase(19, "slice 12, the examples"):
+        examples = phase_examples(dev, card)
+    with Phase(20, "slice 12, the mesh forms"):
+        mesh = phase_mesh(dev, card)
+    with Phase(21, "slice 13, tensor parallelism"):
+        tp = phase_tp(dev, card)
+    with Phase(22, "the dry run against the card"):
+        dry = phase_dryrun(card, tp)
+    with Phase(23, "slice 14"):
+        slice14 = phase_slice14(dev, card, tp)
+    timing = Phase(10, "the kernels' times")
+    timing.__enter__()
     k1 = time_k1(dev, serve_stack, metro_stack, launches, k1_err)
     k1["launches_eval"] = eval_launches["pg_solve"]
     k1["tick"] = launches["tick"]
@@ -5680,8 +5883,9 @@ def main() -> int:
     k3["launches_metro_serving"] = metro_launches["resize"]
     k2 = time_k2(dev, big, eval_launches, k2_err)
     k2["rounds_checked"] = k2_rounds
-    k4 = time_k4(dev, k4_shapes, lm_launches, cfg.n_layers, k4_err,
-                 built.get("flash_attn_tc.cu", {}).get("log"))
+    k4, k4_core = time_k4(dev, k4_shapes, lm_launches, cfg.n_layers, k4_err,
+                          built.get("flash_attn_tc.cu", {}).get("log"))
+    timing.__exit__(None, None, None)
     k4["launches_slice8"] = {
         name: {"engine": row.get("engine_k4_launches"),
                "prefill": row["prefill"]["k4_launches"]}
@@ -5715,6 +5919,9 @@ def main() -> int:
     k4b_core["launches"] = \
         train_loop["k4_bwd_launches_by_route"]["cuda_cores"]
     k4b_core["launches_path"] = "phase 18, the float32 smoke loop"
+    k4_core["launches"] = train_loop["k4_launches_by_route"]["cuda_cores"]
+    k4b_core["kernel_info"] = k4_core["kernel_info"]
+    k4_core["launches_path"] = "phase 18, the float32 smoke loop"
     k4b_core["launches_train_step"] = \
         train_main["k4_bwd_launches_by_route"]["cuda_cores"]
     # slice 12's launches: the examples (phase 19) and the mesh step (20)
@@ -5731,6 +5938,8 @@ def main() -> int:
         "launches"]["K4"]
     k4b_core["launches_train_lm_full_attention"] = \
         examples["train_lm_full_attention"]["launches"]["K4′"]
+    k4_core["launches_train_lm_full_attention"] = \
+        examples["train_lm_full_attention"]["launches"]["K4"]
     k4b["launches_mesh_step"] = mesh["train_step"]["steps"][-1][
         "launches"]["K4′"]
     k4b["slice12"] = dict(examples=examples, mesh=mesh)
@@ -5757,7 +5966,11 @@ def main() -> int:
         f"tp{w}": {"sp_train_step_per_rank":
                    s14[str(w)][0]["sp"]["k4b_tc_launches"]} for w in (2, 4)}
     k4b["slice14"] = slice14
-    kernels = [k1, k2, k3, k4, k4b, k4b_core]
+    kernels = [k1, k2, k3, k4, k4_core, k4b, k4b_core]
+    k4_core["smoke_phase_s"] = {str(n): round(x, 1)
+                                for n, x in sorted(PHASE_S.items())}
+    log("[phases] seconds by phase: " + ", ".join(
+        f"{n} {x:.1f}" for n, x in sorted(PHASE_S.items())))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

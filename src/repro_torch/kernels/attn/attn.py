@@ -14,27 +14,29 @@ chosen by :func:`route`:
   head width, and every ``Dh > 256`` up to 512. f32 FMAs on the CUDA cores,
   the reference's arithmetic.
 
-The tensor-core kernel writes each row's log-sum-exp on request
-(``launch(..., with_lse=True)``), as the reference's Pallas kernel returns
-its m and l; the plain version computes it too (``with_lse=True``).
+Both kernels write each row's log-sum-exp on request (``launch(...,
+with_lse=True)``), as the reference's Pallas kernel returns its m and l;
+the plain version computes it too (``with_lse=True``).
 
 :func:`flash_attention_fwd` goes through :class:`FlashAttention`, an
 autograd Function: its forward launches the routed kernel for CUDA tensors
 and computes :func:`flash_attention_fwd_ref` for CPU tensors, at any head
 width; its backward is :func:`flash_attention_bwd`, K4′, and
 :func:`flash_attention_bwd_ref` on CPU tensors. K4′ has two kernels, chosen
-by :func:`bwd_route`:
+by :func:`route` as K4's are, and both take P from the forward's
+log-sum-exp, which they require:
 
 - ``"tensor_cores"`` (``csrc/flash_attn_bwd_tc.cu``): bf16 with
   ``Dh % 8 == 0`` and ``Dh <= 256``, the forward's tensor-core inputs.
-  ``wgmma`` products on TMA tiles, P from the forward's log-sum-exp, which
-  it requires. At Dh 129–256 (padded to 256: gemma3's global layers) its
-  dK/dV pass splits the head's columns over two warpgroups.
+  ``wgmma`` products on TMA tiles. At Dh 129–256 (padded to 256: gemma3's
+  global layers) its dK/dV pass splits the head's columns over two
+  warpgroups.
 - ``"cuda_cores"`` (``csrc/flash_attn_bwd.cu``): float32, bf16 with
-  ``Dh % 8 != 0`` and Dh 257–512. f32 FMAs, each row's log-sum-exp
-  recomputed by its first pass unless given.
+  ``Dh % 8 != 0`` and Dh 257–512. f32 FMAs.
 
-Each makes a launch a pass (``BWD_PASSES``: 3 and 4), counted in
+Each makes a launch a pass (``BWD_PASSES``: 3 on both: dQ with D, dK/dV
+into float32 partials of ``bwd_groups(G)`` query-head groups, their
+reduce), counted in
 ``FLASH_BWD_TC_KERNEL`` or ``FLASH_BWD_CORE_KERNEL``, both in
 ``FLASH_BWD_KERNEL.launches``. The reference has no kernel there: its
 training attention is the jnp chunked flash attention, differentiated by
@@ -71,7 +73,7 @@ __all__ = ["BWD_PASSES", "FLASH_BWD_CORE_KERNEL",
            "FLASH_BWD_KERNEL", "FLASH_BWD_TC_KERNEL", "FLASH_CORE_KERNEL",
            "FLASH_KERNEL", "FLASH_TC_KERNEL", "FlashAttention",
            "MAX_HEAD_DIM", "NEG", "TC_MAX_HEAD_DIM", "bwd_groups",
-           "bwd_launch", "bwd_route", "flash_attention_bwd",
+           "bwd_launch", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_attention_fwd",
            "flash_attention_fwd_ref", "launch", "route", "scratch_bytes",
            "tc_head_width"]
@@ -82,22 +84,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 FLASH_CORE_KERNEL = CudaKernel(
     "flash_attn.cu", "flash_attn_launch",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+     _P])
 FLASH_TC_KERNEL = CudaKernel(
     "flash_attn_tc.cu", "flash_attn_tc_launch",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
-# K4′: one launcher a route, called once a pass — CUDA cores: rows (each
-# row's log-sum-exp unless given, and D), dQ, dK/dV, reduce; tensor cores:
-# dQ (and D), dK/dV, reduce
+# K4′: one launcher a route, called once a pass — dQ (and D), dK/dV,
+# reduce on both
 FLASH_BWD_CORE_KERNEL = CudaKernel(
     "flash_attn_bwd.cu", "flash_attn_bwd_launch",
     [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-     _I, _I, ctypes.c_float, _I, _I, _I, _P])
+     _I, _I, _I, ctypes.c_float, _I, _I, _P])
 FLASH_BWD_TC_KERNEL = CudaKernel(
     "flash_attn_bwd_tc.cu", "flash_attn_bwd_tc_launch",
     [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
      _I, _I, ctypes.c_float, _I, _P])
-BWD_PASSES = {"tensor_cores": 3, "cuda_cores": 4}
+BWD_PASSES = {"tensor_cores": 3, "cuda_cores": 3}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the widest head each kernel has a tile for: the CUDA-core kernel's widest
 # instantiation is Dh 512 (32 x 16, 135 KB of the 227 KB a block may use);
@@ -147,12 +149,8 @@ def route(dtype: torch.dtype, dh: int) -> str:
     return "cuda_cores"
 
 
-# K4′'s route is K4's: the backward's name for :func:`route`
-bwd_route = route
-
-
 def bwd_groups(g: int) -> int:
-    """How many groups the tensor-core K4′'s dK/dV pass splits a KV head's
+    """How many groups K4′'s dK/dV pass (either route) splits a KV head's
     ``g`` query heads into: the largest divisor of ``g`` that is at most 4
     (each group's float32 dK/dV partials are written and summed in order;
     ``csrc/flash_attn_bwd_tc.cu`` gives the reason for 4)."""
@@ -291,7 +289,7 @@ def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor | None,
             causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4′ as an operator: the routed kernel's (dq, dk, dv)."""
-    return bwd_launch(bwd_route(q.dtype, q.shape[-1]), q, k, v, out, dout,
+    return bwd_launch(route(q.dtype, q.shape[-1]), q, k, v, out, dout,
                       causal=causal, lse=lse)
 
 
@@ -304,17 +302,14 @@ def scratch_bytes(op: str, q, k, *rest) -> int:
     """The device bytes the kernel behind operator ``op``
     (``"flash_attn_fwd"`` or ``"flash_attn_bwd"``, given its arguments)
     allocates for its own use beyond its outputs: K4′'s float32 partials
-    of dK and dV, D, and the CUDA-core route's row LSE when none is given.
-    The dry run adds them at the call (``launch/cost.py``)."""
+    of dK and dV (``bwd_groups(G)`` of each) and D, on either route; K4
+    none (its LSE is an output). The dry run adds them at the call
+    (``launch/cost.py``)."""
     if op != "flash_attn_bwd":
         return 0
     b, tq, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
-    lse = rest[3]
-    rows = b * hq * tq * 4
-    if bwd_route(q.dtype, dh) == "tensor_cores":
-        return 2 * bwd_groups(hq // hkv) * b * tk * hkv * dh * 4 + rows
-    return 2 * b * tk * hq * dh * 4 + rows * (2 if lse is None else 1)
+    return 2 * bwd_groups(hq // hkv) * b * tk * hkv * dh * 4 + b * hq * tq * 4
 
 
 def _products(q_shape, k_shape) -> int:
@@ -358,7 +353,7 @@ class FlashAttention(torch.autograd.Function):
     """K4 with its gradient: the forward is :func:`flash_attention_fwd`'s
     route (the routed kernel on the card, the plain version on the host),
     saving q, k, v and the output — and, when ``with_lse``, K4's
-    log-sum-exp, which the tensor-core K4′ requires; the backward is
+    log-sum-exp, which K4′ requires on the card; the backward is
     :func:`flash_attention_bwd` (K4′ on the card, its plain version on the
     host), given that LSE. A recompute under ``torch.utils.checkpoint``
     runs the forward again, so a checkpointed layer launches K4 twice a
@@ -396,15 +391,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     go through :class:`FlashAttention`, so an input that requires grad gets
     K4′'s gradient (the kernel on the card, its plain version on the host).
     K4 writes its log-sum-exp only for a backward that takes it: grad mode
-    on, an input that requires grad, and K4′'s tensor-core route on the
-    card. (The first pass of a non-reentrant ``torch.utils.checkpoint``
-    writes it too: it must save the tensors its recompute saves.) Prefill,
-    decode and other calls without a backward launch K4 with no LSE.
+    on and an input that requires grad, on the card (either route). (The
+    first pass of a non-reentrant ``torch.utils.checkpoint`` writes it
+    too: it must save the tensors its recompute saves.) Prefill, decode
+    and other calls without a backward launch K4 with no LSE.
     """
     _check(q, k, v)
     with_lse = q.device.type != "cpu" and torch.is_grad_enabled() \
-        and any(t.requires_grad for t in (q, k, v)) \
-        and bwd_route(q.dtype, q.shape[-1]) == "tensor_cores"
+        and any(t.requires_grad for t in (q, k, v))
     return FlashAttention.apply(q, k, v, causal, with_lse)
 
 
@@ -428,54 +422,53 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
     (both (B, Tq, Hq, Dh), q's type); ``lse`` the forward's log-sum-exp,
     float32 (B, Hq, Tq) (``launch(..., with_lse=True)``).
 
-    A CUDA tensor launches the kernel :func:`bwd_route` names
-    (:func:`bwd_launch`): the tensor-core route requires ``lse`` and raises
-    without it (it never recomputes the LSE); the CUDA-core route uses it
-    when given and recomputes it in its first pass when not. A ``meta``
-    tensor (or a fake one) takes the operator's fake implementation under
-    the same precondition, and launches nothing. A CPU tensor
+    A CUDA tensor launches the kernel :func:`route` names
+    (:func:`bwd_launch`), which requires ``lse`` and raises without it
+    (neither route recomputes the LSE). A ``meta`` tensor (or a fake one)
+    takes the operator's fake implementation under the same precondition,
+    and launches nothing. A CPU tensor
     computes :func:`flash_attention_bwd_ref` (with ``lse`` when given) and
     casts it to q's type (float64 too, for ``torch.autograd.gradcheck``)."""
     _check_bwd(q, k, v, out, dout, lse)
     if q.device.type == "cpu":
         return tuple(t.to(q.dtype) for t in flash_attention_bwd_ref(
             q, k, v, out, dout, causal=causal, lse=lse))
-    kernel = bwd_route(q.dtype, q.shape[-1])
-    if lse is None and kernel == "tensor_cores":
+    kernel = route(q.dtype, q.shape[-1])
+    if lse is None:
         raise ValueError(_NEEDS_LSE)
     if _on_card(q):
         return bwd_launch(kernel, q, k, v, out, dout, causal=causal, lse=lse)
     return _bwd_op(q, k, v, out, dout, lse, causal)
 
 
-_NEEDS_LSE = ("K4′'s tensor-core route needs the forward's log-sum-exp "
-              "(lse=, from launch(..., with_lse=True))")
+_NEEDS_LSE = ("K4′ needs the forward's log-sum-exp (lse=, from "
+              "launch(..., with_lse=True))")
 
 
 def bwd_launch(kernel: str, q, k, v, out, dout, *, causal: bool = True,
                lse=None):
-    """Launch K4′'s ``kernel`` (a :func:`bwd_route` name) on CUDA tensors,
+    """Launch K4′'s ``kernel`` (a :func:`route` name) on CUDA tensors,
     checked as :func:`flash_attention_bwd` checks them, one launch a pass
     (``BWD_PASSES[kernel]``). That function is the entry point; this is
-    also how a bf16 call is held on the CUDA-core kernel to compare the
-    two. Every argument is checked before any CUDA call."""
+    also how a bf16 call is held on the CUDA-core kernel (given that
+    kernel's K4's LSE) to compare the two. Every argument is checked
+    before any CUDA call."""
     if kernel not in BWD_PASSES:
         raise ValueError(f"unknown K4′ kernel {kernel!r}")
     _check_bwd(q, k, v, out, dout, lse)
     _check(q, k, v)
     b, tq, hq, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
-    if kernel == "tensor_cores":
-        if bwd_route(q.dtype, dh) != kernel:
-            raise ValueError(f"{q.dtype} at Dh={dh} is not a tensor-core "
-                             "input of K4′")
-        if lse is None:
-            raise ValueError(_NEEDS_LSE)
+    if kernel == "tensor_cores" and route(q.dtype, dh) != kernel:
+        raise ValueError(f"{q.dtype} at Dh={dh} is not a tensor-core input "
+                         "of K4′")
+    if lse is None:
+        raise ValueError(_NEEDS_LSE)
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"Dh={dh} > {MAX_HEAD_DIM}: K4′ has no tile for it")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    ts = (q, k, v, out, dout) + (() if lse is None else (lse,))
+    ts = (q, k, v, out, dout, lse)
     if not all(t.is_contiguous() for t in ts) \
             or any(t.device != q.device for t in ts):
         raise ValueError("q, k, v, out, dout and lse must be contiguous "
@@ -490,31 +483,34 @@ def bwd_launch(kernel: str, q, k, v, out, dout, *, causal: bool = True,
         return dq.zero_(), dk.zero_(), dv.zero_()
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((b, hq, tq), **f32)
+    groups = bwd_groups(hq // hkv)
+    dk_part = torch.empty((groups, b, tk, hkv, dh), **f32)
+    dv_part = torch.empty_like(dk_part)
     stream = current_stream(q.get_device())
     scale = dh ** -0.5
     if kernel == "tensor_cores":
-        groups = bwd_groups(hq // hkv)
-        dk_part = torch.empty((groups, b, tk, hkv, dh), **f32)
-        dv_part = torch.empty_like(dk_part)
         ptrs = [t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq,
                                        dk, dv, dk_part, dv_part)]
         for p in range(BWD_PASSES[kernel]):
             FLASH_BWD_TC_KERNEL(p, *ptrs, b, tq, tk, hq, hkv, dh, groups,
                                 scale, int(causal), stream)
         return dq, dk, dv
-    rows_lse = torch.empty((b, hq, tq), **f32) if lse is None else lse
-    dk_part = torch.empty((b, tk, hq, dh), **f32)
-    dv_part = torch.empty((b, tk, hq, dh), **f32)
-    ptrs = [t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv, rows_lse,
+    ptrs = [t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv, lse,
                                    delta, dk_part, dv_part)]
-    # tiles staged 16 bytes a load where every row starts 16-byte aligned
-    vec = int(dh % (16 // q.element_size()) == 0
-              and not any(p % 16 for p in ptrs[:5]))
+    vec = _vec(q, ptrs[:5])
     for p in range(BWD_PASSES[kernel]):
         FLASH_BWD_CORE_KERNEL(p, *ptrs, _DTYPE_CODE[q.dtype], b, tq, tk, hq,
-                              hkv, dh, scale, int(causal), vec,
-                              int(lse is not None), stream)
+                              hkv, dh, groups, scale, int(causal), vec,
+                              stream)
     return dq, dk, dv
+
+
+def _vec(q, ptrs) -> int:
+    """Whether the CUDA-core kernels may move their tiles 16 bytes a copy:
+    Dh a whole number of 16-byte units and every pointer 16-byte aligned,
+    so that every row starts aligned."""
+    return int(q.shape[-1] % (16 // q.element_size()) == 0
+               and not any(p % 16 for p in ptrs))
 
 
 def launch(kernel: str, q, k, v, *, causal: bool = True,
@@ -522,8 +518,8 @@ def launch(kernel: str, q, k, v, *, causal: bool = True,
     """Launch K4's ``kernel`` (a :func:`route` name) on CUDA tensors,
     checked as :func:`flash_attention_fwd` checks them. That function is
     the entry point; this is also how a bf16 call is held on the CUDA-core
-    kernel to compare the two. With ``with_lse`` (the tensor-core kernel
-    only) it returns ``(out, lse)``, lse each row's log-sum-exp in float32
+    kernel to compare the two. With ``with_lse`` (either kernel) it
+    returns ``(out, lse)``, lse each row's log-sum-exp in float32
     (B, Hq, Tq); ``out`` is bit for bit the same either way."""
     if kernel not in ("tensor_cores", "cuda_cores"):
         raise ValueError(f"unknown K4 kernel {kernel!r}")
@@ -532,8 +528,6 @@ def launch(kernel: str, q, k, v, *, causal: bool = True,
     tk, hkv = k.shape[1], k.shape[2]
     if kernel == "tensor_cores" and route(q.dtype, dh) != kernel:
         raise ValueError(f"{q.dtype} at Dh={dh} is not a tensor-core input")
-    if with_lse and kernel != "tensor_cores":
-        raise ValueError("only the tensor-core K4 writes the log-sum-exp")
     if dh > MAX_HEAD_DIM:
         raise ValueError(
             f"Dh={dh} > {MAX_HEAD_DIM}: K4 has no tile for it (the CUDA-core "
@@ -549,16 +543,16 @@ def launch(kernel: str, q, k, v, *, causal: bool = True,
         raise ValueError("the tensor-core route needs 16-byte-aligned q, k "
                          "and v")
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, tq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
+    ptrs = [t.data_ptr() for t in (q, k, v, out)] \
+        + [None if lse is None else lse.data_ptr()]
     stream = current_stream(q.get_device())
     if kernel == "tensor_cores":
-        lse = torch.empty((b, hq, tq), dtype=torch.float32,
-                          device=q.device) if with_lse else None
-        FLASH_TC_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), None if lse is None else
-                        lse.data_ptr(), b, tq, tk, hq, hkv, dh, dh ** -0.5,
+        FLASH_TC_KERNEL(*ptrs, b, tq, tk, hq, hkv, dh, dh ** -0.5,
                         int(causal), stream)
-        return (out, lse) if with_lse else out
-    FLASH_CORE_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), _DTYPE_CODE[q.dtype], b, tq, tk,
-                      hq, hkv, dh, dh ** -0.5, int(causal), stream)
-    return out
+    else:
+        FLASH_CORE_KERNEL(*ptrs, _DTYPE_CODE[q.dtype], b, tq, tk, hq, hkv,
+                          dh, dh ** -0.5, int(causal), _vec(q, ptrs[:4]),
+                          stream)
+    return (out, lse) if with_lse else out

@@ -187,13 +187,15 @@ def test_plain_backward_unchanged_given_the_lse(b, tq, tk, hq, hkv, dh,
     (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
     (torch.float32, 256, "cuda_cores")])
 def test_bwd_route_choice(dtype, dh, want):
-    """K4′ takes the tensor cores for bf16 with Dh % 8 == 0 and Dh <= 256,
-    as K4 does (at Dh 129-256 its dK/dV pass splits the head over two
-    warpgroups); float32, other bf16 widths and Dh > 256 stay on the CUDA
-    cores."""
-    assert PA.bwd_route(dtype, dh) == want
-    assert PA.bwd_route(dtype, dh) == PA.route(dtype, dh)
-    assert PA.BWD_PASSES[want] == {"tensor_cores": 3, "cuda_cores": 4}[want]
+    """K4′ takes K4's route (``route``): the tensor cores for bf16 with
+    Dh % 8 == 0 and Dh <= 256 (at Dh 129-256 its dK/dV pass splits the
+    head over two warpgroups); float32, other bf16 widths and Dh > 256 the
+    CUDA cores. Both routes make three launches a call (dQ with D, dK/dV,
+    reduce): the CUDA-core route's rows pass went when K4 began writing
+    its LSE on that route too."""
+    assert PA.route(dtype, dh) == want
+    assert not hasattr(PA, "bwd_route")
+    assert PA.BWD_PASSES == {"tensor_cores": 3, "cuda_cores": 3}
 
 
 @pytest.mark.parametrize("g,want", [(1, 1), (2, 2), (4, 4), (5, 1), (6, 3),
@@ -206,18 +208,19 @@ def test_bwd_groups(g, want):
 
 @pytest.mark.parametrize("dh", [128, 256])
 def test_tc_route_refuses_a_call_without_lse(dh):
-    """The tensor-core K4′ needs the forward's LSE: ``flash_attention_bwd``
+    """K4′ needs the forward's LSE on either route: ``flash_attention_bwd``
     raises without it, on its argument checks, before any CUDA call (so
     this runs on ``meta`` tensors, with no card). With the LSE the same
     call passes every check and, on ``meta`` tensors, takes the operator's
     fake implementation (the dry run's path: the gradients' shapes, no
     launch), while ``bwd_launch`` itself gets as far as the device check.
-    The other argument checks come first too. Dh 128 and gemma3's 256."""
+    The other argument checks come first too. Dh 128 and gemma3's 256 on
+    the tensor cores; float32 and bf16 held on the CUDA cores."""
     def meta(*shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, device="meta")
     q, k, o = meta(1, 64, 8, dh), meta(1, 64, 2, dh), meta(1, 64, 8, dh)
     lse = meta(1, 8, 64, dtype=torch.float32)
-    assert PA.bwd_route(q.dtype, dh) == "tensor_cores"
+    assert PA.route(q.dtype, dh) == "tensor_cores"
     with pytest.raises(ValueError, match="needs the forward's log-sum-exp"):
         PA.flash_attention_bwd(q, k, k, o, o)
     with pytest.raises(ValueError, match="needs the forward's log-sum-exp"):
@@ -237,9 +240,19 @@ def test_tc_route_refuses_a_call_without_lse(dh):
                       lse=lse)
     with pytest.raises(ValueError, match="unknown K4′ kernel"):
         PA.bwd_launch("tensor", q, k, k, o, o, lse=lse)
-    # the CUDA-core route takes a call without the LSE
-    with pytest.raises(ValueError, match="unsupported device"):
-        PA.bwd_launch("cuda_cores", q, k, k, o, o)
+    # the CUDA-core route needs it too, and takes a call with it
+    f, fk = meta(1, 64, 8, dh, dtype=torch.float32), \
+        meta(1, 64, 2, dh, dtype=torch.float32)
+    for args in ((q, k, k, o, o), (f, fk, fk, f, f)):
+        with pytest.raises(ValueError, match="needs the forward's "
+                                             "log-sum-exp"):
+            PA.bwd_launch("cuda_cores", *args)
+        with pytest.raises(ValueError, match="unsupported device"):
+            PA.bwd_launch("cuda_cores", *args, lse=lse)
+    with pytest.raises(ValueError, match="needs the forward's log-sum-exp"):
+        PA.flash_attention_bwd(f, fk, fk, f, f)
+    assert PA.flash_attention_bwd(f, fk, fk, f, f, lse=lse)[0].shape \
+        == f.shape
 
 
 def test_bwd_launch_count_spans_both_routes():
@@ -322,3 +335,91 @@ def test_tc_bwd_model_within_its_tolerance(b, tq, tk, hq, hkv, dh, causal):
     got = _tc_bwd_model(q, k, v, out, do, causal)
     assert max(_excess(g, r, _TC_TOL) for g, r in zip(got, ref)) <= 1.0
     assert max(_excess(g, r, _CORE_BF16_TOL) for g, r in zip(got, ref)) > 1.0
+
+
+def _meta(*shape, dtype=torch.float32, grad=False):
+    return torch.empty(shape, dtype=dtype, device="meta", requires_grad=grad)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
+                                      (torch.float32, 128),
+                                      (torch.bfloat16, 12),
+                                      (torch.bfloat16, 128)])
+def test_forward_asks_for_the_lse_when_a_backward_follows(dtype, dh,
+                                                         monkeypatch):
+    """``flash_attention_fwd`` has K4 write the LSE on either route when a
+    backward follows off the host (grad mode on and an input that
+    requires grad; here on ``meta`` tensors), and not otherwise: without
+    grad, under ``no_grad``, and on the CPU."""
+    asked = []
+    forward = PA._forward
+
+    def spy(q, k, v, causal, with_lse=False):
+        asked.append(with_lse)
+        return forward(q, k, v, causal, with_lse)
+    monkeypatch.setattr(PA, "_forward", spy)
+    q, k = _meta(1, 40, 4, dh, dtype=dtype, grad=True), \
+        _meta(1, 40, 2, dh, dtype=dtype, grad=True)
+    PA.flash_attention_fwd(q, k, k)
+    with torch.no_grad():
+        PA.flash_attention_fwd(q, k, k)
+    PA.flash_attention_fwd(q.detach(), k.detach(), k.detach())
+    host = torch.zeros(1, 8, 4, dh, dtype=dtype, requires_grad=True)
+    PA.flash_attention_fwd(host, host[:, :, :2].detach(),
+                           host[:, :, :2].detach())
+    assert asked == [True, False, False, False]
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 100),
+                                      (torch.float32, 320),
+                                      (torch.bfloat16, 12),
+                                      (torch.bfloat16, 128)])
+def test_scratch_bytes_of_either_route(dtype, dh):
+    """K4′'s scratch on either route (``launch/cost.py`` adds it at the
+    call): D, float32 (B, Hq, Tq), and the float32 dK and dV partials of
+    ``bwd_groups(G)`` query-head groups, (groups, B, Tk, Hkv, Dh) each;
+    K4's forward none (its LSE is an output)."""
+    q, k = _meta(2, 40, 12, dh, dtype=dtype), _meta(2, 56, 4, dh, dtype=dtype)
+    lse = _meta(2, 12, 40)
+    want = 2 * PA.bwd_groups(3) * 2 * 56 * 4 * dh * 4 + 2 * 12 * 40 * 4
+    assert PA.bwd_groups(3) == 3
+    assert PA.scratch_bytes("flash_attn_bwd", q, k, k, q, q, lse, True) \
+        == want
+    assert PA.scratch_bytes("flash_attn_fwd", q, k, k, True, True) == 0
+
+
+def test_float32_train_step_on_meta_saves_the_lse():
+    """A float32 attention step traced on ``meta`` tensors under
+    ``launch/cost.py``'s ``CostMode`` (the dry run's path): K4's operator
+    is asked for the LSE, K4′'s operator gets it, the trace's peak holds
+    K4′'s three-pass scratch (``scratch_bytes``), and the route makes
+    three launches a call on the card (``BWD_PASSES``)."""
+    from repro_torch.launch import cost
+    calls = {}
+    fwd_op, bwd_op = PA._fwd_op, PA._bwd_op
+
+    def fwd_spy(q, k, v, causal, with_lse):
+        calls["with_lse"] = with_lse
+        return fwd_op(q, k, v, causal, with_lse)
+
+    def bwd_spy(q, k, v, out, dout, lse, causal):
+        calls["lse"] = None if lse is None else tuple(lse.shape)
+        return bwd_op(q, k, v, out, dout, lse, causal)
+    q, k = _meta(2, 40, 6, 64, grad=True), _meta(2, 40, 2, 64, grad=True)
+
+    def step():
+        out = PA.flash_attention_fwd(q, k, k, causal=True)
+        return torch.autograd.grad(out.sum(), [q, k])
+    PA._fwd_op, PA._bwd_op = fwd_spy, bwd_spy
+    try:
+        (gq, gk), c = cost.count(step)
+    finally:
+        PA._fwd_op, PA._bwd_op = fwd_op, bwd_op
+    assert calls == {"with_lse": True, "lse": (2, 6, 40)}
+    assert gq.shape == q.shape and gk.shape == k.shape
+    assert PA.route(torch.float32, 64) == "cuda_cores"
+    assert PA.BWD_PASSES["cuda_cores"] == 3
+    scratch = PA.scratch_bytes("flash_attn_bwd", q, k, k, q, q,
+                               _meta(2, 6, 40), True)
+    assert scratch == 2 * 3 * 2 * 40 * 2 * 64 * 4 + 2 * 6 * 40 * 4
+    assert c.peak_bytes >= scratch

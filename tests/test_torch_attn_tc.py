@@ -148,6 +148,18 @@ def test_launch_refuses_before_touching_the_card():
         PA.launch("tensor", q, q, q)
 
 
+@pytest.mark.parametrize("route", ["tensor_cores", "cuda_cores"])
+def test_launch_takes_with_lse_on_both_routes(route):
+    """``launch(..., with_lse=True)`` passes its argument checks on either
+    kernel (here it stops at the device check of ``meta`` tensors, before
+    any CUDA call): both write each row's log-sum-exp."""
+    dtype = torch.bfloat16 if route == "tensor_cores" else torch.float32
+    q = torch.empty(1, 16, 4, 64, dtype=dtype, device="meta")
+    k = torch.empty(1, 16, 2, 64, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        PA.launch(route, q, k, k, with_lse=True)
+
+
 def test_launch_count_spans_both_kernels():
     """``FLASH_KERNEL.launches`` is the sum over the two kernels, and
     setting it to 0 zeroes both (as the smoke test does before a path)."""

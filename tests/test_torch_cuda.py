@@ -646,7 +646,7 @@ def test_flash_kernel_refuses_inputs_that_require_grad_on_card(cuda_device,
     q = torch.from_numpy(rng.standard_normal((1, 16, 4, 64)).astype(
         np.float32)).to(cuda_device).bfloat16()
     k = q[:, :, :2].contiguous()
-    route = PA.bwd_route(q.dtype, q.shape[-1])
+    route = PA.route(q.dtype, q.shape[-1])
     assert route == "tensor_cores"
     for which in range(3):
         args = [q.clone(), k.clone(), k.clone()]
@@ -705,9 +705,10 @@ def test_flash_bwd_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
     """K4′ against ``flash_attention_bwd_ref`` at Dh 16–320, G 1–4,
     Tq != Tk and lengths not a multiple of a tile, on the route
     ``flash_attention_bwd`` takes (bf16 at Dh 16, 64, 128 and 256:
-    ``csrc/flash_attn_bwd_tc.cu``, given K4's LSE; the rest
-    ``csrc/flash_attn_bwd.cu``): a launch a pass on that route's kernel, a
-    repeat bit for bit, within ``_BWD_TC_TOL`` or ``_BWD_TOL``."""
+    ``csrc/flash_attn_bwd_tc.cu``; the rest ``csrc/flash_attn_bwd.cu``),
+    given the LSE of that route's K4: a launch a pass on that route's
+    kernel, a repeat bit for bit, within ``_BWD_TC_TOL`` or
+    ``_BWD_TOL``."""
     from repro_torch.kernels.attn import attn as PA
     dt = getattr(torch, dtype)
 
@@ -716,13 +717,8 @@ def test_flash_bwd_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
             np.float32)).to(cuda_device, dt)
     q, k, v = draw(b, tq, hq, dh), draw(b, tk, hkv, dh), draw(b, tk, hkv, dh)
     dout = draw(b, tq, hq, dh)
-    route = PA.bwd_route(dt, dh)
-    lse = None
-    if route == "tensor_cores":
-        out, lse = PA.launch("tensor_cores", q, k, v, causal=causal,
-                             with_lse=True)
-    else:
-        out = PA.flash_attention_fwd(q, k, v, causal=causal)
+    route = PA.route(dt, dh)
+    out, lse = PA.launch(route, q, k, v, causal=causal, with_lse=True)
     counter = PA.FLASH_BWD_TC_KERNEL if route == "tensor_cores" \
         else PA.FLASH_BWD_CORE_KERNEL
     before, total = counter.launches, PA.FLASH_BWD_KERNEL.launches
@@ -752,10 +748,10 @@ def test_flash_bwd_tc_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
     """The tensor-core K4′ (``csrc/flash_attn_bwd_tc.cu``) given K4's LSE
     against the plain version within ``_BWD_TC_TOL``, and the CUDA-core
     kernel held on the same bf16 inputs (``bwd_launch``) within
-    ``_BWD_TOL`` — without the LSE and given the plain version's. K4's
-    output is bit for bit the same with its LSE written or not, and the
-    LSE within 2^-8 of the plain LSE. ``FlashAttention``'s backward is bit
-    for bit the direct call given the same LSE."""
+    ``_BWD_TOL`` — given the CUDA-core K4's LSE and the plain version's.
+    K4's output is bit for bit the same with its LSE written or not, and
+    the LSE within 2^-8 of the plain LSE. ``FlashAttention``'s backward is
+    bit for bit the direct call given the same LSE."""
     from repro_torch.kernels.attn import attn as PA
 
     def draw(*shape):
@@ -763,7 +759,7 @@ def test_flash_bwd_tc_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
             np.float32)).to(cuda_device, torch.bfloat16)
     q, k, v = draw(b, tq, hq, dh), draw(b, tk, hkv, dh), draw(b, tk, hkv, dh)
     dout = draw(b, tq, hq, dh)
-    assert PA.bwd_route(q.dtype, dh) == "tensor_cores"
+    assert PA.route(q.dtype, dh) == "tensor_cores"
     out, lse = PA.launch("tensor_cores", q, k, v, causal=causal,
                          with_lse=True)
     assert torch.equal(out, PA.launch("tensor_cores", q, k, v,
@@ -776,8 +772,11 @@ def test_flash_bwd_tc_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
                                      out.float(), dout.float(), causal=causal)
     _bwd_within(PA.flash_attention_bwd(q, k, v, out, dout, causal=causal,
                                        lse=lse), ref, _BWD_TC_TOL)
+    _, core_lse = PA.launch("cuda_cores", q, k, v, causal=causal,
+                            with_lse=True)
     _bwd_within(PA.bwd_launch("cuda_cores", q, k, v, out, dout,
-                              causal=causal), ref, _BWD_TOL[torch.bfloat16])
+                              causal=causal, lse=core_lse), ref,
+                _BWD_TOL[torch.bfloat16])
     _bwd_within(PA.bwd_launch("cuda_cores", q, k, v, out, dout,
                               causal=causal, lse=ref_lse), ref,
                 _BWD_TOL[torch.bfloat16])
@@ -787,6 +786,61 @@ def test_flash_bwd_tc_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
     torch.cuda.synchronize()
     for t, w in zip(ins, want):
         assert torch.equal(t.grad, w)
+
+
+# The CUDA-core kernels' tile edges: (B, Tq, Tk, Hq, Hkv, causal), lengths
+# not a whole tile at any head width, Tq != Tk, G = 3, 16 and 1 (a causal
+# Tq > Tk, whose last rows see every key)
+_CORE_EDGES = [(2, 77, 77, 6, 2, True), (1, 40, 100, 16, 1, False),
+               (1, 130, 67, 2, 2, True)]
+# chip_smoke.py's K4_F32_ATOL and K4_LSE_TOL
+_K4_F32_ATOL, _K4_LSE_TOL = 2e-5, 2 ** -8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [1, 12, 64, 100, 128, 256, 320, 512])
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,causal", _CORE_EDGES)
+def test_core_kernels_at_tile_edges_on_card(b, tq, tk, hq, hkv, causal, dh,
+                                            cuda_device, rng):
+    """The CUDA-core K4 and K4′ (``csrc/flash_attn.cu``,
+    ``csrc/flash_attn_bwd.cu``) in float32 at each instantiation's width
+    and between (Dh 1 and 100 staged element by element or short of a
+    tile's columns): K4 within ``_K4_F32_ATOL`` of its plain version, its
+    LSE within ``_K4_LSE_TOL`` of the plain LSE, the output bit for bit
+    the same without the LSE; K4′ given that LSE (``flash_attention_bwd``
+    and ``bwd_launch``) within ``_BWD_TOL``'s float32 tolerance of its
+    plain version, a launch a pass, a repeat bit for bit."""
+    from repro_torch.kernels.attn import attn as PA
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device)
+    q, k, v = draw(b, tq, hq, dh), draw(b, tk, hkv, dh), draw(b, tk, hkv, dh)
+    dout = draw(b, tq, hq, dh)
+    assert PA.route(q.dtype, dh) == "cuda_cores"
+    before = PA.FLASH_CORE_KERNEL.launches
+    out, lse = PA.launch("cuda_cores", q, k, v, causal=causal, with_lse=True)
+    again = PA.launch("cuda_cores", q, k, v, causal=causal)
+    ref, ref_lse = PA.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                              with_lse=True)
+    torch.cuda.synchronize()
+    assert PA.FLASH_CORE_KERNEL.launches == before + 2
+    assert torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= _K4_F32_ATOL
+    assert lse.shape == (b, hq, tq) and lse.dtype == torch.float32
+    assert (lse - ref_lse).abs().max().item() <= _K4_LSE_TOL
+    before = PA.FLASH_BWD_CORE_KERNEL.launches
+    got = PA.flash_attention_bwd(q, k, v, out, dout, causal=causal, lse=lse)
+    again = PA.bwd_launch("cuda_cores", q, k, v, out, dout, causal=causal,
+                          lse=lse)
+    torch.cuda.synchronize()
+    assert PA.FLASH_BWD_CORE_KERNEL.launches \
+        == before + 2 * PA.BWD_PASSES["cuda_cores"]
+    for g, g2, like in zip(got, again, (q, k, v)):
+        assert torch.equal(g, g2) and g.shape == like.shape
+    _bwd_within(got, PA.flash_attention_bwd_ref(q, k, v, out, dout,
+                                                causal=causal),
+                _BWD_TOL[torch.float32])
 
 
 _FIRST_BACKWARD = """
