@@ -8,9 +8,11 @@ metro-scale sharded solve with its mesh-resident serving session, the
 MoE, RG-LRU, RWKV-6 and encoder-decoder prefills of the other five LM
 configs, the decode that continues a prefill, training (K4's gradient
 K4′, the train step and the checkpointed loop), the examples, the mesh
-forms, and dense tensor parallelism over processes that share the card,
-with the dry run's count held against it — and holds every hand-written
-kernel of those paths against its plain PyTorch version:
+forms, dense tensor parallelism over processes that share the card,
+with the dry run's count held against it, and the serving, decode and
+training of granite-34b, chameleon-34b and h2o-danube-3-4b, with
+whisper-tiny's training — and holds every hand-written kernel of those
+paths against its plain PyTorch version:
 
 1. prints the card (``nvidia-smi``) and builds every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
@@ -48,10 +50,10 @@ kernel of those paths against its plain PyTorch version:
    ms/solve;
 6. SLICE 1'S MAIN PATH: a 256-cell ``MultiCellEngine`` (``multi_cell_pools(
    256, seed=1)``, 32 contiguous backhaul domains at 1.2 per cell) driven by
-   ``drive_closed_loop(horizon=8, process=True)``, with the kernel launch
-   counts zeroed just before and read just after (every re-slice's solve
-   one ``batch_solve`` launch with one host sync, no one-round launch); a
-   twin engine on the same card with ``sesm.inner = "torch"`` runs the same
+   ``drive_closed_loop(horizon=HORIZON, process=True)`` (4 steps), with
+   the kernel launch counts zeroed just before and read just after (every
+   re-slice's solve one ``batch_solve`` launch with one host sync, no
+   one-round launch); a twin engine on the same card with ``sesm.inner = "torch"`` runs the same
    traffic and must decide identically at every step;
 7. SLICE 2'S MAIN PATH, the paper's evaluation at full width, counts zeroed
    just before and read just after: the Fig. 6 sweep (``fig6_sweep(m)`` for
@@ -77,8 +79,10 @@ kernel of those paths against its plain PyTorch version:
    shapes with Tq != Tk, and slice 8's: the whisper-tiny encoder (2, 1500,
    6, 6, 64, non-causal), its cross-attention (Tq 448 over Tk 1500,
    non-causal) and decoder (2, 448, causal), and qwen3-moe's (2, 2048, 64,
-   4, 128), and slice 12's ``train_lm --params-100m --full-attention``
-   (8, 256, 12, 4, 64, causal), on unit normals, on both kernels (and Dh = 320,
+   4, 128), slice 12's ``train_lm --params-100m --full-attention``
+   (8, 256, 12, 4, 64, causal), and slice 17's granite-34b (2, 2048, 48,
+   1, 128) and chameleon-34b (2, 2048, 64, 8, 128), causal, on unit
+   normals, on both kernels (and Dh = 320,
    which the route sends to the CUDA-core kernel in both types; Dh = 520
    must raise): float32 on the
    CUDA-core kernel (``csrc/flash_attn.cu``, within 2e-5: sums in another
@@ -143,24 +147,27 @@ kernel of those paths against its plain PyTorch version:
 12. SLICE 7'S MAIN PATH, the metro serving engine: phase 6's 256-cell
    layout with 4 standing requests a cell on ``make_cells_mesh(8,
    devices=[card])`` beside a meshless twin on the card, through
-   ``drive_closed_loop(horizon=8, process=True)``, an outage and recovery,
+   ``drive_closed_loop(horizon=HORIZON, process=True)``, an outage and
+   recovery,
    ``set_link_budgets(scale=0.6)`` and ``shift_semantics(scale=0.8)``,
    counts zeroed before and read after (one ``batch_solve`` launch a
    re-slice, K3 on the vision jobs): decisions equal at every tick,
    ``shard_replans == fresh_stacks``, the twin's session counters, a
    steady tick with no dirty row, replan or second launch; re-slice ms a
    tick for both and one steady metro tick under ``torch.profiler``;
-13. SLICE 8'S MAIN PATH (run after phase 9): recurrentgemma-9b,
-   rwkv6-1.6b and whisper-tiny at full width and depth, mixtral-8x7b and
-   qwen3-moe-235b-a22b at the most layers whose bf16 weights fit the
-   card's free memory beside a 16 GiB reserve (their whole weights do
-   not fit), all widths as published, bf16, random weights
-   from a seeded generator on the card, one model at a time. The four
+13. SLICE 8'S MAIN PATH (run after phase 9): recurrentgemma-9b and
+   whisper-tiny at full width and depth, mixtral-8x7b and
+   qwen3-moe-235b-a22b at most at the layers whose bf16 weights fit the
+   card's free memory beside a 16 GiB reserve (their whole weights do not
+   fit), all widths as published, bf16, random weights from a seeded
+   generator on the card, one model at a time; since slice 17 mixtral,
+   qwen3-moe and rwkv6-1.6b at ``SLICE8_LAYERS``' 8, 4 and 8 layers for
+   the script's time. The four
    token-only configs serve phase 9's engine path (K4 launches per LM
-   batch: qwen3 8, all on the tensor-core kernel; the "local", "rec" and
+   batch: qwen3 a layer, all on the tensor-core kernel; the "local", "rec" and
    "rwkv" configs 0); each config's ``prefill`` at B = 2, T = 2048
    (whisper: 1500 frames of seeded stub embeddings and 448 tokens) through
-   K4 (qwen3 8 launches, whisper 12: 4 encoder, 4 decoder self-, 4
+   K4 (qwen3 a launch a layer, whisper 12: 4 encoder, 4 decoder self-, 4
    cross-attention; the others 0) against its plain-attention twin within
    phase 9's bf16 tolerances (each block of the twin on the K4 run's
    input to it), logits finite. An MoE twin takes the K4 run's experts;
@@ -170,8 +177,9 @@ kernel of those paths against its plain PyTorch version:
    whole run's) are printed;
 14. SLICE 9'S MAIN PATH, decode (on chatglm3-6b's weights after phase 9,
    on each of phase 13's five models after its prefill checks, then on
-   gemma3-12b at full width and depth, bf16, seed 0: 5 local layers with
-   a 1024 window to 1 global, so a 2048-token prompt wraps its ring):
+   gemma3-12b at full width and ``DECODE_GEMMA_LAYERS`` (12) layers, bf16,
+   seed 0: 5 local layers with a 1024 window to 1 global, so a 2048-token
+   prompt wraps its ring):
    ``prefill`` at B = 2, T = 2048 (whisper: 416 tokens after its 1500
    frames) with ``cache_len`` T + 32, then 32 teacher-forced
    ``decode_step``s, counts zeroed just before and read just after (K4
@@ -201,6 +209,8 @@ kernel of those paths against its plain PyTorch version:
    over 100 at Dh 256) in bf16, and (2, 512, 8/2, 64), (2, 333, 4/4,
    320), (1, 40 over 100, 4/2, 320) and slice 12's ``train_lm`` (8, 256,
    12/4, 64, causal), chatglm3-6b's and the whisper encoder's in float32,
+   and slice 17's granite-34b (2, 2048, 48/1, 128) and chameleon-34b (2,
+   2048, 64/8, 128), causal, in bf16,
    element by element, each route given its own K4's LSE: every bf16
    shape with Dh % 8 == 0 and Dh <= 256 on both routes — the tensor-core
    kernel (``csrc/flash_attn_bwd_tc.cu``, the route) within
@@ -209,14 +219,16 @@ kernel of those paths against its plain PyTorch version:
    ``K4B_F32_TOL`` (float32 again given the plain LSE); on each route a
    repeat bit for bit and a launch a pass (3 on both); once through
    ``FlashAttention``'s backward, bit for bit the direct call's given the
-   same LSE; at ``K4B_TIMED``'s shapes (chatglm3-6b's, gemma3-12b's, the
-   whisper encoder's in bf16; train_lm's, chatglm3-6b's and the whisper
-   encoder's in float32), on each route, ms a call and device µs by
+   same LSE; at ``K4B_TIMED``'s shapes (chatglm3-6b's, gemma3-12b's,
+   granite-34b's, chameleon-34b's and the whisper encoder's in bf16;
+   train_lm's, chatglm3-6b's and the whisper encoder's in float32), on
+   each route, ms a call and device µs by
    pass, the plain version and SDPA's backward beside the bound, K4's
    forward beside SDPA's forward and its bound, and the kernels and SDPA
    in turn (median, least and largest over 5 repeats); at every shape
    each route's K4 LSE within ``K4_LSE_TOL`` of the plain version's;
-16. SLICE 10's gradient check (after phase 14): chatglm3-6b at 4 layers,
+16. SLICE 10's gradient check (after phase 14; slice 17's configs in
+   phase 24): chatglm3-6b at 4 layers,
    full width, bf16, B = 2, T = 2048, remat on, ``loss_and_grads`` on a
    ``TokenStream`` batch through K4 and K4′ (2 and 3 launches a layer,
    K4′'s all on its tensor-core route) against a twin whose attention is
@@ -254,12 +266,12 @@ kernel of those paths against its plain PyTorch version:
    bit as the same driver on the CPU), ``slicing_demo`` (the re-slice's K1
    and the frames' K3 launched), ``serve_edge --arch chatglm3-6b`` (K1,
    K3 and K4, each K4 call held against its plain version on its own
-   inputs, ``K4Checked``), then ``train_lm --params-100m --steps 300``
+   inputs, ``K4Checked``), then ``train_lm --params-100m --steps 100``
    with and without ``--full-attention`` (the loss's last value below its
    first and the mean of its last 10 below that of its first 10; K4 and
    K4′ launched in the full-attention run; its first loss and last-10
    mean within ``EXAMPLE_FIRST_TOL`` and ``EXAMPLE_LAST10_TOL`` of the
-   banded run's), and the full-attention run crashed at step 150 and
+   banded run's), and the full-attention run crashed at step 50 and
    resumed from its checkpoint, every K4 and K4′ call of the two held
    against its plain version on its own inputs as it returns
    (``K4Checked``, ``K4BChecked``; phase 8's and 15's tolerances), ending
@@ -267,8 +279,8 @@ kernel of those paths against its plain PyTorch version:
    mean and ms a step printed beside the card's name and power limit;
 20. SLICE 12, THE MESH FORMS on a one-rank NCCL group (``DeviceMesh``
    (1, 1) over ``data`` and ``model``, TCPStore on 127.0.0.1): two mesh
-   train steps of chatglm3-6b at full width and 4 layers in bf16 (B = 2,
-   T = 2048) with the compute and ZeRO layouts (``param_shardings(...,
+   train steps of chatglm3-6b at full width and ``MESH_LAYERS`` layers in
+   bf16 (B = 2, T = 2048) with the compute and ZeRO layouts (``param_shardings(...,
    extra_batch_dim=True)``) against the meshless step on the same weights
    and batches (loss, grad norm and parameters bit for bit, K4 and K4′
    launched as often); one qwen3-moe MoE layer at full width through the
@@ -323,14 +335,34 @@ kernel of those paths against its plain PyTorch version:
    the step as ``build_cell(optimized=True)`` builds it, each rank's
    expert bytes 1/4 of the whole, and the same checks; (c) the decode
    cache split by sequence (``seq_kv`` → ``model``): chatglm3-6b at full
-   width over (1, 2) and (1, 4), a B = 2, T = 2048 prefill (K4 28
-   launches a rank, each call held) and 4 decode steps, the logits within
+   width and ``TP_SERVING_LAYERS`` layers over (1, 2) and (1, 4), a B = 2,
+   T = 2048 prefill (K4 a launch a layer a rank, each call held) and 4
+   decode steps, the logits within
    ``PREFILL_LOGIT_TOL`` of meshless, the cache's bytes a rank beside the
    heads' layout; at 2 processes also gemma3-12b at one repeat of its
    pattern, whose 1024-slot rings wrap in the prefill; (d) the dry run's
    count of (a)'s tp = 2 step (``dryrun_check`` under the SP rules): its
    predicted peak within 0.8–1.25× of rank 0's measured one. Times are
-   gloo's copies through host memory: not a multi-card number.
+   gloo's copies through host memory: not a multi-card number;
+24. SLICE 17'S MAIN PATH (run after phase 10): the three configs no
+   earlier phase runs, at full width in bf16 from a seeded generator on
+   the card — granite-34b (MQA, 48 query heads on one KV head) and
+   chameleon-34b (qk-norm, 64 on 8) at the most layers whose bf16 weights
+   fit beside ``SLICE8_RESERVE``, h2o-danube-3-4b (Dh 120, every layer
+   sliding-window at 4096) whole — each through phase 13's engine and
+   prefill against its plain-attention twin (K4 a full-attention layer a
+   LM batch and a prefill, every call held; h2o-danube 0) and phase 14's
+   32 decode steps and float32 two-repeat checks; then slice 10's
+   training on granite-34b, chameleon-34b, h2o-danube-3-4b and
+   whisper-tiny (4 encoder and 4 decoder layers, 448 tokens over 1500
+   frames): the gradient check against ``PlainAttention`` at
+   ``SLICE17_CHECK`` layers (whisper whole; skipped, with the reason
+   printed, for h2o-danube, whose plain twin is the same function), then
+   ``GEMMA_TRAIN_STEPS`` steps at the fitting depth beside
+   ``GEMMA_TRAIN_RESERVE``, K4 and K4′ launched exactly as the config's
+   layers say (``train_launches``; h2o-danube 0 and 0), all on the
+   tensor cores, and one more step with every K4′ call held
+   (``K4BChecked``, its references a block of query heads at a time).
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -349,6 +381,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside
 # the tensor cores — the roof each kernel's bound is taken against
@@ -358,9 +391,11 @@ F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
 N_CELLS, N_DOMAINS, BACKHAUL_PER_CELL = 256, 32, 1.2
-HORIZON = 8
+# the closed loop's steps in phases 6 and 12 (8 before slice 17: cut to
+# keep the script, with phase 24, inside its time limit)
+HORIZON = 4
 # standing load per cell: seats every cell in the 64-slot bucket on the
-# first tick, so the 8-step closed loop never outgrows its device session
+# first tick, so the closed loop never outgrows its device session
 STANDING = 33
 SHAPES = ((128, 128), (640, 640), (1024, 2048))
 K3_ZS = (0.04, 0.25, 0.5, 1.0)
@@ -400,7 +435,11 @@ K4_SHAPES = ((8, 16, 16, 32, 2, 128, True), (2, 2048, 2048, 32, 2, 128, True),
              # axis — tp = 2 (its 2 KV heads split, one a rank; the train
              # step's LSE too) and tp = 4 (one whole KV head a rank)
              (2, 2048, 2048, 16, 1, 128, True),
-             (2, 2048, 2048, 8, 1, 128, True))
+             (2, 2048, 2048, 8, 1, 128, True),
+             # slice 17: granite-34b (48 query heads on one KV head) and
+             # chameleon-34b (64 on 8) at T = 2048
+             (2, 2048, 2048, 48, 1, 128, True),
+             (2, 2048, 2048, 64, 8, 128, True))
 # K4 heads wider than the tensor-core tiles (route: the CUDA-core kernel's
 # Dh <= 512 tile, in both types)
 K4_WIDE_SHAPES = ((2, 77, 77, 8, 4, 320, True), (1, 40, 100, 4, 2, 320, False))
@@ -444,13 +483,18 @@ K4B_SHAPES = ((2, 2048, 2048, 32, 2, 128, True, "bfloat16"),
               # slice 16: the CUDA-core route in float32 at chatglm3-6b's
               # and the whisper-tiny encoder's shapes
               (2, 2048, 2048, 32, 2, 128, True, "float32"),
-              (2, 1500, 1500, 6, 6, 64, False, "float32"))
-# the K4′ shapes phase 15 times: chatglm3-6b's and gemma3-12b's training
-# shapes, the whisper-tiny encoder, and the float32 ones of train_lm,
-# chatglm3-6b and the whisper encoder (with K4's forward and SDPA's
-# forward and backward beside each)
+              (2, 1500, 1500, 6, 6, 64, False, "float32"),
+              # slice 17: granite-34b's training shape (48 query heads on
+              # one KV head: K4′'s dK/dV pass in bwd_groups(48) = 4 groups
+              # of 12) and chameleon-34b's (64 on 8)
+              (2, 2048, 2048, 48, 1, 128, True, "bfloat16"),
+              (2, 2048, 2048, 64, 8, 128, True, "bfloat16"))
+# the K4′ shapes phase 15 times: chatglm3-6b's, gemma3-12b's, granite-34b's
+# and chameleon-34b's training shapes, the whisper-tiny encoder, and the
+# float32 ones of train_lm, chatglm3-6b and the whisper encoder (with K4's
+# forward and SDPA's forward and backward beside each)
 K4B_TIMED = (K4B_SHAPES[0], K4B_SHAPES[1], K4B_SHAPES[2], K4B_SHAPES[7],
-             K4B_SHAPES[13], K4B_SHAPES[14])
+             K4B_SHAPES[13], K4B_SHAPES[14], K4B_SHAPES[15], K4B_SHAPES[16])
 # K4′ against its plain version in float32 on the same inputs, element by
 # element: |out - ref| <= a |ref| + b rms(ref's row over Dh) + c rms(ref).
 # bfloat16 (a, b, c) = (2^-7, 2^-10, 2^-16): a is twice the outputs'
@@ -523,6 +567,18 @@ SLICE8 = (("recurrentgemma-9b", False), ("rwkv6-1.6b", False),
           ("whisper-tiny", False), ("mixtral-8x7b", True),
           ("qwen3-moe-235b-a22b", True))
 SLICE8_RESERVE = 16 * 2 ** 30
+# the most layers phase 13 (and 14's decode on its weights) runs of a
+# config, below its fitting or full depth, cut since slice 17 to keep the
+# script, with phase 24, inside its time limit: qwen3-moe's dense MoE runs
+# all 128 experts a layer at every decode step (280 ms a step at 12
+# layers on an H100, 44 s of phase 14's 121.5), mixtral's 22 fitting layers
+# took 14.4 s of decode, rwkv6's 24 layers (its WKV a Python loop) 14.3 s
+# and 1.9 s a prefill
+SLICE8_LAYERS = {"qwen3-moe-235b-a22b": 4, "mixtral-8x7b": 8,
+                 "rwkv6-1.6b": 8}
+# phase 14's gemma3-12b: two repeats of its pattern (5 local layers to 1
+# global, the rings wrapped by the prompt), of 48 since slice 17
+DECODE_GEMMA_LAYERS = 12
 # whisper-tiny's prefill: 1500 encoder frames (30 s of audio) and its
 # longest target, 448 decoder tokens
 WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
@@ -554,23 +610,26 @@ DECODE_CLAMP_TOL = 1e-4
 # pieces), and allocator slack
 TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "chatglm3-6b", 2, 2048, 6
 TRAIN_BYTES_PER_PARAM, TRAIN_RESERVE = 12, 6 * 2 ** 30
-# slice 12: the examples' training run (the reference's own driver and
-# step count), crashed halfway and resumed; the mesh train step's depth
-EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 300, 150
+# slice 12: the examples' training run (the reference's own driver; 60
+# of its 300 steps since slice 17, for the script's time limit), crashed
+# halfway and resumed; the mesh train step's depth
+EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 60, 30
 # train_lm at T = 256 under a window of 256: the banded run and the
 # full-attention run (K4, K4′) compute the same function on the same
 # weights, so their first losses agree within EXAMPLE_FIRST_TOL and their
 # last-10 means within EXAMPLE_LAST10_TOL (the predictions written before
 # their first card run, PERF.md; it measured 0 and 0.0018)
 EXAMPLE_FIRST_TOL, EXAMPLE_LAST10_TOL = 1e-4, 0.05
-MESH_LAYERS, MESH_STEPS = 4, 2
+# the mesh train steps' depth (phases 20, 21 and 23; 4 before slice 17)
+MESH_LAYERS, MESH_STEPS = 2, 2
 # phase 21: tensor parallelism over processes that share the card (a gloo
 # group each); the train part at the first size; a rank's join limit; the
-# serving part's depth: 8 of chatglm3-6b's 28 layers (cut to keep the
+# serving part's depth: 4 of chatglm3-6b's 28 layers (cut to keep the
 # script's gloo phases, which vary 1.5x with the host, well inside its
-# time limit; phase 23 serves all 28 over the same groups)
+# time limit: 8 before slice 17, which also cut phase 23's seq_kv serving
+# from 28 to this depth)
 TP_SIZES, TP_DECODE_STEPS, TP_JOIN_S = (2, 4), 4, 600
-TP_SERVING_LAYERS = 8
+TP_SERVING_LAYERS = 4
 MOE_ARCH, MOE_OUT_TOL = "qwen3-moe-235b-a22b", 1e-2
 # phase 23 (slice 14), over the same gloo groups: Megatron-SP's rules (the
 # reference's optimized train cells), the sequence-split decode cache's
@@ -609,6 +668,21 @@ TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-3, 1e-2
 # K4BChecked's held step), GEMMA_TRAIN_STEPS steps
 GEMMA_ARCH, GEMMA_CHECK_LAYERS, GEMMA_TRAIN_STEPS = "gemma3-12b", 6, 3
 GEMMA_TRAIN_RESERVE = 16 * 2 ** 30
+# slice 17: the three configs no earlier phase runs — granite-34b (MQA, 48
+# query heads on one KV head), chameleon-34b (qk-norm, 64 on 8) and
+# h2o-danube-3-4b (Dh 120, every layer sliding-window) — served, decoded
+# and trained as slices 8-10 do, (name, cut) as SLICE8 (granite's 88
+# layers and chameleon's 48 are 94.5 and 68.5 GB of bf16 weights); then
+# whisper-tiny's encoder-decoder trained on WHISPER_TOKENS decoder tokens
+# over WHISPER_FRAMES frames. The gradient checks run at SLICE17_CHECK
+# layers (whisper: its whole 4 and 4); the main paths at the fitting depth
+# beside GEMMA_TRAIN_RESERVE (the held step's float64 references, a block
+# of query heads at a time, ``k4b_refs``), GEMMA_TRAIN_STEPS steps
+SLICE17 = (("granite-34b", True), ("chameleon-34b", True),
+           ("h2o-danube-3-4b", False))
+SLICE17_TRAIN = ("granite-34b", "chameleon-34b", "h2o-danube-3-4b",
+                 "whisper-tiny")
+SLICE17_CHECK = 2
 
 
 def log(*args):
@@ -2558,6 +2632,57 @@ def k4b_rss(q, k, v, out, dout, causal):
     return dq.reshape(q.shape), dk, dv
 
 
+def k4b_refs(q, k, v, out, dout, causal, tc):
+    """One K4′ call's references on its own inputs, each (dq, dk, dv) whole:
+    the plain version in float32 and in float64, ``k4b_terms`` and, on the
+    tensor-core route (``tc``), ``k4b_rss`` (else Nones). In one piece where
+    the call's scores have at most ``K4_REF_WHOLE`` elements; else a batch
+    row, a KV head and a block of its query heads at a time, a block's
+    scores at most ``K4_REF_WHOLE`` (a float64 score tensor of granite-34b's
+    whole call is 3.2 GB), dk and dv summed over the blocks and the
+    root-sum-square the root of the summed squares."""
+    import torch
+    from repro_torch.kernels.attn import attn as PA
+    b, tq, hq, _ = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+
+    def refs(*ins):
+        return (PA.flash_attention_bwd_ref(*(t.float() for t in ins),
+                                           causal=causal),
+                PA.flash_attention_bwd_ref(*(t.double() for t in ins),
+                                           causal=causal),
+                k4b_terms(*ins, causal),
+                k4b_rss(*ins, causal) if tc else (None,) * 3)
+    if b * hq * tq * tk <= K4_REF_WHOLE:
+        return refs(q, k, v, out, dout)
+    per = max(1, min(g, K4_REF_WHOLE // (tq * tk)))
+    whole = [[torch.zeros(t.shape, dtype=dt, device=q.device)
+              for t in (q, k, v)]
+             for dt in (torch.float32, torch.float64, torch.float64)
+             + ((torch.float64,) if tc else ())]
+    for i in range(b):
+        for h in range(hkv):
+            kv = (slice(i, i + 1), slice(None), slice(h, h + 1))
+            for j in range(0, g, per):
+                rows = (slice(i, i + 1), slice(None),
+                        slice(h * g + j, h * g + min(g, j + per)))
+                got = refs(q[rows], k[kv], v[kv], out[rows], dout[rows])
+                for n, acc in enumerate(whole):
+                    dq, dk, dv = got[n]
+                    if n == 3:
+                        dq, dk, dv = dq.pow(2), dk.pow(2), dv.pow(2)
+                    acc[0][rows] = dq
+                    acc[1][kv] += dk
+                    acc[2][kv] += dv
+                del got
+    if tc:
+        whole[3] = [x.sqrt() for x in whole[3]]
+    else:
+        whole.append((None,) * 3)
+    return tuple(tuple(x) for x in whole)
+
+
 def k4b_terms_excess(out, ref64, terms, tol, rss=None) -> float:
     """K4′'s error against ``ref64`` (its plain version in float64) as a
     share of ``tol`` (a, b, c) plus ``K4B_TERMS`` of the element's
@@ -2585,9 +2710,9 @@ class K4BChecked:
     (``k4b_terms_excess``). ``phase15`` is the largest share of phase
     15's tolerance against the float32 plain version, as phase 15 holds
     unit normals (reported, not held), and ``over`` the calls beyond it.
-    The references materialize a call's scores: for the examples' small
-    training shapes and phase 23's per-rank heads (at tp = 2, 1 GiB a
-    float64 score tensor). ``calls``, ``worst`` and ``check_s`` as in
+    The references (``k4b_refs``) materialize a call's scores in one piece
+    for the examples' small training shapes, and a block of query heads
+    at a time at T = 2048. ``calls``, ``worst`` and ``check_s`` as in
     :class:`K4Checked`; ``launches`` the kernel passes the checked calls
     made (``BWD_PASSES`` a call on its route)."""
 
@@ -2605,18 +2730,12 @@ class K4BChecked:
             route = PA.route(q.dtype, q.shape[-1])
             tol = K4B_TC_TOL if route == "tensor_cores" else K4B_F32_TOL \
                 if q.dtype == torch.float32 else K4B_BF16_TOL
-            ins = (q, k, v, out, dout)
-            plain = PA.flash_attention_bwd_ref(*(t.float() for t in ins),
-                                               causal=causal)
-            ref64 = PA.flash_attention_bwd_ref(*(t.double() for t in ins),
-                                               causal=causal)
+            plain, ref64, terms, rss = k4b_refs(
+                q, k, v, out, dout, causal, route == "tensor_cores")
             old = max(k4b_excess(g, p, tol) for g, p in zip(got, plain))
             self.phase15 = max(self.phase15, old)
             self.over += old > 1.0
             del plain
-            terms = k4b_terms(*ins, causal)
-            rss = k4b_rss(*ins, causal) if route == "tensor_cores" \
-                else (None,) * 3
             self.worst = max([self.worst] + [
                 k4b_terms_excess(g, r, m, tol, e)
                 for g, r, m, e in zip(got, ref64, terms, rss)])
@@ -2701,6 +2820,25 @@ def attention_layers(cfg) -> tuple[int, int]:
     return dec, dec
 
 
+def train_launches(cfg) -> tuple[int, int]:
+    """(K4 launches, K4′ calls) of one training step of ``cfg``, from its
+    layers: a K4 call a full-attention layer (the decoder's "attn" layers;
+    an encoder-decoder's encoder layers and a cross-attention a decoder
+    layer), and a K4′ call each. Under remat (``models/model.py::
+    _maybe_remat``) every checkpointed body — an encoder layer, a repeat
+    of the decoder's pattern — runs its K4 calls again in the backward;
+    the remainder layers are not checkpointed. Sliding-window ("local")
+    layers take the banded plain path: no K4, no K4′."""
+    reps = cfg.block_pattern * cfg.n_repeats
+    rem = cfg.remainder_kinds
+    body = sum(k == "attn" for k in reps)
+    tail = sum(k == "attn" for k in rem)
+    if cfg.is_encdec:
+        body += cfg.encoder_layers + len(reps)
+        tail += len(rem)
+    return (2 if cfg.remat else 1) * body + tail, body + tail
+
+
 def fitting_depth(cfg, free: int, bytes_per_param: int = 2,
                   reserve: int = SLICE8_RESERVE):
     """``cfg`` at the most layers (whole repeats of its block pattern, up to
@@ -2743,19 +2881,30 @@ def phase_slice8(dev, archs=SLICE8, decode=None):
         full = cfg.n_layers
         if cut:
             cfg = fitting_depth(cfg, free)
+        fits, fit_gb = cfg.n_layers, cfg.param_count() * 2 / 1e9
+        if SLICE8_LAYERS.get(name, fits) < fits:
+            cfg = dataclasses.replace(cfg, n_layers=SLICE8_LAYERS[name])
         weights = cfg.param_count() * 2
+        why = []
+        if cut:
+            why.append(f"the full model's bf16 weights, "
+                       f"{get_config(name).param_count() * 2 / 1e9:.1f} GB, "
+                       f"do not fit the card; {fits} layers, {fit_gb:.1f} "
+                       f"GB, are the most that fit its {free / 2**30:.2f} "
+                       f"GiB free beside a {SLICE8_RESERVE / 2**30:.0f} GiB "
+                       "reserve")
+        if cfg.n_layers < fits:
+            why.append(f"cut to {cfg.n_layers} ({weights / 1e9:.1f} GB) for "
+                       "the script's time")
         log(f"[slice8] {name}: {cfg.n_layers} of {full} layers"
-            + (f" (depth cut: the full model's bf16 weights, "
-               f"{get_config(name).param_count() * 2 / 1e9:.1f} GB, do not "
-               f"fit the card; {cfg.n_layers} layers, {weights / 1e9:.1f} "
-               f"GB, are the most that fit its {free / 2**30:.2f} GiB free "
-               f"beside a {SLICE8_RESERVE / 2**30:.0f} GiB reserve; widths "
-               "unchanged)" if cut else ", full depth"))
+            + (f" (depth cut: {'; '.join(why)}; widths unchanged)" if why
+               else ", full depth"))
         k4_dec, k4_all = attention_layers(cfg)
         torch.cuda.reset_peak_memory_stats()
         params = lm_model(dev, cfg)
         row = dict(layers=cfg.n_layers, full_layers=full,
-                   params_b=cfg.param_count() / 1e9, free_gib=free / 2**30)
+                   fitting_layers=fits, params_b=cfg.param_count() / 1e9,
+                   free_gib=free / 2**30)
         try:
             if not cfg.is_encdec:
                 launches, _ = phase_lm_serving(dev, cfg, params,
@@ -3163,25 +3312,35 @@ def leaf_rms(w) -> float:
 
 
 def train_batch(dev, cfg, b, t, step=0):
-    """``TokenStream`` batch ``step`` (seed 0) on ``dev``."""
+    """``TokenStream`` batch ``step`` (seed 0) on ``dev``; an
+    encoder-decoder's also carries (b, WHISPER_FRAMES, d_model) frame
+    embeddings from a generator seeded by the step (``models/model.py::
+    _frames`` encodes them)."""
     import torch
     from repro_torch.data import DataConfig, TokenStream
     data = TokenStream(DataConfig(global_batch=b, seq_len=t,
                                   vocab_size=cfg.vocab_size, seed=0))
-    return {k: torch.from_numpy(v).to(dev)
-            for k, v in data.batch(step).items()}
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(step).items()}
+    if cfg.is_encdec:
+        batch["enc_input"] = torch.randn(
+            (b, WHISPER_FRAMES, cfg.d_model), device=dev,
+            generator=torch.Generator(dev).manual_seed(8 + step))
+    return batch
 
 
 def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
-    """The slice's step at full width, gradient check: ``cfg`` (by default
+    """The training step at full width, gradient check: ``cfg`` (by default
     chatglm3-6b at ``TRAIN_CHECK_LAYERS`` layers; gemma3-12b at
-    ``GEMMA_CHECK_LAYERS``), bf16, remat on, one ``TokenStream``
-    batch: ``loss_and_grads`` through K4 and K4′ (2 launches a
-    full-attention layer, at least one such layer, and K4′'s passes on its
-    route for the config: the tensor cores, 3, given K4's LSE) against a
-    twin whose attention is K4's plain version with autograd
-    (``PlainAttention``), each gradient leaf's rms difference within
-    ``TRAIN_GRAD_TOL`` of its rms (``leaf_rms``); then one
+    ``GEMMA_CHECK_LAYERS``; slice 17's configs at ``SLICE17_CHECK`` and
+    whisper-tiny whole), bf16, one ``TokenStream`` batch (an
+    encoder-decoder's with ``WHISPER_FRAMES`` frames, ``train_batch``):
+    ``loss_and_grads`` through K4 and K4′, launched as often as the config's
+    layers say (``train_launches``: at least one full-attention layer; K4′'s
+    passes on its route for the config: the tensor cores, 3, given K4's
+    LSE), against a twin whose attention is K4's plain version with
+    autograd (``PlainAttention``), each gradient leaf's rms difference
+    within ``TRAIN_GRAD_TOL`` of its rms (``leaf_rms``); then one
     ``make_train_step`` step on each side from the same weights: loss,
     grad_norm and lr agree."""
     import dataclasses
@@ -3193,7 +3352,7 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     t0 = time.perf_counter()
     cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH),
                                      n_layers=TRAIN_CHECK_LAYERS, remat=True)
-    layers = attention_layers(cfg)[1]
+    want, layers = train_launches(cfg)
     if layers == 0:
         raise AssertionError(f"{cfg.name} at {cfg.n_layers} layers has no "
                              "full-attention layer: K4 and K4′ would not "
@@ -3206,12 +3365,12 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     loss, _, grads = loss_and_grads(params, batch, cfg)
     torch.cuda.synchronize()
     fwd, bwd = PA.FLASH_KERNEL.launches, PA.FLASH_BWD_KERNEL.launches
-    if fwd != 2 * layers or bwd != PA.BWD_PASSES[route] * layers \
+    if fwd != want or bwd != PA.BWD_PASSES[route] * layers \
             or k4b_kernel(route).launches != bwd:
         raise AssertionError(f"train grads: K4 {fwd} and K4′ {bwd} launches "
                              f"({k4b_kernel(route).launches} on the {route} "
-                             f"route) for {layers} attention layers under "
-                             "remat")
+                             f"route); {want} and {layers} calls expected of "
+                             f"{cfg.name}'s layers (remat {cfg.remat})")
     with PlainAttention():
         tloss, _, tgrads = loss_and_grads(params, batch, cfg)
         torch.cuda.synchronize()
@@ -3247,7 +3406,8 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
                           "batch" if path == "/embed" else "") + ")")
         worst_rms, worst_max = max(worst_rms, r_rms), max(worst_max, r_max)
     for path, r_rms, r_max in sorted(rows, key=lambda r: -r[1])[:4]:
-        log(f"[train]   {path}: rms {r_rms:.4f}, max {r_max:.4f} of its rms")
+        log(f"[train]   {cfg.name} {path}: rms {r_rms:.4f}, max "
+            f"{r_max:.4f} of its rms")
     if bad:
         raise AssertionError("train grads: differ from the twin's: "
                              + "; ".join(bad))
@@ -3279,9 +3439,10 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
             or abs(got["grad_norm"] - want["grad_norm"]) > TRAIN_NORM_RTOL \
             * abs(want["grad_norm"]):
         raise AssertionError(f"train step: {got} against the twin's {want}")
-    log(f"[train] one make_train_step step each: loss {got['loss']:.6f} / "
-        f"{want['loss']:.6f}, grad_norm {got['grad_norm']:.6f} / "
-        f"{want['grad_norm']:.6f}, lr {got['lr']:.3g} / {want['lr']:.3g} "
+    log(f"[train] {cfg.name}, one make_train_step step each: loss "
+        f"{got['loss']:.6f} / {want['loss']:.6f}, grad_norm "
+        f"{got['grad_norm']:.6f} / {want['grad_norm']:.6f}, lr "
+        f"{got['lr']:.3g} / {want['lr']:.3g} "
         f"(K4 / twin); phase {time.perf_counter() - t0:.1f} s")
     del params
     gc.collect()
@@ -3326,21 +3487,24 @@ def train_step_groups(kern: dict) -> dict:
 def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS,
                 arch=TRAIN_ARCH, reserve=TRAIN_RESERVE, held=False):
     """SLICE 10'S MAIN PATH: ``make_train_step`` on ``arch`` (chatglm3-6b;
-    slice 15's gemma3-12b) at full width and the fitting depth
+    slice 15's gemma3-12b; slice 17's granite-34b, chameleon-34b,
+    h2o-danube-3-4b and whisper-tiny) at full width and the fitting depth
     (``fitting_depth`` at 12 bytes a parameter beside ``reserve``), bf16,
     remat on, ``OptConfig(warmup_steps=1)``, ``TokenStream(global_batch=2,
-    seq_len=2048)``, ``steps`` steps, the counts zeroed just before and read
-    just after: loss and grad_norm finite at every step, K4 2 launches a
-    full-attention layer a step (the forward and remat's recompute, all on
-    the tensor-core kernel, writing the LSE), K4′ its passes a layer a
-    step, all on its tensor-core route (3). Reports s a step, tokens/s, peak
-    memory, one more step's two halves (``loss_and_grads``,
-    ``opt_update``) timed apart, the busy share, K4′'s share and the device
-    time by kind of a step (``torch.profiler`` over one more step) and the
-    step's bound (8 × parameters × tokens at the bf16 peak). With ``held``,
-    one more step under ``K4BChecked``: every K4′ call of it held against
-    the plain version on its own inputs, the checked launches those
-    counted."""
+    seq_len=t)`` (an encoder-decoder's batches with their frames,
+    ``train_batch``), ``steps`` steps, the counts zeroed just before and
+    read just after: loss and grad_norm finite at every step, K4 and K4′
+    launched exactly as the config's layers say (``train_launches``: a K4
+    call a full-attention layer a step, twice under remat, all on the
+    tensor-core kernel, writing the LSE; a K4′ call each, its passes on its
+    tensor-core route; none where every layer is sliding-window). Reports
+    s a step, tokens/s, peak memory, one more step's two halves
+    (``loss_and_grads``, ``opt_update``) timed apart, the busy share, K4′'s
+    share and the device time by kind of a step (``torch.profiler`` over
+    one more step) and the step's bound (8 × parameters × tokens at the
+    bf16 peak). With ``held``, one more step under ``K4BChecked``: every
+    K4′ call of it held against the plain version on its own inputs, the
+    checked launches those counted."""
     import dataclasses
     import math
     import torch
@@ -3361,7 +3525,7 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS,
         cfg = fitting_depth(dataclasses.replace(get_config(arch),
                                                 remat=True), free,
                             TRAIN_BYTES_PER_PARAM, reserve)
-    layers = attention_layers(cfg)[1]
+    want, layers = train_launches(cfg)
     route = PA.route(torch.bfloat16, cfg.d_head)
     params = lm_model(dev, cfg)
     state = opt_init(params)
@@ -3371,8 +3535,8 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS,
         f"{get_config(cfg.name).n_layers}): {n_params / 1e9:.3f} B "
         f"parameters, training state {n_params * TRAIN_BYTES_PER_PARAM / 1e9:.2f}"
         f" GB (12 bytes a parameter) of {free / 2 ** 30:.2f} GiB free, "
-        f"reserve {reserve / 2 ** 30:.0f} GiB; {layers} full-attention "
-        "layers")
+        f"reserve {reserve / 2 ** 30:.0f} GiB; K4 {want} and K4′ {layers} "
+        "calls a step expected of its layers")
     opt = OptConfig(warmup_steps=1)
     step = make_train_step(cfg, opt)
     batches = [train_batch(dev, cfg, b, t, s) for s in range(steps)]
@@ -3394,11 +3558,12 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS,
     for s, m in enumerate(history):
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
             raise AssertionError(f"train step {s}: {m}")
-        log(f"[train] step {s}: loss {m['loss']:.4f}, grad_norm "
+        log(f"[train] {cfg.name} step {s}: loss {m['loss']:.4f}, grad_norm "
             f"{m['grad_norm']:.4f}, lr {m['lr']:.3g}, {secs[s]:.3f} s")
-    if fwd != 2 * layers * steps or tc != fwd:
+    if fwd != want * steps or tc != fwd:
         raise AssertionError(f"train: K4 launched {fwd} times ({tc} on the "
-                             f"tensor cores), not 2 x {layers} x {steps}")
+                             f"tensor cores), not {want} x {steps} "
+                             f"({cfg.name}'s layers, remat {cfg.remat})")
     if bwd != PA.BWD_PASSES[route] * layers * steps \
             or bwd_routes[route] != bwd:
         raise AssertionError(f"train: K4′ launched {bwd_routes} times, not "
@@ -3413,8 +3578,8 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS,
     torch.cuda.synchronize()
     split = (t1 - t0, time.perf_counter() - t1)
     del grads
-    log(f"[train] a step's halves: loss_and_grads {split[0]:.3f} s, "
-        f"opt_update {split[1]:.3f} s")
+    log(f"[train] {cfg.name}, a step's halves: loss_and_grads "
+        f"{split[0]:.3f} s, opt_update {split[1]:.3f} s")
     wall_us, kern, count = profile_call(
         lambda: step(params, state, batches[0]), f"train step {cfg.name} "
         f"{cfg.n_layers} layers", warm=False)
@@ -3423,8 +3588,8 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS,
               and "_kernel" in name)
     k4 = sum(us for name, us in kern.items() if "flash_tc_kernel" in name)
     groups = train_step_groups(kern)
-    log("[train] the traced step's device time by kind: " + ", ".join(
-        f"{g} {us / 1e3:.1f} ms" for g, us in groups.items()))
+    log(f"[train] {cfg.name}, the traced step's device time by kind: "
+        + ", ".join(f"{g} {us / 1e3:.1f} ms" for g, us in groups.items()))
     checked = None
     if held:
         before = PA.FLASH_BWD_KERNEL.launches
@@ -3437,20 +3602,21 @@ def phase_train(dev, cfg=None, b=TRAIN_B, t=TRAIN_T, steps=TRAIN_STEPS,
         if kc.calls != layers or kc.launches != n_l:
             raise AssertionError(f"train: {kc.calls} K4′ calls checked "
                                  f"({kc.launches} launches) of {n_l} "
-                                 f"launches, {layers} full-attention layers")
+                                 f"launches, {layers} calls expected")
         checked = dict(calls=kc.calls, launches=kc.launches,
                        worst=kc.worst, phase15_share=kc.phase15,
                        over_phase15=kc.over, without_rss=kc.no_rss,
                        check_s=kc.check_s,
                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-        log(f"[train] the held step's peak {checked['peak_gib']:.2f} GiB, "
-            f"its checks {kc.check_s:.1f} s")
+        log(f"[train] {cfg.name}, the held step's peak "
+            f"{checked['peak_gib']:.2f} GiB, its checks {kc.check_s:.1f} s")
     steady = sorted(secs[1:])[len(secs[1:]) // 2]
     tokens = b * t
     bound = 8 * n_params * tokens / BF16_FLOP_PER_S
-    log(f"[train] {steps} steps: {steady:.3f} s a step (median of steps "
-        f"1-{steps - 1}; first {secs[0]:.3f} s), {tokens / steady:.0f} "
-        f"tokens/s, peak {peak / 2 ** 30:.2f} GiB; K4 {fwd} launches "
+    log(f"[train] {cfg.name}, {steps} steps: {steady:.3f} s a step (median "
+        f"of steps 1-{steps - 1}; first {secs[0]:.3f} s), "
+        f"{tokens / steady:.0f} tokens/s, peak {peak / 2 ** 30:.2f} GiB; "
+        f"K4 {fwd} launches "
         f"({fwd // steps} a step), K4′ {bwd} ({bwd // steps} a step; by "
         f"route {bwd_routes}); the "
         f"traced step: busy {100 * busy / wall_us:.1f} %, K4′ "
@@ -3556,6 +3722,65 @@ def phase_train_loop(dev, steps=8):
                     k4_bwd_launches_by_route=bwd_routes)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -------------------------------------------------------------- slice 17
+
+def phase_slice17(dev, decode):
+    """SLICE 17'S MAIN PATH: the configs of ``SLICE17`` through slices 8 and
+    9's paths (``phase_slice8``: the engine, the prefill against its
+    plain-attention twin, then ``decode(cfg, params)``, slice 9's decode on
+    the same weights; fitting depth where cut) and the float32 decode
+    checks (``phase_decode_f32``); then each of ``SLICE17_TRAIN`` through
+    slice 10's: the gradient check (``phase_train_grads``, at
+    ``SLICE17_CHECK`` layers, an encoder-decoder whole) and the main path
+    (``phase_train``, ``GEMMA_TRAIN_STEPS`` steps at the fitting depth
+    beside ``GEMMA_TRAIN_RESERVE``, one more step with every K4′ call
+    held). A config with no full-attention layer (h2o-danube-3-4b: every
+    layer sliding-window) launches neither K4 nor K4′, so its plain twin
+    would be the same function: its gradient check is skipped with that
+    reason, and its step must launch neither. Every part runs even after
+    one fails; the phase then raises with every failure. Returns each
+    part's numbers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    out, failed = {"train": {}}, []
+
+    def part(what, fn):
+        try:
+            return fn()
+        except AssertionError as e:
+            log(f"[slice17] {what} FAILED: {e}")
+            failed.append(f"{what}: {e}")
+            return None
+    out["serving"] = part("serving", lambda: phase_slice8(
+        dev, archs=SLICE17, decode=decode))
+    out["decode_f32"] = part("float32 decode", lambda: phase_decode_f32(
+        dev, archs=[name for name, _ in SLICE17]))
+    for name in SLICE17_TRAIN:
+        base = dataclasses.replace(get_config(name), remat=True)
+        t = WHISPER_TOKENS if base.is_encdec else TRAIN_T
+        check = dataclasses.replace(
+            base, n_layers=base.n_layers if base.is_encdec else SLICE17_CHECK)
+        row = out["train"][name] = {}
+        if train_launches(check)[1]:
+            row["gradient_check"] = part(f"{name}'s gradient check",
+                                         lambda: phase_train_grads(
+                                             dev, check, t=t))
+        else:
+            row["gradient_check"] = None
+            log(f"[train] {name}: gradient check skipped — no "
+                f"full-attention layer (its {base.n_layers} layers are "
+                f"{sorted(set(base.block_pattern))}, the banded plain path), "
+                "so K4 and K4′ never launch and the plain-attention twin "
+                "computes the same function as the step")
+        held = train_launches(base)[1] > 0
+        row["main"] = part(f"{name}'s training step", lambda: phase_train(
+            dev, t=t, steps=GEMMA_TRAIN_STEPS, arch=name,
+            reserve=GEMMA_TRAIN_RESERVE, held=held))
+    if failed:
+        raise AssertionError("slice 17: " + "; ".join(failed))
+    return out
 
 
 # -------------------------------------------------------------- slice 12
@@ -4138,22 +4363,23 @@ def tp_worker(argv) -> int:
     try:
         mesh = init_device_mesh("cuda", (1, world),
                                 mesh_dim_names=("data", "model"))
-        res = {}
-        if "serving" in parts:
-            res["serving"] = tp_serving(dev, mesh, rank, world)
-        if "train" in parts:
-            res["train"] = tp_train(dev, mesh, rank, world)
-        if "sp" in parts:
-            res["sp"] = sp_train(dev, mesh, rank, world)
-        if "kv" in parts:
-            res["kv"] = kv_serving(dev, mesh, rank, world, TRAIN_ARCH)
-        if "ring" in parts:
-            res["ring"] = kv_serving(dev, mesh, rank, world, KV_RING_ARCH,
-                                     layers=KV_RING_LAYERS)
-        if "zero3" in parts:
-            zmesh = init_device_mesh("cuda", ZERO3_MESH,
-                                     mesh_dim_names=("data", "model"))
-            res["zero3"] = zero3_train(dev, zmesh, rank, world)
+        res = {"start_s": time.perf_counter() - T_START}
+        runs = {
+            "serving": lambda: tp_serving(dev, mesh, rank, world),
+            "train": lambda: tp_train(dev, mesh, rank, world),
+            "sp": lambda: sp_train(dev, mesh, rank, world),
+            "kv": lambda: kv_serving(dev, mesh, rank, world, TRAIN_ARCH,
+                                     layers=TP_SERVING_LAYERS),
+            "ring": lambda: kv_serving(dev, mesh, rank, world, KV_RING_ARCH,
+                                       layers=KV_RING_LAYERS),
+            "zero3": lambda: zero3_train(dev, init_device_mesh(
+                "cuda", ZERO3_MESH, mesh_dim_names=("data", "model")),
+                rank, world)}
+        for part in parts:
+            t0 = time.perf_counter()
+            res[part] = runs[part]()
+            # each part's seconds on this rank, its lockstep waits included
+            res[part]["part_s"] = time.perf_counter() - t0
         with open(f"{out}.rank{rank}.json", "w") as f:
             json.dump(res, f)
     finally:
@@ -4192,6 +4418,9 @@ def run_workers(world: int, parts: str, out: str) -> list:
     for r in range(world):
         with open(f"{out}.rank{r}.json") as f:
             ranks.append(json.load(f))
+    log(f"[{parts} world={world}] seconds on rank 0: to the first part "
+        f"{ranks[0]['start_s']:.1f}, " + ", ".join(
+            f"{p} {ranks[0][p]['part_s']:.1f}" for p in parts.split(",")))
     return ranks
 
 
@@ -4833,7 +5062,7 @@ def phase_metro_serving(dev, shards=8, standing=METRO_STANDING):
     """SLICE 7'S MAIN PATH, the metro serving engine: the 256-cell engine
     of ``benchmarks/sweep_perf.py:262-275`` (``standing`` requests a cell)
     on ``make_cells_mesh(shards, devices=[card])`` beside a meshless twin
-    on the same card, through ``drive_closed_loop(horizon=8,
+    on the same card, through ``drive_closed_loop(horizon=HORIZON,
     process=True)``, an outage and recovery, budget and semantic drift;
     decisions equal at every tick, the counters as the twin's, one
     ``batch_solve`` launch and one host sync a re-slice (counts zeroed
@@ -5820,7 +6049,8 @@ def main() -> int:
     PHASE_S[13] -= sum(decode[a]["phase_s"] for a in slice8
                        if a in decode)
     t0 = time.perf_counter()
-    cfg9 = get_config("gemma3-12b")
+    cfg9 = dataclasses.replace(get_config("gemma3-12b"),
+                               n_layers=DECODE_GEMMA_LAYERS)
     params = lm_model(dev, cfg9)
     decode_on(cfg9, params)
     del params
@@ -5886,6 +6116,15 @@ def main() -> int:
     k4, k4_core = time_k4(dev, k4_shapes, lm_launches, cfg.n_layers, k4_err,
                           built.get("flash_attn_tc.cu", {}).get("log"))
     timing.__exit__(None, None, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase(24, "slice 17, granite-34b, chameleon-34b, h2o-danube-3-4b "
+               "and whisper-tiny's training"):
+        slice17 = phase_slice17(dev, decode_on)
+    want = sorted(SLICE9 + tuple(name for name, _ in SLICE17))
+    if sorted(decode) != want:
+        raise AssertionError(f"slices 9 and 17 decoded {sorted(decode)}, not "
+                             f"{want}")
     k4["launches_slice8"] = {
         name: {"engine": row.get("engine_k4_launches"),
                "prefill": row["prefill"]["k4_launches"]}
@@ -5894,6 +6133,19 @@ def main() -> int:
     k4["launches_decode"] = {name: row["k4_launches"]
                              for name, row in decode.items()}
     k4["decode"] = dict(decode, float32=decode_f32, phase_s=phase14_s)
+    # slice 17's launches: each config's engine (a LM batch), prefill,
+    # decode prefill and training step (phase 24)
+    s17 = slice17["serving"]
+    k4["launches_slice17"] = {
+        name: {"engine": s17[name].get("engine_k4_launches"),
+               "engine_lm_batches": s17[name].get("engine_lm_batches"),
+               "prefill": s17[name]["prefill"]["k4_launches"],
+               "decode_prefill": decode[name]["k4_launches"]}
+        for name, _ in SLICE17}
+    for name, row in slice17["train"].items():
+        k4["launches_slice17"].setdefault(name, {})["train_steps"] = \
+            row["main"]["k4_launches"]
+    k4["slice17"] = dict(serving=s17, decode_f32=slice17["decode_f32"])
     k4["launches_train"] = train_main["k4_launches"]
     k4["launches_train_gemma3"] = gemma_main["k4_launches"]
     k4["phase15_shapes"] = {
@@ -5924,6 +6176,15 @@ def main() -> int:
     k4_core["launches_path"] = "phase 18, the float32 smoke loop"
     k4b_core["launches_train_step"] = \
         train_main["k4_bwd_launches_by_route"]["cuda_cores"]
+    k3["launches_slice17"] = {name: s17[name].get("engine_resize_launches")
+                              for name, _ in SLICE17}
+    k4b["launches_slice17"] = {
+        name: {"train_steps": row["main"]["k4_bwd_launches"],
+               "held_step_calls": (row["main"]["held"] or {}).get("calls"),
+               "gradient_check": None if row["gradient_check"] is None
+               else row["gradient_check"]["k4_bwd_launches"]}
+        for name, row in slice17["train"].items()}
+    k4b["slice17"] = slice17["train"]
     # slice 12's launches: the examples (phase 19) and the mesh step (20)
     k1["launches_examples"] = {k: v["K1"] for k, v in examples.items()
                                if isinstance(v, dict) and "K1" in v}

@@ -27,10 +27,12 @@ from repro_torch.kernels.attn import attn as PA  # noqa: E402
 
 TOL = 2e-5
 # (B, Tq, Tk, Hq, Hkv, Dh, causal): causal and not, Tq != Tk, G = 1, 2, 4,
-# Dh 16 and 64, lengths not a multiple of the reference's 16-row chunks
+# Dh 16 and 64, lengths not a multiple of the reference's 16-row chunks,
+# and granite-34b's 48 query heads on one KV head at Dh 128
 CASES = [(2, 37, 37, 4, 2, 16, True), (1, 37, 37, 4, 4, 16, False),
          (2, 21, 50, 8, 2, 16, False), (1, 40, 40, 4, 1, 64, True),
-         (2, 17, 17, 2, 2, 64, True), (1, 9, 33, 4, 1, 64, False)]
+         (2, 17, 17, 2, 2, 64, True), (1, 9, 33, 4, 1, 64, False),
+         (1, 40, 40, 48, 1, 128, True)]
 
 
 def _draw(seed, b, tq, tk, hq, hkv, dh):
@@ -199,10 +201,11 @@ def test_bwd_route_choice(dtype, dh, want):
 
 
 @pytest.mark.parametrize("g,want", [(1, 1), (2, 2), (4, 4), (5, 1), (6, 3),
-                                    (8, 4), (16, 4)])
+                                    (8, 4), (16, 4), (48, 4)])
 def test_bwd_groups(g, want):
     """The dK/dV pass's query-head groups: the largest divisor of G that
-    is at most 4 (chatglm3-6b's G = 16: 4 groups of 4)."""
+    is at most 4 (chatglm3-6b's G = 16: 4 groups of 4; granite-34b's
+    G = 48: 4 groups of 12)."""
     assert PA.bwd_groups(g) == want and g % want == 0
 
 

@@ -368,7 +368,9 @@ def test_kernels_launch_on_the_callers_stream_on_card(cuda_device, rng):
     # the whisper-tiny encoder, cross-attention and decoder, qwen3-moe's
     # 64 query over 4 KV heads
     (2, 1500, 1500, 6, 6, 64, False), (2, 448, 1500, 6, 6, 64, False),
-    (2, 448, 448, 6, 6, 64, True), (2, 2048, 2048, 64, 4, 128, True)])
+    (2, 448, 448, 6, 6, 64, True), (2, 2048, 2048, 64, 4, 128, True),
+    # granite-34b's 48 query heads on one KV head, chameleon-34b's 64 on 8
+    (1, 256, 256, 48, 1, 128, True), (1, 256, 256, 64, 8, 128, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh, causal,
                                             dtype, cuda_device, rng):
@@ -742,7 +744,10 @@ def test_flash_bwd_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
     (2, 256, 256, 16, 2, 128, True), (2, 77, 77, 8, 2, 64, True),
     (1, 130, 130, 4, 2, 120, True), (2, 40, 100, 6, 6, 64, False),
     (1, 1, 1, 2, 1, 16, True), (1, 130, 130, 4, 2, 256, True),
-    (1, 40, 100, 4, 2, 200, False)])
+    (1, 40, 100, 4, 2, 200, False),
+    # granite-34b's 48 query heads on one KV head (the dK/dV pass in
+    # bwd_groups(48) = 4 groups of 12) and chameleon-34b's 64 on 8
+    (1, 256, 256, 48, 1, 128, True), (1, 256, 256, 64, 8, 128, True)])
 def test_flash_bwd_tc_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
                                                    causal, cuda_device, rng):
     """The tensor-core K4′ (``csrc/flash_attn_bwd_tc.cu``) given K4's LSE
@@ -923,3 +928,4 @@ def test_k4_operators_are_the_launches_on_card(cuda_device, rng):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(torch.equal(a, b) for a, b in zip(
         PA.flash_attention_bwd(q, k, v, out, dout, lse=lse), want))
+

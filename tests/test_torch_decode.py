@@ -2,7 +2,9 @@
 CPU: ``attn_decode`` (full and ring), ``cross_attn_decode``,
 ``rglru_decode``, ``rwkv_decode``, full attention with a query offset,
 ``cross_entropy``, and for all ten smoke configs ``forward_train``,
-``loss_fn``, ``prefill`` and ``decode_step``.
+``loss_fn``, ``prefill`` and ``decode_step`` (the prefill and decode also
+at granite-34b's, chameleon-34b's and h2o-danube-3-4b's head geometries
+at smoke width, ``test_torch_models.HEADS``).
 
 The reference's ``init_params`` draws the weights and
 ``repro_torch.convert.lm_params`` carries them into the port; tokens,
@@ -52,7 +54,8 @@ from repro_torch.models import recurrent as MR  # noqa: E402
 from repro_torch.models import rwkv as MW  # noqa: E402
 
 from test_torch_attn import _attn_params  # noqa: E402
-from test_torch_models import _flat, _np, _port_cfg  # noqa: E402
+from test_torch_models import (SLICE17_HEADS, _flat, _np,  # noqa: E402
+                               _port_cfg, heads_config)
 
 ALL = list(TC.ARCHS)
 B, T, EXTRA, ENC_LEN = 2, 24, 4, 16
@@ -90,8 +93,9 @@ def _run(name):
     tokens, ``cache_len`` T + EXTRA) and EXTRA + 1 decode steps of smoke
     config ``name`` on the same weights and seeded inputs: steps 0..EXTRA-1
     take the next tokens at positions T..T+EXTRA-1, the last one sits at
-    ``pos == cache_len``."""
-    jcfg = j_get_smoke(name)
+    ``pos == cache_len``. ``name`` may name a head geometry of
+    ``test_torch_models.HEADS`` at smoke width."""
+    jcfg = heads_config(name)
     cfg = _port_cfg(jcfg)
     jparams = j_init(jax.random.PRNGKey(0), jcfg)
     params = lm_params(jax.tree.map(np.asarray, jparams), cfg, "cpu")
@@ -148,7 +152,7 @@ def runs():
 
 # --- the model -------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ALL)
+@pytest.mark.parametrize("name", ALL + SLICE17_HEADS)
 def test_prefill_and_decode_match_reference(name, runs):
     r = runs(name)
     assert _apart(r.port.prefill[0], r.ref.prefill[0]) < TOL

@@ -46,7 +46,10 @@ from repro_torch.models import layers as TL  # noqa: E402
 DENSE = ["chatglm3-6b", "h2o-danube-3-4b", "gemma3-12b", "chameleon-34b",
          "granite-34b"]
 ALL = list(TC.ARCHS)
-# head geometries of three configs at smoke width: (config, reductions)
+# head geometries of six configs at smoke width: (config, reductions) —
+# granite-34b's 48 query heads on one KV head, chameleon-34b's qk-normed
+# 64 on 8, h2o-danube-3-4b's Dh 120 with its own window of 4096 (longer
+# than the tests' prompts, as at T = 2048 on the card)
 HEADS = {
     "chatglm3-heads": ("chatglm3-6b", dict(n_heads=32, n_kv_heads=2,
                                            d_head=128)),
@@ -54,7 +57,28 @@ HEADS = {
                                                 d_head=128)),
     "whisper-heads": ("whisper-tiny", dict(n_heads=6, n_kv_heads=6,
                                            d_head=64)),
+    "granite-heads": ("granite-34b", dict(n_heads=48, n_kv_heads=1,
+                                          d_head=128)),
+    "chameleon-heads": ("chameleon-34b", dict(n_heads=64, n_kv_heads=8,
+                                              d_head=128)),
+    "danube-heads": ("h2o-danube-3-4b", dict(n_heads=32, n_kv_heads=8,
+                                             d_head=120, window=4096)),
 }
+
+# the head geometries of the configs that run on the card since slice 17,
+# also held in the gradient and decode tests
+SLICE17_HEADS = ["granite-heads", "chameleon-heads", "danube-heads"]
+
+
+def heads_config(name):
+    """The reference's config for ``name``: a ``HEADS`` entry (a config's
+    head geometry at smoke width) or a smoke config."""
+    if name in HEADS:
+        arch, heads = HEADS[name]
+        return j_reduce(j_get_config(arch), **heads)
+    return j_get_smoke(name)
+
+
 ENC_LEN = 50
 
 
@@ -118,11 +142,7 @@ def _batches(cfg, t=37):
 
 @pytest.mark.parametrize("name", ALL + list(HEADS))
 def test_prefill_matches_reference(name):
-    if name in HEADS:             # a config's head geometry at smoke width
-        arch, heads = HEADS[name]
-        jcfg = j_reduce(j_get_config(arch), **heads)
-    else:
-        jcfg = j_get_smoke(name)
+    jcfg = heads_config(name)
     cfg = _port_cfg(jcfg)
     jparams = j_init(jax.random.PRNGKey(0), jcfg)
     params = lm_params(jax.tree.map(np.asarray, jparams), cfg, "cpu")

@@ -1,5 +1,7 @@
 """The port's training gradient and step against the JAX reference, on the
-CPU in float32: for all ten smoke configs, the loss and every gradient
+CPU in float32: for all ten smoke configs and for granite-34b's,
+chameleon-34b's and h2o-danube-3-4b's head geometries at smoke width
+(``test_torch_models.HEADS``), the loss and every gradient
 leaf of ``repro_torch.training.optimizer.loss_and_grads`` against
 ``jax.value_and_grad(repro.models.loss_fn)``; remat on or off leaves the
 gradients bit for bit; ``param_specs`` of the ten full configs; and
@@ -43,7 +45,8 @@ from repro_torch.convert import lm_params  # noqa: E402
 from repro_torch.models import param_specs  # noqa: E402
 from repro_torch.training import optimizer as TO  # noqa: E402
 
-from test_torch_models import _flat, _port_cfg  # noqa: E402
+from test_torch_models import (SLICE17_HEADS, _flat,  # noqa: E402
+                               _port_cfg, heads_config)
 
 ALL = list(TC.ARCHS)
 B, T, ENC_LEN = 2, 24, 16
@@ -66,7 +69,10 @@ def _batch(cfg, seed=1, b=B):
 
 
 def _models(name, **overrides):
-    jcfg = dataclasses.replace(j_get_smoke(name), **overrides)
+    """The reference's and the port's config and weights: smoke config
+    ``name``, or a head geometry of ``test_torch_models.HEADS`` at smoke
+    width."""
+    jcfg = dataclasses.replace(heads_config(name), **overrides)
     cfg = _port_cfg(jcfg)
     jparams = j_init(jax.random.PRNGKey(0), jcfg)
     return jcfg, cfg, jparams, lm_params(jax.tree.map(np.asarray, jparams),
@@ -97,7 +103,7 @@ def _port_grads(params, batch, cfg):
     return loss, _flat_grads(grads)
 
 
-@pytest.mark.parametrize("name", ALL)
+@pytest.mark.parametrize("name", ALL + SLICE17_HEADS)
 def test_loss_and_grads_match_reference(name):
     jcfg, cfg, jparams, params = _models(name)
     batch = _batch(cfg)
