@@ -11,7 +11,8 @@ K4′, the train step and the checkpointed loop), the examples, the mesh
 forms, dense tensor parallelism over processes that share the card,
 with the dry run's count held against it, and the serving, decode and
 training of granite-34b, chameleon-34b and h2o-danube-3-4b, with
-whisper-tiny's training — and holds every hand-written kernel of those
+whisper-tiny's training, and the training of recurrentgemma-9b, rwkv6-1.6b
+and qwen3-moe-235b-a22b — and holds every hand-written kernel of those
 paths against its plain PyTorch version:
 
 1. prints the card (``nvidia-smi``) and builds every CUDA kernel from
@@ -210,7 +211,8 @@ paths against its plain PyTorch version:
    320), (1, 40 over 100, 4/2, 320) and slice 12's ``train_lm`` (8, 256,
    12/4, 64, causal), chatglm3-6b's and the whisper encoder's in float32,
    and slice 17's granite-34b (2, 2048, 48/1, 128) and chameleon-34b (2,
-   2048, 64/8, 128), causal, in bf16,
+   2048, 64/8, 128) and slice 18's qwen3-moe-235b-a22b (2, 2048, 64/4,
+   128), causal, in bf16,
    element by element, each route given its own K4's LSE: every bf16
    shape with Dh % 8 == 0 and Dh <= 256 on both routes — the tensor-core
    kernel (``csrc/flash_attn_bwd_tc.cu``, the route) within
@@ -220,7 +222,8 @@ paths against its plain PyTorch version:
    repeat bit for bit and a launch a pass (3 on both); once through
    ``FlashAttention``'s backward, bit for bit the direct call's given the
    same LSE; at ``K4B_TIMED``'s shapes (chatglm3-6b's, gemma3-12b's,
-   granite-34b's, chameleon-34b's and the whisper encoder's in bf16;
+   granite-34b's, chameleon-34b's, qwen3-moe-235b-a22b's and the whisper
+   encoder's in bf16;
    train_lm's, chatglm3-6b's and the whisper encoder's in float32), on
    each route, ms a call and device µs by
    pass, the plain version and SDPA's backward beside the bound, K4's
@@ -319,7 +322,8 @@ paths against its plain PyTorch version:
    counted flops are printed beside the measured product device time;
 23. SLICE 14, THE REFERENCE'S OPTIMIZED CELLS AND THE SEQUENCE-SPLIT
    CACHE over processes that share the card (phase 21's ``--tp-worker``
-   gloo groups, of 2 and then 4): (a) Megatron-SP (``seq_sp`` →
+   gloo groups, of 2 and then 4, which run these parts after phase 21's,
+   ``SLICE14_PARTS``): (a) Megatron-SP (``seq_sp`` →
    ``model``) on chatglm3-6b at ``MESH_LAYERS`` layers, remat on, over
    (1, 2) and (1, 4): one train step, counts zeroed just before and read
    just after (K4 2 and K4′ 3 launches a layer a rank, all on the
@@ -362,7 +366,29 @@ paths against its plain PyTorch version:
    ``GEMMA_TRAIN_RESERVE``, K4 and K4′ launched exactly as the config's
    layers say (``train_launches``; h2o-danube 0 and 0), all on the
    tensor cores, and one more step with every K4′ call held
-   (``K4BChecked``, its references a block of query heads at a time).
+   (``K4BChecked``, its references a block of query heads at a time);
+25. SLICE 18'S MAIN PATH (after phase 24): the training of the three
+   model families no earlier phase trains, bf16 at full width, B = 2,
+   T = 2048, remat on, through ``make_train_step`` — recurrentgemma-9b
+   (the RG-LRU scan under autograd; its local layers on the banded plain
+   path) and rwkv6-1.6b (the WKV chunks under autograd) at the fitting
+   depth beside ``GEMMA_TRAIN_RESERVE`` (21 of 38 layers and all 24 on an
+   80 GB card), qwen3-moe-235b-a22b (the dense MoE over 128 experts,
+   top-8, and qk-normed full attention at 64/4) at 1 of 94 layers:
+   ``GEMMA_TRAIN_STEPS`` steps each, loss and grad_norm finite, K4 and K4′
+   launched exactly as ``train_launches`` says (qwen3-moe 2 and 1 a step,
+   all on the tensor cores; the other two 0 and 0), s a step, tokens/s,
+   peak memory, the busy share and device time by kind, and for qwen3-moe
+   one more step with every K4′ call held (``K4BChecked``). qwen3-moe's
+   gradient check runs at ``SLICE17_CHECK`` layers against its
+   plain-attention twin on the K4 run's experts (the step's metrics from
+   the two gradients: the 2-layer training state does not fit, nor the
+   twin's step at 1 layer); recurrentgemma-9b's and
+   rwkv6-1.6b's, which launch no kernel, hold the card's float32
+   ``loss_and_grads`` against the host's (``phase_scan_grads``: one whole
+   repeat, B = 1, T = 80 at the config's chunk of 32, the vocabulary cut
+   to 32,768; the loss within 1e-5 relative, each leaf within 1e-4 of its
+   largest magnitude).
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -488,13 +514,19 @@ K4B_SHAPES = ((2, 2048, 2048, 32, 2, 128, True, "bfloat16"),
               # one KV head: K4′'s dK/dV pass in bwd_groups(48) = 4 groups
               # of 12) and chameleon-34b's (64 on 8)
               (2, 2048, 2048, 48, 1, 128, True, "bfloat16"),
-              (2, 2048, 2048, 64, 8, 128, True, "bfloat16"))
-# the K4′ shapes phase 15 times: chatglm3-6b's, gemma3-12b's, granite-34b's
-# and chameleon-34b's training shapes, the whisper-tiny encoder, and the
-# float32 ones of train_lm, chatglm3-6b and the whisper encoder (with K4's
-# forward and SDPA's forward and backward beside each)
+              (2, 2048, 2048, 64, 8, 128, True, "bfloat16"),
+              # slice 18: qwen3-moe-235b-a22b's (64 query heads on 4 KV
+              # heads: G = 16, the dK/dV pass in bwd_groups(16) = 4 groups
+              # of 4)
+              (2, 2048, 2048, 64, 4, 128, True, "bfloat16"))
+# the K4′ shapes phase 15 times: chatglm3-6b's, gemma3-12b's, granite-34b's,
+# chameleon-34b's and qwen3-moe-235b-a22b's training shapes, the
+# whisper-tiny encoder, and the float32 ones of train_lm, chatglm3-6b and
+# the whisper encoder (with K4's forward and SDPA's forward and backward
+# beside each)
 K4B_TIMED = (K4B_SHAPES[0], K4B_SHAPES[1], K4B_SHAPES[2], K4B_SHAPES[7],
-             K4B_SHAPES[13], K4B_SHAPES[14], K4B_SHAPES[15], K4B_SHAPES[16])
+             K4B_SHAPES[13], K4B_SHAPES[14], K4B_SHAPES[15], K4B_SHAPES[16],
+             K4B_SHAPES[17])
 # K4′ against its plain version in float32 on the same inputs, element by
 # element: |out - ref| <= a |ref| + b rms(ref's row over Dh) + c rms(ref).
 # bfloat16 (a, b, c) = (2^-7, 2^-10, 2^-16): a is twice the outputs'
@@ -641,6 +673,12 @@ SP_RULES = {"seq_sp": "model"}
 KV_RULES = {"seq_kv": "model"}
 OPT_RULES = {"seq_sp": "model", "fsdp": ("pod", "data")}
 ZERO3_ARCH, ZERO3_LAYERS, ZERO3_MESH = "mixtral-8x7b", 1, (2, 2)
+# phase 23's parts by group size, run by phase 21's gloo groups after
+# theirs, in the same processes: a group's start took 16-26 s a process
+# (imports, the CUDA context, DTensor's first use) on the H100 80GB HBM3
+# machine (700 W) these numbers come from, and phase 23 began two more
+# groups before slice 18
+SLICE14_PARTS = {2: "sp,kv,ring", 4: "sp,kv,zero3"}
 KV_RING_ARCH, KV_RING_LAYERS = "gemma3-12b", 6
 # the gradient check: 4 layers, K4 and K4′ against a twin whose attention is
 # K4's plain version with autograd, on the same card and batch. Each
@@ -683,6 +721,26 @@ SLICE17 = (("granite-34b", True), ("chameleon-34b", True),
 SLICE17_TRAIN = ("granite-34b", "chameleon-34b", "h2o-danube-3-4b",
                  "whisper-tiny")
 SLICE17_CHECK = 2
+# slice 18: the three model families whose training had not run on the card
+# — recurrentgemma-9b (the RG-LRU scan; its local layers' window of 2048 =
+# T: the banded plain path, no K4), rwkv6-1.6b (the WKV chunks, no
+# attention) and qwen3-moe-235b-a22b (the dense MoE over 128 experts, top-8;
+# qk-normed full attention at 64/4 through K4 and K4′) — trained as slice
+# 17's configs are, at the fitting depth beside GEMMA_TRAIN_RESERVE. qwen3's
+# gradient check runs at SLICE17_CHECK layers against its plain-attention
+# twin; the other two launch no kernel, so a plain twin would be the same
+# function, and the card's float32 gradient is held against the host's
+# instead (``phase_scan_grads``): one whole repeat of the pattern
+# (SCAN_CHECK_LAYERS), B = 1, T = SCAN_CHECK_T at the config's own chunk
+# of 32 (two chunk boundaries and a 16-step tail), the vocabulary cut to
+# SCAN_CHECK_VOCAB on both sides (the check's one cut); the loss within
+# SCAN_LOSS_RTOL relative, each gradient leaf's largest |diff| within
+# SCAN_GRAD_TOL of the leaf's largest magnitude (float32 sums in another
+# order on the card: cuBLAS against the host's)
+SLICE18_TRAIN = ("recurrentgemma-9b", "rwkv6-1.6b", "qwen3-moe-235b-a22b")
+SCAN_CHECK_LAYERS = {"recurrentgemma-9b": 3, "rwkv6-1.6b": 2}
+SCAN_CHECK_T, SCAN_CHECK_VOCAB = 80, 32768
+SCAN_LOSS_RTOL, SCAN_GRAD_TOL = 1e-5, 1e-4
 
 
 def log(*args):
@@ -1403,10 +1461,14 @@ def profile_call(fn, what: str, warm: bool = True):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the profiler's raw events: parsing them into FunctionEvents
+    # (``prof.events()``) took ~150 s on the host for a trace of 254,383
+    # launches (rwkv6-1.6b's training step before its WKV was batched, on
+    # the H100 80GB HBM3 machine at 700 W)
     kern, count = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kern[e.name] = kern.get(e.name, 0.0) + _device_time(e)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            kern[e.name()] = kern.get(e.name(), 0.0) + e.duration_ns() / 1e3
             count += 1
     busy = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
@@ -2296,7 +2358,7 @@ class RouteLog:
             else:
                 idx = self.force.idx[len(self.idx)]
                 gates = torch.softmax(logits.gather(-1, idx), dim=-1)
-            self.logits.append(logits)
+            self.logits.append(logits.detach())
             self.idx.append(idx)
             return gates, idx
         MM._route = route
@@ -3342,13 +3404,21 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     autograd (``PlainAttention``), each gradient leaf's rms difference
     within ``TRAIN_GRAD_TOL`` of its rms (``leaf_rms``); then one
     ``make_train_step`` step on each side from the same weights: loss,
-    grad_norm and lr agree."""
+    grad_norm and lr agree. In an MoE config the twin takes the K4 run's
+    experts (``RouteLog(force=)``, gates from its own router logits), as
+    the prefill's twin does: the two attentions' outputs differ by a bf16
+    ulp here and there, which flips a token's top-k choice where two of
+    its router logits nearly tie, and a flipped token's whole FFN
+    gradient with it; the flips the twin's own logits would make are
+    printed (``routing_flips``)."""
+    import contextlib
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.attn import attn as PA
     from repro_torch.training import OptConfig, make_train_step, opt_init
-    from repro_torch.training.optimizer import loss_and_grads
+    from repro_torch.training.optimizer import (global_norm, loss_and_grads,
+                                                lr_schedule)
     t0 = time.perf_counter()
     cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH),
                                      n_layers=TRAIN_CHECK_LAYERS, remat=True)
@@ -3360,9 +3430,12 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     route = PA.route(torch.bfloat16, cfg.d_head)
     params = lm_model(dev, cfg)
     batch = train_batch(dev, cfg, b, t)
+    def routes(force=None):
+        return RouteLog(force) if cfg.is_moe else contextlib.nullcontext()
     PA.FLASH_KERNEL.launches = 0
     PA.FLASH_BWD_KERNEL.launches = 0
-    loss, _, grads = loss_and_grads(params, batch, cfg)
+    with routes() as run_routes:
+        loss, _, grads = loss_and_grads(params, batch, cfg)
     torch.cuda.synchronize()
     fwd, bwd = PA.FLASH_KERNEL.launches, PA.FLASH_BWD_KERNEL.launches
     if fwd != want or bwd != PA.BWD_PASSES[route] * layers \
@@ -3371,11 +3444,20 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
                              f"({k4b_kernel(route).launches} on the {route} "
                              f"route); {want} and {layers} calls expected of "
                              f"{cfg.name}'s layers (remat {cfg.remat})")
-    with PlainAttention():
+    with PlainAttention(), routes(run_routes) as twin_routes:
         tloss, _, tgrads = loss_and_grads(params, batch, cfg)
         torch.cuda.synchronize()
     if PA.FLASH_KERNEL.launches != fwd or PA.FLASH_BWD_KERNEL.launches != bwd:
         raise AssertionError("the plain-attention twin launched K4 or K4′")
+    flips = None
+    if cfg.is_moe:
+        flips = routing_flips(run_routes, twin_routes, cfg.top_k)
+        log(f"[train] {cfg.name}: the twin on the K4 run's experts; its own "
+            f"router logits would choose other top-{cfg.top_k} experts for "
+            f"{flips[0]} tokens by call (forward and recompute a layer), "
+            f"each a near-tie at most {flips[1]:.3g} of twice the runs' "
+            "largest logit difference")
+        del run_routes, twin_routes
     if not abs(float(loss) - float(tloss)) <= TRAIN_LOSS_RTOL * abs(
             float(tloss)):
         raise AssertionError(f"train grads: loss {float(loss)} against the "
@@ -3411,6 +3493,7 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     if bad:
         raise AssertionError("train grads: differ from the twin's: "
                              + "; ".join(bad))
+    norms = (float(global_norm(grads)), float(global_norm(tgrads)))
     del grads, tgrads
     log(f"[train] gradient check, {cfg.name} at {cfg.n_layers} layers, B = "
         f"{b}, T = {t}, bf16: loss {float(loss):.6f} (twin "
@@ -3420,18 +3503,44 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
         f" of its leaf's rms (printed, not bounded); K4 {fwd}, K4′ {bwd} "
         f"launches (all on its {route} route)")
     opt = OptConfig(warmup_steps=1)
+    # the step's clone of the weights, its moments and gradient beside the
+    # weights: where they do not fit (qwen3-moe-235b-a22b at 2 layers: 6.2
+    # B parameters, 12 bytes each; at 1 layer the twin's step, its plain
+    # attention's float32 scores under autograd beside the 3.7 B
+    # parameters' state, ran out of an H100 80GB HBM3's memory at 700 W),
+    # the step's metrics are
+    # those of the two gradients above: their loss, the global norm the
+    # step reports as grad_norm, and the schedule's lr of the first step
+    n_params = sum(x.numel() for x in _leaves(params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    stepped = n_params * TRAIN_BYTES_PER_PARAM + GEMMA_TRAIN_RESERVE \
+        <= torch.cuda.mem_get_info()[0]
     metrics = []
     for twin in (False, True):
+        if not stepped:
+            lr = float(lr_schedule(opt, torch.ones((), dtype=torch.int32)))
+            metrics.append(dict(loss=float(tloss if twin else loss),
+                                grad_norm=norms[twin], lr=lr))
+            continue
         p = params if twin else _clone(params)
         state = opt_init(p)
         step = make_train_step(cfg, opt)
         if twin:
-            with PlainAttention():
+            with PlainAttention(), routes(step_routes):
                 _, _, m = step(p, state, batch)
         else:
-            _, _, m = step(p, state, batch)
+            with routes() as step_routes:
+                _, _, m = step(p, state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
-        del p, state
+        del p, state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not stepped:
+        log(f"[train] {cfg.name}: the step's training state at "
+            f"{cfg.n_layers} layers ({n_params * TRAIN_BYTES_PER_PARAM / 1e9:.1f}"
+            f" GB) does not fit beside {GEMMA_TRAIN_RESERVE / 2 ** 30:.0f} "
+            "GiB: the step's metrics from the two gradients")
     got, want = metrics
     if got["lr"] != want["lr"] \
             or abs(got["loss"] - want["loss"]) > TRAIN_LOSS_RTOL * abs(
@@ -3439,7 +3548,9 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
             or abs(got["grad_norm"] - want["grad_norm"]) > TRAIN_NORM_RTOL \
             * abs(want["grad_norm"]):
         raise AssertionError(f"train step: {got} against the twin's {want}")
-    log(f"[train] {cfg.name}, one make_train_step step each: loss "
+    log(f"[train] {cfg.name}, "
+        + ("one make_train_step step each" if stepped else
+           "the step's metrics from each gradient") + ": loss "
         f"{got['loss']:.6f} / {want['loss']:.6f}, grad_norm "
         f"{got['grad_norm']:.6f} / {want['grad_norm']:.6f}, lr "
         f"{got['lr']:.3g} / {want['lr']:.3g} "
@@ -3447,7 +3558,9 @@ def phase_train_grads(dev, cfg=None, b=TRAIN_B, t=TRAIN_T):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(arch=cfg.name, layers=cfg.n_layers, loss=float(loss),
+    return dict(arch=cfg.name, layers=cfg.n_layers, stepped=stepped,
+                routing_flips=flips,
+                loss=float(loss),
                 twin_loss=float(tloss), worst_rms_share=worst_rms,
                 worst_max_share=worst_max, step=got, twin_step=want,
                 k4_launches=fwd, k4_bwd_launches=bwd, k4b_route=route,
@@ -3783,6 +3896,148 @@ def phase_slice17(dev, decode):
     return out
 
 
+# -------------------------------------------------------------- slice 18
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def phase_scan_grads(dev, name, t=SCAN_CHECK_T, vocab=SCAN_CHECK_VOCAB):
+    """The gradient check of a config that launches no kernel (its plain
+    twin would be the same function): ``loss_and_grads`` of ``name`` at
+    full width in float32 and one whole repeat of its pattern
+    (``SCAN_CHECK_LAYERS``), the vocabulary cut to ``vocab``, on the card
+    against the same function of the port on the host, on the same
+    weights (drawn once on the host, seeded) and the same B = 1, T = ``t``
+    ``TokenStream`` batch, at the config's own ``chunk_rec``: the loss
+    within ``SCAN_LOSS_RTOL`` relative, each gradient leaf's largest
+    |diff| within ``SCAN_GRAD_TOL`` of the leaf's largest magnitude on the
+    host; K4 and K4′ launch 0 times. Returns the worst leaf and both
+    losses."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import loss_and_grads
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(name),
+                              n_layers=SCAN_CHECK_LAYERS[name],
+                              vocab_size=vocab, param_dtype="float32")
+    host = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = train_batch("cpu", cfg, 1, t)
+    t_draw = time.perf_counter() - t0
+    PA.FLASH_KERNEL.launches = 0
+    PA.FLASH_BWD_KERNEL.launches = 0
+    t1 = time.perf_counter()
+    loss, _, grads = loss_and_grads(_to(host, dev), _to(batch, dev), cfg)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t1
+    launches = (PA.FLASH_KERNEL.launches, PA.FLASH_BWD_KERNEL.launches)
+    if launches != (0, 0):
+        raise AssertionError(f"{name}'s float32 check launched K4 and K4′ "
+                             f"{launches} times; its layers "
+                             f"{sorted(set(cfg.block_pattern))} take none")
+    t1 = time.perf_counter()
+    hloss, _, hgrads = loss_and_grads(host, batch, cfg)
+    t_host = time.perf_counter() - t1
+    rows, bad = [], []
+    for (path, g), (_, w) in zip(_named_leaves(grads),
+                                 _named_leaves(hgrads), strict=True):
+        g = g.cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            bad.append(f"{path}: shape {tuple(g.shape)} against "
+                       f"{tuple(w.shape)}, or not finite")
+            continue
+        share = (g - w).abs().max().item() / max(w.abs().max().item(),
+                                                  1e-30)
+        rows.append((path, share))
+        if not share <= SCAN_GRAD_TOL:
+            bad.append(f"{path} at {share:.3g} of its largest magnitude")
+    rel = abs(float(loss) - float(hloss)) / abs(float(hloss))
+    if not rel <= SCAN_LOSS_RTOL:
+        bad.append(f"the loss {float(loss)} against the host's "
+                   f"{float(hloss)} ({rel:.3g} relative)")
+    worst = max(rows, key=lambda r: r[1]) if rows else (None, float("nan"))
+    for path, share in sorted(rows, key=lambda r: -r[1])[:3]:
+        log(f"[scan]   {name} {path}: {share:.3g} of its largest magnitude")
+    if bad:
+        raise AssertionError(f"{name}'s float32 gradient on the card "
+                             "against the host's: " + "; ".join(bad))
+    n_params = sum(x.numel() for x in _leaves(host))
+    out = dict(arch=name, layers=cfg.n_layers, vocab=vocab, b=1, t=t,
+               chunk_rec=cfg.chunk_rec, params_b=n_params / 1e9,
+               loss=float(loss), host_loss=float(hloss), loss_rel=rel,
+               leaves=len(rows), worst_leaf=worst[0], worst_share=worst[1],
+               draw_s=t_draw, card_s=t_card, host_s=t_host,
+               phase_s=time.perf_counter() - t0)
+    log(f"[scan] {name} at {cfg.n_layers} layers ({n_params / 1e9:.3f} B "
+        f"parameters, float32, the vocabulary cut to {vocab}), B = 1, T = "
+        f"{t}, chunk {cfg.chunk_rec}: loss {float(loss):.7f} on the card, "
+        f"{float(hloss):.7f} on the host ({rel:.3g} relative, bound "
+        f"{SCAN_LOSS_RTOL}); {len(rows)} gradient leaves, the worst "
+        f"{worst[0]} at {worst[1]:.3g} of its largest magnitude (bound "
+        f"{SCAN_GRAD_TOL}); K4 and K4′ 0 launches; drawn on the host in "
+        f"{t_draw:.1f} s, the card's gradient {t_card:.1f} s, the host's "
+        f"{t_host:.1f} s; phase {out['phase_s']:.1f} s")
+    del host, grads, hgrads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice18(dev):
+    """SLICE 18'S MAIN PATH: the training of ``SLICE18_TRAIN`` on the card,
+    each config's gradient check, then its main path (``phase_train``,
+    ``GEMMA_TRAIN_STEPS`` bf16 steps at full width, B = 2, T = 2048,
+    remat on, at the fitting depth beside ``GEMMA_TRAIN_RESERVE``; K4 and
+    K4′ launched exactly as ``train_launches`` says: qwen3-moe 2 and 1 a
+    layer a step, the other two 0 and 0; for a config with attention
+    layers one more step with every K4′ call held). The gradient check of
+    a config with full-attention layers (qwen3-moe) is
+    ``phase_train_grads`` at ``SLICE17_CHECK`` layers against its
+    plain-attention twin; of one without, ``phase_scan_grads`` (the card
+    against the host in float32). Every part runs even after another
+    fails; the phase then raises with every failure. Returns each part's
+    numbers."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    out, failed = {}, []
+
+    def part(what, fn):
+        try:
+            return fn()
+        except (AssertionError, torch.OutOfMemoryError) as e:
+            log(f"[slice18] {what} FAILED: {e}")
+            failed.append(f"{what}: {e}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            return None
+    for name in SLICE18_TRAIN:
+        base = dataclasses.replace(get_config(name), remat=True)
+        row = out[name] = {}
+        held = train_launches(base)[1] > 0
+        if held:
+            row["gradient_check"] = part(
+                f"{name}'s gradient check", lambda: phase_train_grads(
+                    dev, dataclasses.replace(base, n_layers=SLICE17_CHECK)))
+        else:
+            row["gradient_check"] = part(
+                f"{name}'s float32 gradient check, the card against the host",
+                lambda: phase_scan_grads(dev, name))
+        row["main"] = part(f"{name}'s training step", lambda: phase_train(
+            dev, steps=GEMMA_TRAIN_STEPS, arch=name,
+            reserve=GEMMA_TRAIN_RESERVE, held=held))
+    if failed:
+        raise AssertionError("slice 18: " + "; ".join(failed))
+    return out
+
+
 # -------------------------------------------------------------- slice 12
 
 def kernel_counts() -> dict:
@@ -4096,6 +4351,20 @@ def phase_mesh(dev, card, b=TRAIN_B, t=TRAIN_T, cfg=None, moe_cfg=None,
 
 # ------------------------------------------------------------ phases 21-22
 
+# a worker part's seconds by stage (``stage``), reset before each part
+STAGES: dict = {}
+_STAGE_T = [0.0]
+
+
+def stage(what: str) -> None:
+    """Adds the seconds since the last mark (or the part's start) to
+    ``STAGES[what]``: where a gloo worker part's time goes, its lockstep
+    waits included in the stage that waits."""
+    now = time.perf_counter()
+    STAGES[what] = STAGES.get(what, 0.0) + now - _STAGE_T[0]
+    _STAGE_T[0] = now
+
+
 def tp_shards(whole, mesh, cfg, osh=None):
     """This rank's parameters in the layout ``osh`` (the compute layout by
     default), cut from ``whole`` (fresh tensors)."""
@@ -4117,14 +4386,20 @@ def tp_draw(dev, cfg, mesh, rank, world, keep: bool, osh=None):
     whole = local = None
     for r in range(world):
         if r == rank:
+            stage("draw, waits")
             whole = lm_model(dev, cfg)
+            stage("draw, weights")
             local, osh = tp_shards(whole, mesh, cfg, osh)
+            stage("draw, shards")
             if not keep:
                 whole = None
                 gc.collect()
                 torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            stage("draw, free")
         torch.cuda.synchronize()
         dist.barrier()
+    stage("draw, waits")
     return local, osh, whole
 
 
@@ -4166,6 +4441,7 @@ def tp_serving(dev, mesh, rank, world, b=PREFILL_B, t=PREFILL_T,
     cache_len = t + steps
     toks = torch.from_numpy(np.random.default_rng(9).integers(
         0, cfg.vocab_size, (steps, b), dtype=np.int32)).to(dev)
+    stage("inputs")
 
     def run():
         return prefill(local, batch, cfg, cache_len, mesh=mesh)
@@ -4173,6 +4449,7 @@ def tp_serving(dev, mesh, rank, world, b=PREFILL_B, t=PREFILL_T,
     with BlockLog() as blocks, K4Checked() as checked:
         logits, cache = run()
     torch.cuda.synchronize()
+    stage("checked prefill")
     counts = kernel_counts()
     per_call = checked.held(f"tp={world} rank {rank} prefill")
     out = dict(layers=cfg.n_layers, k4_launches=counts["K4"],
@@ -4186,6 +4463,7 @@ def tp_serving(dev, mesh, rank, world, b=PREFILL_B, t=PREFILL_T,
                              f"checked); {cfg.n_layers} on the tensor "
                              "cores expected")
     out["prefill_ms"] = tp_lockstep_ms(run)
+    stage("prefill")
     dec = []
     c = cache
     for j in range(steps):
@@ -4197,6 +4475,7 @@ def tp_serving(dev, mesh, rank, world, b=PREFILL_B, t=PREFILL_T,
         for j in range(steps):
             _, cc = decode_step(local, cc, toks[j], t + j, cfg, mesh=mesh)
     out["decode_ms_per_step"] = tp_lockstep_ms(decode_run) / steps
+    stage("decode")
     if rank == 0:
         def meshless():
             return prefill(whole, batch, cfg, cache_len)
@@ -4236,10 +4515,12 @@ def tp_serving(dev, mesh, rank, world, b=PREFILL_B, t=PREFILL_T,
             if not out[key] <= tol:
                 raise AssertionError(f"tp={world}: {key} {out[key]:.4g} "
                                      f"beyond {tol}")
+    stage("meshless")
     del local, whole, cache, logits, blocks
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
+    stage("free")
     return out
 
 
@@ -4276,6 +4557,7 @@ def tp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
     state = opt_init(local)
     batch = train_batch(dev, cfg, b, t)
     step = make_train_step(cfg, opt, mesh=mesh)
+    stage("inputs")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -4302,7 +4584,9 @@ def tp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
                              f"launched {counts}; K4 {2 * MESH_LAYERS} and "
                              f"K4′ {3 * MESH_LAYERS} on its tensor-core "
                              "route expected")
+    stage("first step")
     out["step_ms"] = tp_lockstep_ms(lambda: step(local, state, batch))
+    stage("step")
     if rank == 0:
         _, kern, _ = profile_call(lambda: step(local, state, batch),
                                   f"tp={world} rank 0 train step",
@@ -4316,6 +4600,7 @@ def tp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
         step(local, state, batch)
     torch.cuda.synchronize()
     dist.barrier()
+    stage("traced step")
     del local, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4323,6 +4608,7 @@ def tp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
     mloss, worst, leaf = held_against_meshless(
         dev, cfg, batch, red, osh, rank, world,
         f"tp={world} rank {rank}")
+    stage("meshless gradient")
     out.update(mesh_loss=out["loss"], meshless_loss=mloss,
                grad_worst_rms_share=worst, grad_worst_leaf=leaf)
     check_twin(out, f"tp={world} rank {rank}")
@@ -4363,7 +4649,20 @@ def tp_worker(argv) -> int:
     try:
         mesh = init_device_mesh("cuda", (1, world),
                                 mesh_dim_names=("data", "model"))
-        res = {"start_s": time.perf_counter() - T_START}
+        # the first CUDA work of a process and its first cut of shards (a
+        # smoke model's), on every rank at once: the parts draw and cut
+        # their weights a rank at a time, and each rank's first turn took
+        # ~10 s (H100 80GB HBM3 machine, 700 W), most of it importing
+        # DTensor
+        t0 = time.perf_counter()
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import init_params
+        smoke = get_smoke_config(TRAIN_ARCH)
+        tp_shards(init_params(torch.Generator(dev).manual_seed(0), smoke,
+                              dev), mesh, smoke)
+        torch.cuda.synchronize()
+        res = {"start_s": time.perf_counter() - T_START,
+               "warm_s": time.perf_counter() - t0}
         runs = {
             "serving": lambda: tp_serving(dev, mesh, rank, world),
             "train": lambda: tp_train(dev, mesh, rank, world),
@@ -4377,9 +4676,13 @@ def tp_worker(argv) -> int:
                 rank, world)}
         for part in parts:
             t0 = time.perf_counter()
+            STAGES.clear()
+            _STAGE_T[0] = t0
             res[part] = runs[part]()
             # each part's seconds on this rank, its lockstep waits included
             res[part]["part_s"] = time.perf_counter() - t0
+            stage("rest")
+            res[part]["stages_s"] = dict(STAGES)
         with open(f"{out}.rank{rank}.json", "w") as f:
             json.dump(res, f)
     finally:
@@ -4419,27 +4722,35 @@ def run_workers(world: int, parts: str, out: str) -> list:
         with open(f"{out}.rank{r}.json") as f:
             ranks.append(json.load(f))
     log(f"[{parts} world={world}] seconds on rank 0: to the first part "
-        f"{ranks[0]['start_s']:.1f}, " + ", ".join(
-            f"{p} {ranks[0][p]['part_s']:.1f}" for p in parts.split(",")))
+        f"{ranks[0]['start_s']:.1f} (the first CUDA work "
+        f"{ranks[0]['warm_s']:.1f} of it), " + ", ".join(
+            f"{p} {ranks[0][p]['part_s']:.1f} (" + ", ".join(
+                f"{k} {v:.1f}" for k, v in ranks[0][p]["stages_s"].items())
+            + ")" for p in parts.split(",")))
     return ranks
 
 
 def phase_tp(dev, card, sizes=TP_SIZES):
     """Phase 21 (docstring item 21): for each ``world`` of ``sizes``, that
     many processes share the card over a gloo group (``tp_worker``); the
-    train part at the first. Returns {world: [each rank's numbers]}."""
+    train part at the first; then, in the same processes, phase 23's parts
+    (``SLICE14_PARTS``). Returns {world: [each rank's numbers]} and, as
+    ``slice14_s``, rank 0's seconds in phase 23's parts."""
     import torch
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     out_dir = os.path.join(ROOT, "build", "tp_phase")
     os.makedirs(out_dir, exist_ok=True)
-    results = {}
+    results, slice14_s = {}, 0.0
     for i, world in enumerate(sizes):
-        parts = "serving,train" if i == 0 else "serving"
+        parts = ("serving,train" if i == 0 else "serving") + "," \
+            + SLICE14_PARTS[world]
         t0 = time.perf_counter()
         ranks = run_workers(world, parts, os.path.join(out_dir, f"tp{world}"))
         results[world] = ranks
+        slice14_s += sum(ranks[0][p]["part_s"]
+                         for p in SLICE14_PARTS[world].split(","))
         sv = ranks[0]["serving"]
         log(f"[tp] chatglm3-6b at {sv['layers']} layers over tp={world} "
             f"processes sharing one card over gloo ({card}; not a multi-card number): prefill B = "
@@ -4455,7 +4766,7 @@ def phase_tp(dev, card, sizes=TP_SIZES):
             f"steps {sv['decode_ms_per_step']:.1f} ms a step against "
             f"{sv['meshless_decode_ms_per_step']:.1f} meshless, logits max "
             f"abs diff {sv['decode_logit_max_diff']:.4g}; "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{time.perf_counter() - t0:.1f} s with phase 23's parts")
         if "train" in ranks[0]:
             tr = ranks[0]["train"]
             log(f"[tp] chatglm3-6b at {tr['layers']} layers, B = {TRAIN_B}, "
@@ -4471,8 +4782,10 @@ def phase_tp(dev, card, sizes=TP_SIZES):
                 f"({tr['allocated_before_bytes'] / 2**30:.3f} before the "
                 f"step), product device time {tr['product_device_ms']:.1f} "
                 f"ms of {tr['device_busy_ms']:.1f} busy")
-    results["phase_s"] = time.perf_counter() - t_phase
-    log(f"[tp] phase 21: {results['phase_s']:.1f} s on {card}")
+    results["slice14_s"] = slice14_s
+    results["phase_s"] = time.perf_counter() - t_phase - slice14_s
+    log(f"[tp] phase 21: {results['phase_s']:.1f} s on {card} (and "
+        f"{slice14_s:.1f} s of phase 23's parts in its groups)")
     return results
 
 
@@ -4623,6 +4936,7 @@ def sp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
     batch = train_batch(dev, cfg, b, t)
     step = make_train_step(cfg, OptConfig(warmup_steps=1), mesh=mesh,
                            rules=SP_RULES)
+    stage("inputs")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -4636,6 +4950,7 @@ def sp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
         local, state, m = step(local, state, batch)
     torch.cuda.synchronize()
     first_ms = 1e3 * (time.perf_counter() - t0)
+    stage("checked step")
     counts = kernel_counts()
     out = dict(layers=MESH_LAYERS, first_step_ms=first_ms,
                check_s=checked.check_s + bwd.check_s,
@@ -4656,11 +4971,13 @@ def sp_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
     torch.cuda.reset_peak_memory_stats()
     out["step_ms"] = tp_lockstep_ms(lambda: step(local, state, batch))
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    stage("step")
     del local, state
     gc.collect()
     torch.cuda.empty_cache()
     mloss, worst, leaf = held_against_meshless(dev, cfg, batch, red, osh,
                                                rank, world, what)
+    stage("meshless gradient")
     out.update(meshless_loss=mloss, grad_worst_rms_share=worst,
                grad_worst_leaf=leaf)
     check_twin(out, what)
@@ -4686,6 +5003,7 @@ def kv_serving(dev, mesh, rank, world, arch, layers=None, b=PREFILL_B,
         cfg = dataclasses.replace(cfg, n_layers=layers)
     what = f"seq_kv {cfg.name} tp={world} rank {rank}"
     local, _, whole = tp_draw(dev, cfg, mesh, rank, world, keep=rank == 0)
+    stage("inputs")
     batch = prefill_batch(dev, cfg, b, t)
     cache_len = t + steps
     toks = torch.from_numpy(np.random.default_rng(9).integers(
@@ -4788,6 +5106,7 @@ def zero3_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
     zsh = S.param_shardings(specs, mesh, cfg, OPT_RULES,
                             extra_batch_dim=True, moe_fsdp=True)
     local, _, _ = tp_draw(dev, cfg, mesh, rank, world, keep=False, osh=osh)
+    stage("inputs")
     ffn = [local["scan"]["pos0"]["ffn"][k] for k in ("w_gate", "w_up",
                                                      "w_down")]
     expert_bytes = sum(x.numel() * x.element_size() for x in ffn)
@@ -4817,11 +5136,13 @@ def zero3_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
         allocated_before_bytes=before, launches=kernel_counts(),
         expert_bytes=expert_bytes, expert_whole_bytes=whole_bytes,
         mesh_loss=float(m["loss"]))
+    stage("step")
     del local, state
     gc.collect()
     torch.cuda.empty_cache()
     mloss, worst, leaf = held_against_meshless(dev, cfg, batch, red, zsh,
                                                rank, world, what)
+    stage("meshless gradient")
     out.update(meshless_loss=mloss, grad_worst_rms_share=worst,
                grad_worst_leaf=leaf)
     check_twin(out, what)
@@ -4831,17 +5152,15 @@ def zero3_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
 def phase_slice14(dev, card, tp):
     """Phase 23 (docstring item 23): Megatron-SP, the sequence-split decode
     cache and (at 4 processes) ZeRO-3 of the MoE experts over processes
-    that share the card (``tp_worker``'s gloo groups), then the dry run's
-    count of the SP step against its measured peak. → the ranks' numbers
-    and the count."""
+    that share the card (``tp_worker``'s gloo groups: phase 21's, ``tp``,
+    which ran these parts after its own), then the dry run's count of the
+    SP step against its measured peak. → the ranks' numbers and the count;
+    its seconds include its parts' in phase 21's groups."""
     import torch
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    out_dir = os.path.join(ROOT, "build", "slice14_phase")
-    os.makedirs(out_dir, exist_ok=True)
-    res = {w: run_workers(w, parts, os.path.join(out_dir, f"w{w}"))
-           for w, parts in ((2, "sp,kv,ring"), (4, "sp,kv,zero3"))}
+    res = {w: tp[w] for w in SLICE14_PARTS}
     for w, ranks in res.items():
         sp = ranks[0]["sp"]
         base = tp[TP_SIZES[0]][0]["train"] if w == TP_SIZES[0] else None
@@ -4900,9 +5219,10 @@ def phase_slice14(dev, card, tp):
     if not 0.8 <= ratio <= 1.25:
         raise AssertionError(f"the SP step's measured peak is {ratio:.3f}x "
                              "the dry run's prediction, outside 0.8-1.25")
-    out = dict(ranks={str(w): r for w, r in res.items()}, dryrun=dict(
+    out = dict(ranks={str(w): [{p: x[p] for p in SLICE14_PARTS[w].split(
+        ",")} for x in r] for w, r in res.items()}, dryrun=dict(
         predicted=dry, peak_ratio=ratio),
-        phase_s=time.perf_counter() - t_phase)
+        phase_s=time.perf_counter() - t_phase + tp["slice14_s"])
     log(f"[slice14] phase 23: {out['phase_s']:.1f} s on {card}")
     return out
 
@@ -6090,8 +6410,11 @@ def main() -> int:
         examples = phase_examples(dev, card)
     with Phase(20, "slice 12, the mesh forms"):
         mesh = phase_mesh(dev, card)
-    with Phase(21, "slice 13, tensor parallelism"):
+    with Phase(21, "slice 13, tensor parallelism, and phase 23's parts in "
+               "its groups"):
         tp = phase_tp(dev, card)
+    PHASE_S[21] -= tp["slice14_s"]
+    PHASE_S[23] = tp["slice14_s"]
     with Phase(22, "the dry run against the card"):
         dry = phase_dryrun(card, tp)
     with Phase(23, "slice 14"):
@@ -6121,6 +6444,11 @@ def main() -> int:
     with Phase(24, "slice 17, granite-34b, chameleon-34b, h2o-danube-3-4b "
                "and whisper-tiny's training"):
         slice17 = phase_slice17(dev, decode_on)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase(25, "slice 18, recurrentgemma-9b, rwkv6-1.6b and "
+               "qwen3-moe-235b-a22b's training"):
+        slice18 = phase_slice18(dev)
     want = sorted(SLICE9 + tuple(name for name, _ in SLICE17))
     if sorted(decode) != want:
         raise AssertionError(f"slices 9 and 17 decoded {sorted(decode)}, not "
@@ -6185,6 +6513,17 @@ def main() -> int:
                else row["gradient_check"]["k4_bwd_launches"]}
         for name, row in slice17["train"].items()}
     k4b["slice17"] = slice17["train"]
+    # slice 18's launches: each config's training steps (phase 25)
+    k4["launches_slice18"] = {
+        name: {"train_steps": row["main"]["k4_launches"]}
+        for name, row in slice18.items()}
+    k4b["launches_slice18"] = {
+        name: {"train_steps": row["main"]["k4_bwd_launches"],
+               "held_step_calls": (row["main"]["held"] or {}).get("calls"),
+               "gradient_check": row["gradient_check"].get(
+                   "k4_bwd_launches")}
+        for name, row in slice18.items()}
+    k4b["slice18"] = slice18
     # slice 12's launches: the examples (phase 19) and the mesh step (20)
     k1["launches_examples"] = {k: v["K1"] for k, v in examples.items()
                                if isinstance(v, dict) and "K1" in v}
@@ -6214,7 +6553,9 @@ def main() -> int:
     k4b["launches_tp"] = {
         f"tp{w}": {"train_step_per_rank": tp[w][0]["train"]["k4b_tc_launches"]}
         for w in TP_SIZES if "train" in tp[w][0]}
-    k4b["slice13"] = dict(tp=tp, dryrun=dry)
+    k4b["slice13"] = dict(tp={w: [{p: x[p] for p in x if p not in set(
+        SLICE14_PARTS[w].split(","))} for x in tp[w]] for w in TP_SIZES},
+        dryrun=dry)
     # slice 14's launches: a rank of phase 23's SP train steps and its
     # prefills over the sequence-split cache
     s14 = slice14["ranks"]

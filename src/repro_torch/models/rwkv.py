@@ -93,37 +93,23 @@ def _group_norm(x, scale, n: int, eps: float = 1e-5):
     return (xh.reshape(shp) * scale.float()).to(x.dtype)
 
 
-def _wkv_chunk(s, rr, kk, vv, lw, u):
-    """One chunk of the reference's ``chunk_step`` (rwkv.py:101): float32
-    r, k, v, logw (B, H, C, N) and state s (B, H, N, N) → (s_new, o)."""
-    c = rr.shape[2]
-    lcum = torch.cumsum(lw, dim=2)                    # L_j (inclusive)
-    lprev = lcum - lw                                 # L_{j-1} (exclusive)
-    # inter-chunk: the state read, decayed to just before each step
-    o_inter = (rr * torch.exp(lprev)) @ s
-    # intra-chunk, strictly lower triangular: exp(L_{i-1} - L_j), exponent
-    # ≤ 0 where the mask keeps it
-    delta = lprev[:, :, :, None, :] - lcum[:, :, None, :, :]   # (B,H,C,C,N)
-    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=s.device),
-                      -1)[None, None, :, :, None]
-    p = torch.where(mask, torch.exp(torch.clamp(delta, max=0.0)), 0.0)
-    att = torch.einsum("bhin,bhjn,bhijn->bhij", rr, kk, p)
-    o_intra = att @ vv
-    # current-token bonus
-    o_diag = (rr * u * kk).sum(-1, keepdim=True) * vv
-    # state update: decay to the end of the chunk
-    d_out = torch.exp(lcum[:, :, -1:, :] - lcum)       # ≤ 1
-    s_new = torch.exp(lcum[:, :, -1])[..., None] * s \
-        + (kk * d_out).transpose(-1, -2) @ vv
-    return s_new, o_inter + o_intra + o_diag
-
-
 def _wkv_chunked(r, k, v, logw, u, s0, chunk: int):
     """Reference ``_wkv_chunked`` (rwkv.py:83): r, k, v, logw (B, T, H, N)
     with logw ≤ 0; u (H, N); s0 (B, H, N, N) float32 → (o (B, T, H, N)
     float32, s_last). The tail is padded with logw = 0 (w = 1), which
-    keeps the state; each chunk's (B, H, C, C, N) decay tensor is built
-    for that chunk alone."""
+    keeps the state.
+
+    The reference's ``chunk_step`` computes every term of a chunk from the
+    chunk alone but the inter-chunk read, which takes the state the chunk
+    starts with. So the chunk-local terms — the cumulative log-decays, the
+    intra-chunk (B, H, C, C, N) decay and its products, the current-token
+    bonus, each chunk's own k vᵀ update — are computed for all chunks at
+    once (the same products, with a leading chunk axis), and only the
+    state's recurrence ``s ← exp(L_C) s + Σ_j k_j d_j v_jᵀ`` loops over the
+    chunks, two operations a chunk; the inter-chunk reads then take the
+    stacked chunk-start states in one product. (A loop of whole chunk
+    steps made ~165 launches a chunk under autograd: rwkv6-1.6b's training
+    step at T = 2048 was 254,000 launches, host-bound.)"""
     bsz, t, h, n = r.shape
     c = min(chunk, t)
     nc = -(-t // c)
@@ -135,14 +121,35 @@ def _wkv_chunked(r, k, v, logw, u, s0, chunk: int):
             x = F.pad(x, (0, 0, 0, 0, 0, tp - t))
         return x.reshape(bsz, nc, c, h, n).permute(1, 0, 3, 2, 4)
 
-    rc, kc, vc, lwc = chunks(r), chunks(k), chunks(v), chunks(logw)
-    uf = u.float()[None, :, None, :]
+    # (nc, B, H, C, N)
+    rr, kk, vv, lw = chunks(r), chunks(k), chunks(v), chunks(logw)
+    lcum = torch.cumsum(lw, dim=3)                    # L_j (inclusive)
+    lprev = lcum - lw                                 # L_{j-1} (exclusive)
+    # intra-chunk, strictly lower triangular: exp(L_{i-1} - L_j), exponent
+    # ≤ 0 where the mask keeps it
+    delta = lprev[..., :, None, :] - lcum[..., None, :, :]  # (nc,B,H,C,C,N)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                      -1)[:, :, None]
+    p = torch.where(mask, torch.exp(torch.clamp(delta, max=0.0)), 0.0)
+    att = torch.einsum("zbhin,zbhjn,zbhijn->zbhij", rr, kk, p)
+    o_intra = att @ vv
+    # current-token bonus
+    o_diag = (rr * u.float()[None, None, :, None, :] * kk).sum(
+        -1, keepdim=True) * vv
+    # each chunk's state update: decay to the end of the chunk (≤ 1), and
+    # the state carried through the chunks
+    d_out = torch.exp(lcum[..., -1:, :] - lcum)
+    kv = (kk * d_out).transpose(-1, -2) @ vv         # (nc, B, H, N, N)
+    decay = torch.exp(lcum[..., -1, :])[..., None]    # (nc, B, H, N, 1)
     s = s0.float()
-    outs = []
+    starts = []
     for i in range(nc):
-        s, o = _wkv_chunk(s, rc[i], kc[i], vc[i], lwc[i], uf)
-        outs.append(o)
-    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(bsz, tp, h, n)
+        starts.append(s)
+        s = decay[i] * s + kv[i]
+    # inter-chunk: the state read, decayed to just before each step
+    o_inter = (rr * torch.exp(lprev)) @ torch.stack(starts)
+    o = o_inter + o_intra + o_diag
+    o = o.permute(1, 0, 3, 2, 4).reshape(bsz, tp, h, n)
     return o[:, :t], s
 
 

@@ -544,6 +544,57 @@ def test_slice8_prefill_on_card_matches_host(name, k4, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,k4", [("recurrentgemma-9b", 0),
+                                     ("rwkv6-1.6b", 0),
+                                     ("qwen3-moe-235b-a22b", 2)])
+def test_slice18_loss_and_grads_on_card_matches_host(name, k4, cuda_device):
+    """The training gradient of the RG-LRU, RWKV and MoE smoke models on
+    the card against the same ``loss_and_grads`` on the host, float32,
+    B = 2, T = 37 (the scans pad a tail of their chunk of 8): the loss
+    within 1e-5 relative, each gradient leaf within 1e-4 of its largest
+    magnitude (other sums of the products). K4 launches a full-attention
+    layer (qwen3-moe's two; remat is off in the smoke configs) and K4′ a
+    call of its passes each; the other two none."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import loss_and_grads
+    cfg = get_smoke_config(name)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (2, 37), dtype=np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -100
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(labels)}
+    loss, _, grads = loss_and_grads(params, batch, cfg)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(to_card(v) for v in tree)
+        return tree.to(cuda_device)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, tuple):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+    fwd, bwd = PA.FLASH_KERNEL.launches, PA.FLASH_BWD_KERNEL.launches
+    got, _, ggrads = loss_and_grads(to_card(params), to_card(batch), cfg)
+    torch.cuda.synchronize()
+    assert PA.FLASH_KERNEL.launches == fwd + k4
+    assert PA.FLASH_BWD_KERNEL.launches == bwd + k4 * PA.BWD_PASSES[
+        PA.route(torch.float32, cfg.d_head)]
+    assert abs(float(got) - float(loss)) <= 1e-5 * abs(float(loss))
+    for g, w in zip(leaves(ggrads), leaves(grads), strict=True):
+        assert g.shape == w.shape
+        assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [3, 8])
 def test_sharded_solve_on_one_card_is_one_launch_on_card(n, cuda_device):
     """n shards of one card: the sharded solve decides as the meshless
@@ -746,8 +797,10 @@ def test_flash_bwd_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
     (1, 1, 1, 2, 1, 16, True), (1, 130, 130, 4, 2, 256, True),
     (1, 40, 100, 4, 2, 200, False),
     # granite-34b's 48 query heads on one KV head (the dK/dV pass in
-    # bwd_groups(48) = 4 groups of 12) and chameleon-34b's 64 on 8
-    (1, 256, 256, 48, 1, 128, True), (1, 256, 256, 64, 8, 128, True)])
+    # bwd_groups(48) = 4 groups of 12), chameleon-34b's 64 on 8 and
+    # qwen3-moe-235b-a22b's 64 on 4 (bwd_groups(16) = 4 groups of 4)
+    (1, 256, 256, 48, 1, 128, True), (1, 256, 256, 64, 8, 128, True),
+    (1, 256, 256, 64, 4, 128, True)])
 def test_flash_bwd_tc_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
                                                    causal, cuda_device, rng):
     """The tensor-core K4′ (``csrc/flash_attn_bwd_tc.cu``) given K4's LSE

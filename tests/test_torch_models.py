@@ -46,7 +46,7 @@ from repro_torch.models import layers as TL  # noqa: E402
 DENSE = ["chatglm3-6b", "h2o-danube-3-4b", "gemma3-12b", "chameleon-34b",
          "granite-34b"]
 ALL = list(TC.ARCHS)
-# head geometries of six configs at smoke width: (config, reductions) —
+# head geometries of eight configs at smoke width: (config, reductions) —
 # granite-34b's 48 query heads on one KV head, chameleon-34b's qk-normed
 # 64 on 8, h2o-danube-3-4b's Dh 120 with its own window of 4096 (longer
 # than the tests' prompts, as at T = 2048 on the card)
@@ -63,11 +63,24 @@ HEADS = {
                                               d_head=128)),
     "danube-heads": ("h2o-danube-3-4b", dict(n_heads=32, n_kv_heads=8,
                                              d_head=120, window=4096)),
+    # qwen3-moe-235b-a22b's qk-normed 64 on 4 with its 128 experts, top-8,
+    # on the dense form; recurrentgemma-9b's local layers' MQA 16 on 1 at
+    # Dh 256 under its window of 2048; rwkv6-1.6b's WKV heads of 64 (two
+    # of them at d_model 128)
+    "qwen3-experts": ("qwen3-moe-235b-a22b", dict(
+        n_heads=64, n_kv_heads=4, d_head=128, n_experts=128, top_k=8,
+        d_expert=16, moe_impl="dense")),
+    "recurrentgemma-heads": ("recurrentgemma-9b", dict(
+        n_heads=16, n_kv_heads=1, d_head=256, window=2048)),
+    "rwkv6-heads": ("rwkv6-1.6b", dict(rwkv_head_dim=64, d_model=128)),
 }
 
 # the head geometries of the configs that run on the card since slice 17,
 # also held in the gradient and decode tests
 SLICE17_HEADS = ["granite-heads", "chameleon-heads", "danube-heads"]
+# ... and of the configs whose training runs on the card since slice 18,
+# held in the gradient tests
+SLICE18_HEADS = ["qwen3-experts", "recurrentgemma-heads", "rwkv6-heads"]
 
 
 def heads_config(name):

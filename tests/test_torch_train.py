@@ -1,9 +1,13 @@
 """The port's training gradient and step against the JAX reference, on the
 CPU in float32: for all ten smoke configs and for granite-34b's,
-chameleon-34b's and h2o-danube-3-4b's head geometries at smoke width
-(``test_torch_models.HEADS``), the loss and every gradient
-leaf of ``repro_torch.training.optimizer.loss_and_grads`` against
-``jax.value_and_grad(repro.models.loss_fn)``; remat on or off leaves the
+chameleon-34b's, h2o-danube-3-4b's, qwen3-moe-235b-a22b's (its heads, and
+its heads with its 128 experts), recurrentgemma-9b's and rwkv6-1.6b's head
+geometries at smoke width (``test_torch_models.HEADS``), the loss and every
+gradient leaf of ``repro_torch.training.optimizer.loss_and_grads`` against
+``jax.value_and_grad(repro.models.loss_fn)``, and for recurrentgemma-9b's
+and rwkv6-1.6b's smoke configs at their full configs' scan chunk of 32
+over T = 80 (two chunk boundaries and a 16-step tail, through the scans'
+backward); remat on or off leaves the
 gradients bit for bit; ``param_specs`` of the ten full configs; and
 three ``make_train_step`` steps against the reference's.
 
@@ -45,8 +49,8 @@ from repro_torch.convert import lm_params  # noqa: E402
 from repro_torch.models import param_specs  # noqa: E402
 from repro_torch.training import optimizer as TO  # noqa: E402
 
-from test_torch_models import (SLICE17_HEADS, _flat,  # noqa: E402
-                               _port_cfg, heads_config)
+from test_torch_models import (SLICE17_HEADS, SLICE18_HEADS,  # noqa: E402
+                               _flat, _port_cfg, heads_config)
 
 ALL = list(TC.ARCHS)
 B, T, ENC_LEN = 2, 24, 16
@@ -55,9 +59,9 @@ _J_GRAD = jax.jit(jax.value_and_grad(j_loss_fn, has_aux=True),
                   static_argnums=2)
 
 
-def _batch(cfg, seed=1, b=B):
+def _batch(cfg, seed=1, b=B, t=T):
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (b, T), dtype=np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (b, t), dtype=np.int32)
     labels = np.roll(toks, -1, axis=1)
     labels[:, -1] = -100
     labels[0, :3] = -100
@@ -103,12 +107,28 @@ def _port_grads(params, batch, cfg):
     return loss, _flat_grads(grads)
 
 
-@pytest.mark.parametrize("name", ALL + SLICE17_HEADS)
-def test_loss_and_grads_match_reference(name):
-    jcfg, cfg, jparams, params = _models(name)
-    batch = _batch(cfg)
-    (jloss, _), jgrads = _J_GRAD(jparams, {k: jnp.asarray(v) for k, v in
-                                           batch.items()}, jcfg)
+def _held_against_reference(name, t=T, seed=1, conditioned=False,
+                            **overrides):
+    """The loss and every gradient leaf of the port's ``loss_and_grads``
+    against ``jax.value_and_grad`` of the reference's ``loss_fn`` on the
+    same weights and a (B, t) batch drawn from ``seed``, within LOSS_TOL
+    and GRAD_TOL of each leaf's largest magnitude. ``conditioned`` first
+    holds the premise that float32 can meet GRAD_TOL on this input: the
+    reference's own gradient, its weights moved by 1e-7 relative noise,
+    stays within a quarter of GRAD_TOL."""
+    jcfg, cfg, jparams, params = _models(name, **overrides)
+    batch = _batch(cfg, seed=seed, t=t)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, _), jgrads = _J_GRAD(jparams, jbatch, jcfg)
+    if conditioned:
+        rng = np.random.default_rng(3)
+        moved = jax.tree.map(lambda a: a * (1 + 1e-7 * rng.standard_normal(
+            a.shape)).astype(np.float32), jparams)
+        want = _flat(jgrads)
+        for path, w in _flat(_J_GRAD(moved, jbatch, jcfg)[1]).items():
+            w0 = np.asarray(want[path])
+            assert np.abs(np.asarray(w) - w0).max() <= GRAD_TOL / 4 * max(
+                np.abs(w0).max(), 1e-6), (path, "ill-conditioned input")
     loss, grads = _port_grads(params, batch, cfg)
     assert abs(float(loss) - float(jloss)) <= LOSS_TOL
     want = _flat(jgrads)
@@ -118,6 +138,28 @@ def test_loss_and_grads_match_reference(name):
         assert g.shape == w.shape and g.dtype == w.dtype, path
         assert np.abs(g - w).max() <= GRAD_TOL * max(np.abs(w).max(), 1e-6), \
             (path, float(np.abs(g - w).max()), float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("name", ALL + SLICE17_HEADS + ["qwen3-heads"]
+                         + SLICE18_HEADS)
+def test_loss_and_grads_match_reference(name):
+    _held_against_reference(name)
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "rwkv6-1.6b"])
+def test_scan_grads_cross_chunks(name):
+    """The RG-LRU scan's and the WKV chunks' backward across chunks: the
+    smoke config at the full config's ``chunk_rec`` of 32 and T = 80, so
+    that the scan crosses two chunk boundaries and pads a 16-step tail.
+    The batch is seed 3's, and the test first holds that float32 can meet
+    GRAD_TOL on it: at seed 1's (80 tokens a row), rwkv6's first-layer WKV
+    output of row 1's first token on head 1 cancels to a group variance of
+    3.8e-8, far under the group norm's eps of 1e-5, and there 1e-7
+    relative noise on that token's r and k moves mu_k's gradient by 4.3e-4
+    of its largest magnitude; the reference's own gradient moves by 9.4e-4
+    under such noise on its weights, in both frameworks alike."""
+    _held_against_reference(name, t=80, seed=3, conditioned=True,
+                            chunk_rec=32)
 
 
 @pytest.mark.parametrize("name", ALL)
