@@ -388,7 +388,30 @@ paths against its plain PyTorch version:
    ``loss_and_grads`` against the host's (``phase_scan_grads``: one whole
    repeat, B = 1, T = 80 at the config's chunk of 32, the vocabulary cut
    to 32,768; the loss within 1e-5 relative, each leaf within 1e-4 of its
-   largest magnitude).
+   largest magnitude);
+26. SLICE 19'S MAIN PATH (after phase 25), the reference's serving cells
+   (``launch/specs.py``) at one data rank's batch, bf16 at full width,
+   seeded (``--seed``, default 0): the rotary angles of all ten configs
+   on the card bit for bit the host's at positions up to 524,287;
+   prefill_32k (B = 2, T = 32768, ``cache_len`` 32768) of chatglm3-6b
+   whole (K4 at (2, 32768, 32/2, 128), 28 launches) and gemma3-12b at
+   ``DECODE_GEMMA_LAYERS`` (2 global layers on K4 at (2, 32768, 16/8,
+   256), 10 local ones banded) through phase 9's prefill check — every
+   K4 call held against its plain version by blocks of query rows
+   (``k4_plain``), the plain twin's blocks on the K4 run's inputs within
+   the ``PREFILL_*_TOL`` — and of rwkv6-1.6b whole (its WKV's chunk decays
+   in groups of ``models/rwkv.py::WKV_GROUP_BYTES``): wall ms, busy share,
+   K4's share, launches, peak memory; decode_32k: chatglm3-6b whole, B =
+   8, 32 steps at positions 32736-32767 against a full 32768-slot cache
+   drawn on the card; long_500k: recurrentgemma-9b, rwkv6-1.6b and
+   h2o-danube-3-4b whole, B = 1, 32 steps at positions 524256-524287
+   from a full state and rings: ms a step, tokens/s, launches a step, busy
+   share, peak, the byte bound (``phase_long_decode``); each decode held
+   in float32 on the card against the host at ``LONG_CHECK_LAYERS``
+   (``long_decode_f32``: logits within ``LONG_F32_TOL`` of the host's row
+   rms, the top-1 tokens equal). Phases 8 and 10 hold and time K4 at both
+   prefill_32k shapes (``K4_LONG_SHAPES``), phase 10 beside SDPA's forward
+   in turn.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -465,7 +488,12 @@ K4_SHAPES = ((8, 16, 16, 32, 2, 128, True), (2, 2048, 2048, 32, 2, 128, True),
              # slice 17: granite-34b (48 query heads on one KV head) and
              # chameleon-34b (64 on 8) at T = 2048
              (2, 2048, 2048, 48, 1, 128, True),
-             (2, 2048, 2048, 64, 8, 128, True))
+             (2, 2048, 2048, 64, 8, 128, True),
+             # slice 19: prefill_32k's, chatglm3-6b's and gemma3-12b's
+             # global layers at T = 32768 (held by blocks of query rows)
+             (2, 32768, 32768, 32, 2, 128, True),
+             (2, 32768, 32768, 16, 8, 256, True))
+K4_LONG_SHAPES = K4_SHAPES[-2:]
 # K4 heads wider than the tensor-core tiles (route: the CUDA-core kernel's
 # Dh <= 512 tile, in both types)
 K4_WIDE_SHAPES = ((2, 77, 77, 8, 4, 320, True), (1, 40, 100, 4, 2, 320, False))
@@ -574,8 +602,14 @@ K4B_TERMS = 2 ** -20
 # the emulation (``tools/k4b_rounding_probe.py``)
 K4B_TC_RSS = 2 ** -6
 # the most score elements a K4 call's plain reference computes in one call
-# (``k4_call_excess``; 256 MB of float32)
+# (``k4_call_excess``; 256 MB of float32), and in one block of query rows
+# past that (``k4_plain``: 128 rows of 16 query heads at T = 32768)
 K4_REF_WHOLE = 1 << 26
+# the most score elements the plain twins of the prefills and phase 8's
+# checks compute in one call (2 GB of float32: qwen3-moe's and
+# chameleon-34b's (2, 2048, 64 heads), the largest at T = 2048); past it
+# (T = 32768) they take ``k4_plain``'s blocks
+K4_PLAIN_WHOLE = 1 << 29
 LM_ARCH, LM_TICKS = "chatglm3-6b", 3
 PREFILL_B, PREFILL_T = 2, 2048
 # K4's prefill against its plain twin, each block of the twin on the K4
@@ -741,6 +775,29 @@ SLICE18_TRAIN = ("recurrentgemma-9b", "rwkv6-1.6b", "qwen3-moe-235b-a22b")
 SCAN_CHECK_LAYERS = {"recurrentgemma-9b": 3, "rwkv6-1.6b": 2}
 SCAN_CHECK_T, SCAN_CHECK_VOCAB = 80, 32768
 SCAN_LOSS_RTOL, SCAN_GRAD_TOL = 1e-5, 1e-4
+# slice 19: the reference's serving cells (``src/repro/launch/specs.py``:
+# prefill_32k, decode_32k, long_500k) at one data rank's batch of its
+# (16, 16) mesh on one card — a B = 2, T = 32768 prefill (chatglm3-6b
+# whole, gemma3-12b at DECODE_GEMMA_LAYERS, rwkv6-1.6b whole), a B = 8
+# decode against 32768 slots (chatglm3-6b), and B = 1 at position 524,287
+# (the three LONG_CONTEXT_OK configs that fit the card: gemma3-12b's 8
+# global layers would hold 32 GiB of cache beside 22 GiB of weights, and
+# decode_step's re-stack copies it again; mixtral's bf16 weights are 87
+# GiB). Each decode takes DECODE_STEPS steps, the last at the cell's last
+# position, from a full cache drawn from SEED (``--seed``) on the card.
+# The float32 checks, the card against the host on the same weights,
+# cache and tokens, run at LONG_CHECK_LAYERS (one pattern repeat; for
+# decode_32k chatglm3-6b's first two layers of the same cache), the
+# long_500k ones with the vocabulary cut to SCAN_CHECK_VOCAB: each step's
+# logits within LONG_F32_TOL of the host's row's rms (float32 sums in
+# another order), the top-1 tokens equal
+LONG_T, LONG_DECODE_B, LONG_POS = 32768, 8, 524287
+LONG_500K = ("recurrentgemma-9b", "rwkv6-1.6b", "h2o-danube-3-4b")
+LONG_CHECK_LAYERS = {"chatglm3-6b": 2, "recurrentgemma-9b": 3,
+                     "rwkv6-1.6b": 1, "h2o-danube-3-4b": 1}
+LONG_F32_TOL = 1e-4
+LONG_ROTARY_POSITIONS = (0, 2047, 32767, 524287)
+SEED = 0
 
 
 def log(*args):
@@ -1731,6 +1788,17 @@ def k4_inputs(rng, shape, dev, dtype):
         for s in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh))]
 
 
+def k4_card_inputs(shape, dev, dtype, seed=5):
+    """Unit-normal q, k, v for a K4 shape drawn on the card from a seeded
+    generator: at T = 32768 a host draw of q alone is 268 M numbers."""
+    import torch
+    b, tq, tk, hq, hkv, dh, _ = shape
+    gen = torch.Generator(dev).manual_seed(seed)
+    return [torch.randn(s, device=dev, generator=gen).to(getattr(torch,
+                                                                 dtype))
+            for s in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh))]
+
+
 def k4_excess(out, ref) -> float:
     """K4's error against ``ref`` (its plain version in float32 on the
     same inputs) as a share of the tolerance: at most 1 passes. float32:
@@ -1817,7 +1885,8 @@ def phase_k4(dev, shapes=K4_SHAPES):
     for kernel, dtype in checks:
         by_shape, lse_err = [], []
         for shape in shapes:
-            q, k, v = k4_inputs(rng, shape, dev, dtype)
+            q, k, v = k4_inputs(rng, shape, dev, dtype) \
+                if shape[1] <= PREFILL_T else k4_card_inputs(shape, dev, dtype)
             causal = shape[-1]
             if kernel == PA.route(q.dtype, q.shape[3]):
                 out = PA.flash_attention_fwd(q, k, v, causal=causal)
@@ -1827,9 +1896,8 @@ def phase_k4(dev, shapes=K4_SHAPES):
             # the first's, bit for bit
             again, lse = PA.launch(kernel, q, k, v, causal=causal,
                                    with_lse=True)
-            ref, lref = PA.flash_attention_fwd_ref(
-                q.float(), k.float(), v.float(), causal=causal,
-                with_lse=True)
+            ref, lref = k4_plain(q.float(), k.float(), v.float(), causal,
+                                 with_lse=True, whole=K4_PLAIN_WHOLE)
             torch.cuda.synchronize()
             e = (lse - lref).abs().max().item()
             if not e <= K4_LSE_TOL:
@@ -2438,7 +2506,8 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T, k4=None):
     """``prefill`` at (b, t) through K4 (``k4`` launches, default one a
     layer, all on the tensor-core kernel), each K4 call held to phase 8's
     tolerance on its own inputs; then its twin with the full-attention
-    route pointed at K4's plain version (and, where K4 launched, as
+    route pointed at K4's plain version (``k4_plain``: by blocks of query
+    rows at T = 32768) (and, where K4 launched and t <= ``PREFILL_T``, as
     yardsticks, at K4's CUDA-core kernel and at SDPA), every block of it
     on the K4 run's input to that block (``BlockLog``) and, in an MoE
     model, with the K4 run's experts (where the twin's own router logits
@@ -2481,8 +2550,9 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T, k4=None):
                                  f"{(b, cfg.vocab_size)}")
     del timed
 
-    MA.attn_kernel = types.SimpleNamespace(
-        flash_attention_fwd=PA.flash_attention_fwd_ref)
+    def plain(q, k, v, *, causal=True):
+        return k4_plain(q, k, v, causal, whole=K4_PLAIN_WHOLE)
+    MA.attn_kernel = types.SimpleNamespace(flash_attention_fwd=plain)
     try:
         with RouteLog(force=routes) as twin, \
                 BlockLog(force=blocks) as twin_blocks:
@@ -2545,10 +2615,12 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T, k4=None):
     if not d_block <= PREFILL_BLOCK_TOL:
         raise AssertionError(f"a block's output differs beyond "
                              f"{PREFILL_BLOCK_TOL} of its row's rms")
-    if k4:
+    # past T = 2048 (the serving cells) the yardsticks, a prefill each, are
+    # left out, and the timed run and the twin have warmed every kernel
+    if k4 and t <= PREFILL_T:
         yardsticks(run, kernel_route, routes, blocks, logits, pl)
     wall_us, kern, count = profile_call(run, f"{cfg.name} prefill B={b} "
-                                        f"T={t}")
+                                        f"T={t}", warm=t <= PREFILL_T)
     busy = sum(kern.values())
     k4_us = sum(us for name, us in kern.items() if "flash_tc_kernel" in name)
     log(f"[trace] {cfg.name} prefill B={b} T={t}: K4 (flash_tc_kernel) "
@@ -2566,27 +2638,79 @@ def phase_lm_prefill(dev, cfg, params, b=PREFILL_B, t=PREFILL_T, k4=None):
                 k4_share_of_busy=k4_us / max(busy, 1e-9))
 
 
-def k4_call_excess(q, k, v, causal, out) -> float:
-    """One K4 call against the plain version in float32 on its inputs, as
-    a share of the phase-8 tolerance (``k4_excess``). In one call where its
-    scores have at most ``K4_REF_WHOLE`` elements, else a KV head of a
-    batch row at a time: float32 scores of one head group (0.27 GB at
-    qwen3's 16 query heads a KV head, T = 2048)."""
+def k4_block_ref(q, k, v, causal, row0):
+    """K4's plain version on a block of query rows: q (B, R, Hq, Dh) the
+    rows ``row0``..``row0`` + R - 1 of a call, k and v (B, Tk', Hkv, Dh)
+    its first Tk' keys (every key a causal row of the block may see), in
+    float32 with ``flash_attention_fwd_ref``'s arithmetic — scale, NEG,
+    GQA map, ``acc / max(l, 1e-30)`` — and its causal mask shifted by
+    ``row0`` (key j is seen by row i where j <= row0 + i). Returns
+    (out float32 (B, R, Hq, Dh), lse (B, Hq, R))."""
     import torch
     from repro_torch.kernels.attn import attn as PA
-    if q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1] <= K4_REF_WHOLE:
-        return k4_excess(out, PA.flash_attention_fwd_ref(
-            q.float(), k.float(), v.float(), causal=causal))
+    b, rows, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qh = (q.float() * dh ** -0.5).reshape(b, rows, hkv, g, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, k.float())
+    if causal:
+        seen = torch.arange(tk, device=q.device)[None, :] \
+            <= row0 + torch.arange(rows, device=q.device)[:, None]
+        s.masked_fill_(~seen, PA.NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = s.sub_(m).exp_()            # in place: the block's one score tensor
+    pv = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    l = p.sum(dim=-1)                                    # (B, Hkv, G, R)
+    del p
+    out = pv / torch.clamp(l.permute(0, 3, 1, 2)[..., None], min=1e-30)
+    lse = m[..., 0] + torch.log(torch.clamp(l, min=1e-30))
+    return out.reshape(b, rows, hq, dh), lse.reshape(b, hq, rows)
+
+
+def k4_plain(q, k, v, causal, with_lse=False, whole=None):
+    """K4's plain version on any call, computed in float32 and cast to q's
+    type as ``flash_attention_fwd_ref`` casts (the checks pass float32
+    inputs): that function in one call where the call's scores have at
+    most ``whole`` elements (default ``K4_REF_WHOLE``); else a KV head of
+    a batch row at a time, in blocks of query rows whose scores have at
+    most ``K4_REF_WHOLE`` elements (``k4_block_ref``: 128 rows of 16
+    query heads at T = 32768; a causal block against the keys up to its
+    last row). With ``with_lse`` also each row's float32 log-sum-exp (B,
+    Hq, Tq)."""
+    import torch
+    from repro_torch.kernels.attn import attn as PA
+    b, tq, hq, _ = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    if b * hq * tq * tk <= (K4_REF_WHOLE if whole is None else whole):
+        return PA.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                          with_lse=with_lse)
+    g = hq // hkv
+    rows = max(1, K4_REF_WHOLE // (g * tk))
     ref = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    g = q.shape[2] // k.shape[2]
-    for b in range(q.shape[0]):
-        for h in range(k.shape[2]):
+    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    for i in range(b):
+        for h in range(hkv):
             heads = slice(h * g, (h + 1) * g)
-            ref[b:b + 1, :, heads] = PA.flash_attention_fwd_ref(
-                q[b:b + 1, :, heads].float(),
-                k[b:b + 1, :, h:h + 1].float(),
-                v[b:b + 1, :, h:h + 1].float(), causal=causal)
-    return k4_excess(out, ref)
+            qs = q[i:i + 1, :, heads]
+            ks, vs = k[i:i + 1, :, h:h + 1], v[i:i + 1, :, h:h + 1]
+            for r0 in range(0, tq, rows):
+                r1 = min(r0 + rows, tq)
+                keys = min(r1, tk) if causal else tk
+                o, l = k4_block_ref(qs[:, r0:r1], ks[:, :keys],
+                                    vs[:, :keys], causal, r0)
+                ref[i:i + 1, r0:r1, heads] = o
+                lse[i:i + 1, heads, r0:r1] = l
+    out = ref.to(q.dtype)
+    return (out, lse) if with_lse else out
+
+
+def k4_call_excess(q, k, v, causal, out) -> float:
+    """One K4 call against the plain version in float32 on its inputs, as
+    a share of the phase-8 tolerance (``k4_excess``), computed by
+    ``k4_plain``: in one call where its scores have at most
+    ``K4_REF_WHOLE`` elements, else a KV head of a batch row at a time, by
+    blocks of query rows past that (T = 32768)."""
+    return k4_excess(out, k4_plain(q.float(), k.float(), v.float(), causal))
 
 
 class K4Checked:
@@ -4035,6 +4159,323 @@ def phase_slice18(dev):
             reserve=GEMMA_TRAIN_RESERVE, held=held))
     if failed:
         raise AssertionError("slice 18: " + "; ".join(failed))
+    return out
+
+
+# -------------------------------------------------------------- slice 19
+
+def rotary_on_card(dev) -> dict:
+    """``models/layers.py::rotary_angles`` of every config at its own
+    (d_head · rope_fraction, rope_theta) on the card against the host's,
+    bit for bit, at positions 0, 2047, 32767 and 524,287 (the host's is
+    the reference's table, ``tests/test_torch_long_context.py``); cos and
+    sin, each side's libm, reported. Returns cos/sin's largest difference
+    by config."""
+    import torch
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models.layers import rotary_angles
+    pos = torch.tensor(LONG_ROTARY_POSITIONS)
+    out, bad = {}, []
+    for name in ARCHS:
+        cfg = get_config(name)
+        d_rot = int(cfg.d_head * cfg.rope_fraction)
+        host = rotary_angles(pos, d_rot, cfg.rope_theta)
+        card = rotary_angles(pos.to(dev), d_rot, cfg.rope_theta).cpu()
+        if not torch.equal(host, card):
+            bad.append(name)
+        out[name] = max((torch.cos(card.to(dev)).cpu() - torch.cos(host))
+                        .abs().max().item(),
+                        (torch.sin(card.to(dev)).cpu() - torch.sin(host))
+                        .abs().max().item())
+    log(f"[slice19] rotary angles of all {len(out)} configs at positions "
+        f"{list(LONG_ROTARY_POSITIONS)}: the card's "
+        + ("equal the host's bit for bit" if not bad
+           else f"DIFFER from the host's for {bad}")
+        + f"; cos and sin (each side's libm) within "
+        f"{max(out.values()):.3g} of the host's")
+    if bad:
+        raise AssertionError(f"the card's rotary angles differ from the "
+                             f"host's for {bad}")
+    return out
+
+
+def draw_cache(cfg, b, cache_len, dev, gen, dtype=None):
+    """A full decode cache of ``cfg`` for ``b`` rows and ``cache_len``
+    slots (a ring of the window for "local" layers), every leaf — K and V,
+    the RG-LRU's ``h`` and conv carry, the WKV state and shifts — drawn
+    unit normal from ``gen`` on ``dev``, in the leaf's type or ``dtype``."""
+    import torch
+    from repro_torch.models import cache_specs
+    from repro_torch.tree import tree_map
+    return tree_map(lambda s: torch.randn(
+        s.shape, generator=gen, device=dev,
+        dtype=s.dtype if dtype is None else dtype),
+        cache_specs(cfg, b, cache_len))
+
+
+def long_decode_run(params, cache, toks, pos0, cfg):
+    """``decode_step`` once a row of ``toks`` (n, B) at positions pos0,
+    pos0 + 1, ...: the logits of each step and the last cache."""
+    from repro_torch.models import decode_step
+    out = []
+    for j in range(toks.shape[0]):
+        lg, cache = decode_step(params, cache, toks[j], pos0 + j, cfg)
+        out.append(lg)
+    return out, cache
+
+
+def phase_long_decode(dev, cfg, params, b, cache_len, pos0, seed,
+                      n=DECODE_STEPS):
+    """A reference serving cell's decode on the card: ``cfg`` (bf16) at
+    ``b`` rows against a full cache of ``cache_len`` slots drawn from
+    ``seed`` on the card (``draw_cache``), ``n`` ``decode_step``s at
+    positions pos0 .. pos0 + n - 1 on seeded tokens, counts zeroed just
+    before and read just after (no K4: decode attends in plain PyTorch);
+    the steps again from the same cache, bit for bit (timed: ms a step,
+    tokens/s); the step's bound (the weights and the cache read once at
+    3.35 TB/s); ``DECODE_TRACE_STEPS`` steps traced (launches a step,
+    busy share); peak memory. Returns (the run's numbers, the cache)."""
+    import torch
+    from repro_torch.kernels.attn import attn as PA
+    start = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(seed)
+    cache = draw_cache(cfg, b, cache_len, dev, gen)
+    toks = torch.randint(0, cfg.vocab_size, (n, b), generator=gen,
+                         device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run, _ = long_decode_run(params, cache, toks, pos0, cfg)
+    torch.cuda.synchronize()
+    if PA.FLASH_KERNEL.launches:
+        raise AssertionError(f"{cfg.name}: the decode launched K4 "
+                             f"{PA.FLASH_KERNEL.launches} times")
+    for lg in run:
+        if lg.shape != (b, cfg.vocab_size) \
+                or not torch.isfinite(lg.float()).all():
+            raise AssertionError(f"{cfg.name}: decode logits are not finite "
+                                 f"of shape {(b, cfg.vocab_size)}")
+    t0 = time.perf_counter()
+    again, last = long_decode_run(params, cache, toks, pos0, cfg)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    peak = torch.cuda.max_memory_allocated()
+    if not all(torch.equal(a, c) for a, c in zip(run, again, strict=True)):
+        raise AssertionError(f"{cfg.name}: a repeat of the decode gave "
+                             "other logits")
+    w_bytes, c_bytes = decode_bytes(cfg, params, last, b)
+    bound_ms = (w_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3
+    del again, last, run
+    steps = DECODE_TRACE_STEPS
+    wall_us, kern, count = profile_call(
+        lambda: long_decode_run(params, cache, toks[:steps], pos0, cfg),
+        f"{cfg.name} {steps} decode steps B={b} at {pos0}", warm=False)
+    busy = sum(kern.values())
+    copy_us = sum(us for name, us in kern.items()
+                  if "CatArrayBatchedCopy" in name)
+    row = dict(layers=cfg.n_layers, batch=b, cache_len=cache_len,
+               positions=[pos0, pos0 + n - 1], steps=n, step_ms=step_ms,
+               tokens_per_s=b * 1e3 / step_ms, bound_ms=bound_ms,
+               weight_gb=w_bytes / 1e9, cache_gb=c_bytes / 1e9,
+               launches_per_step=count / steps, busy_share=busy / wall_us,
+               copy_ms=copy_us / steps / 1e3, peak_gib=peak / 2**30,
+               k4_launches=0, phase_s=time.perf_counter() - start)
+    log(f"[slice19] {cfg.name} ({cfg.n_layers} layers, bf16) decode B={b} "
+        f"against {cache_len} slots at positions {pos0}-{pos0 + n - 1}: "
+        f"{step_ms:.2f} ms a step, {b * 1e3 / step_ms:.1f} tokens/s; "
+        f"{count / steps:.0f} launches a step, device busy "
+        f"{100 * busy / wall_us:.1f} % over {steps} steps, the cache copies "
+        f"(cat/stack kernels) {copy_us / steps / 1e3:.3f} ms a step; bound "
+        f"{bound_ms:.3f} ms a step ({w_bytes / 1e9:.2f} GB of weights, "
+        f"{c_bytes / 1e9:.3f} GB of cache and state at 3.35 TB/s); peak "
+        f"memory {peak / 2**30:.2f} GiB; K4 0 launches; a repeat bit for "
+        f"bit; on {nvidia_smi()}")
+    return row, cache
+
+
+def long_decode_f32(dev, name, layers, b, cache_len, pos0, seed, vocab=None,
+                    cache=None, n=DECODE_STEPS):
+    """A serving cell's decode in float32 on the card against the same
+    steps of the port on the host: ``name`` at full width and ``layers``
+    layers (the vocabulary cut to ``vocab`` where given), the weights
+    drawn on the card from ``seed`` and copied to the host, the cache
+    ``cache`` (a host tree, float32) or one drawn from ``seed``, ``n``
+    steps at pos0 .. on the same seeded tokens: each step's logits within
+    ``LONG_F32_TOL`` of the host's row's rms, and each step's top-1 token
+    equal. Returns the worst share and the seconds."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    base = get_config(name)
+    cfg = dataclasses.replace(base, n_layers=layers, param_dtype="float32",
+                              vocab_size=vocab or base.vocab_size)
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = init_params(gen, cfg, dev)
+    if cache is None:
+        cache = _to(draw_cache(cfg, b, cache_len, dev, gen), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (n, b), generator=gen,
+                         device=dev)
+    card, _ = long_decode_run(params, _to(cache, dev), toks, pos0, cfg)
+    card = torch.stack(card).cpu()
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    params = _to(params, "cpu")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    host, _ = long_decode_run(params, cache, toks.cpu(), pos0, cfg)
+    host = torch.stack(host)
+    t_host = time.perf_counter() - t1
+    rms = host.pow(2).mean(-1, keepdim=True).sqrt().clamp(min=1e-30)
+    share = ((card - host).abs() / rms).max().item() / LONG_F32_TOL
+    same = (card.argmax(-1) == host.argmax(-1)).all().item()
+    log(f"[slice19] {name} float32 at {layers} layers"
+        + (f", the vocabulary cut to {vocab}" if vocab else "")
+        + f", B={b}, {n} steps at positions {pos0}-{pos0 + n - 1}: the "
+        f"card's logits within {share:.3g} of {LONG_F32_TOL} of the host's "
+        f"row rms; top-1 tokens {'equal' if same else 'DIFFER'}; card "
+        f"{t_card:.1f} s, host {t_host:.1f} s")
+    if not (share <= 1.0 and same):
+        raise AssertionError(f"{name} in float32: the card's decode differs "
+                             f"from the host's ({share:.3g} of the bound, "
+                             f"top-1 equal {same})")
+    return dict(layers=layers, vocab=cfg.vocab_size, share=share,
+                top1_equal=same, card_s=t_card, host_s=t_host,
+                phase_s=time.perf_counter() - t0)
+
+
+def phase_long_prefill(dev, cfg, params, b, t):
+    """A prefill of a config with no full-attention layer (no K4): seeded
+    tokens (b, t) through ``prefill`` with ``cache_len`` t, counts zeroed
+    just before and read just after (K4 0); a warm run, a timed one, a
+    trace (launches, busy share); logits finite; peak memory against the
+    card's. Returns the run's numbers."""
+    import torch
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.models import prefill
+    batch = prefill_batch(dev, cfg, b, t)
+
+    def run():
+        return prefill(params, batch, cfg, cache_len=t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    logits, _ = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, _ = run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if PA.FLASH_KERNEL.launches:
+        raise AssertionError(f"{cfg.name}'s prefill launched K4")
+    for out in (logits, timed):
+        if out.shape != (b, cfg.vocab_size) \
+                or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"{cfg.name}: prefill logits are not "
+                                 f"finite of shape {(b, cfg.vocab_size)}")
+    del logits, timed
+    wall_us, kern, count = profile_call(run, f"{cfg.name} prefill B={b} "
+                                        f"T={t}", warm=False)
+    busy = sum(kern.values())
+    total = torch.cuda.get_device_properties(dev).total_memory
+    log(f"[slice19] {cfg.name} ({cfg.n_layers} layers, bf16) prefill B={b} "
+        f"T={t}: {wall:.1f} ms, {count} launches, device busy "
+        f"{100 * busy / wall_us:.1f} %, K4 0 launches; peak memory "
+        f"{peak / 2**30:.2f} GiB of the card's {total / 2**30:.2f}")
+    return dict(shape=[b, t], wall_ms=wall, trace_wall_ms=wall_us / 1e3,
+                trace_launches=count, device_busy_share=busy / wall_us,
+                peak_gib=peak / 2**30, k4_launches=0)
+
+
+def phase_slice19(dev, seed=SEED):
+    """SLICE 19'S MAIN PATH, the reference's serving cells
+    (``launch/specs.py``: prefill_32k, decode_32k, long_500k) at one data
+    rank's batch on the card, through ``prefill`` and ``decode_step``,
+    bf16 at full width from seeded generators. Every part runs even after
+    another fails; the phase then raises with every failure. Returns each
+    part's numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    out, failed = {}, []
+
+    def part(what, fn):
+        t0 = time.perf_counter()
+        try:
+            got = fn()
+        except (AssertionError, torch.OutOfMemoryError) as e:
+            log(f"[slice19] {what} FAILED: {e}")
+            failed.append(f"{what}: {e}")
+            got = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[slice19] {what}: {time.perf_counter() - t0:.1f} s")
+        return got
+    out["rotary"] = part("the rotary angles on the card",
+                         lambda: rotary_on_card(dev))
+    # chatglm3-6b, phase 9's weights: prefill_32k, then decode_32k
+    cfg = get_config(LM_ARCH)
+    params = lm_model(dev, cfg)
+    out["prefill_32k"] = {LM_ARCH: part(
+        f"{LM_ARCH}'s prefill_32k", lambda: phase_lm_prefill(
+            dev, cfg, params, b=PREFILL_B, t=LONG_T))}
+    held = {}
+
+    def decode_32k():
+        row, cache = phase_long_decode(dev, cfg, params, LONG_DECODE_B,
+                                       LONG_T, LONG_T - DECODE_STEPS, seed)
+        layers = LONG_CHECK_LAYERS[LM_ARCH]
+        held["cache"] = _to({"scan": {k: {n: x[:layers].float() for n, x
+                                          in c.items()}
+                                      for k, c in cache["scan"].items()}},
+                            "cpu")
+        return row
+    out["decode_32k"] = {LM_ARCH: part(f"{LM_ARCH}'s decode_32k",
+                                       decode_32k)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "cache" in held:
+        out["decode_32k_f32"] = {LM_ARCH: part(
+            f"{LM_ARCH}'s decode_32k in float32, the card against the host",
+            lambda: long_decode_f32(
+                dev, LM_ARCH, LONG_CHECK_LAYERS[LM_ARCH], LONG_DECODE_B,
+                LONG_T, LONG_T - DECODE_STEPS, seed,
+                cache=held.pop("cache")))}
+    # gemma3-12b at phase 14's 12 layers: 2 global layers on K4 at Dh 256
+    cfg = dataclasses.replace(get_config("gemma3-12b"),
+                              n_layers=DECODE_GEMMA_LAYERS)
+    params = lm_model(dev, cfg)
+    out["prefill_32k"]["gemma3-12b"] = part(
+        "gemma3-12b's prefill_32k", lambda: phase_lm_prefill(
+            dev, cfg, params, b=PREFILL_B, t=LONG_T,
+            k4=attention_layers(cfg)[1]))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # long_500k, and rwkv6-1.6b's prefill_32k on its weights
+    out["long_500k"], out["long_500k_f32"] = {}, {}
+    for name in LONG_500K:
+        cfg = get_config(name)
+        params = lm_model(dev, cfg)
+        if name == "rwkv6-1.6b":
+            out["prefill_32k"][name] = part(
+                f"{name}'s prefill_32k", lambda: phase_long_prefill(
+                    dev, cfg, params, PREFILL_B, LONG_T))
+        out["long_500k"][name] = part(
+            f"{name}'s long_500k", lambda: phase_long_decode(
+                dev, cfg, params, 1, LONG_POS + 1,
+                LONG_POS + 1 - DECODE_STEPS, seed)[0])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["long_500k_f32"][name] = part(
+            f"{name}'s long_500k in float32, the card against the host",
+            lambda: long_decode_f32(
+                dev, name, LONG_CHECK_LAYERS[name], 1, LONG_POS + 1,
+                LONG_POS + 1 - DECODE_STEPS, seed, vocab=SCAN_CHECK_VOCAB))
+    if failed:
+        raise AssertionError("slice 19: " + "; ".join(failed))
     return out
 
 
@@ -6268,6 +6709,62 @@ def time_k4(dev, engine_shapes, launches, prefill_launches, err, ptxas):
     return row, core_row
 
 
+def time_k4_long(dev) -> dict:
+    """K4 at slice 19's prefill_32k shapes (``K4_LONG_SHAPES``), bf16 on
+    the tensor cores (the route), and SDPA's forward on the same inputs in
+    turn (median, least and largest of 5 repeats), beside the bound; its
+    plain version (``k4_plain``, by blocks of query rows) once, and the
+    kernel's device time from the profiler. Returns the rows by shape."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.attn import attn as PA
+    rows = {}
+    for shape in K4_LONG_SHAPES:
+        q, k, v = k4_card_inputs(shape, dev, "bfloat16", seed=7)
+        causal = shape[-1]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            # the memory-bounded backends only: the math one would hold
+            # the (2, Hq, 32768, 32768) scores
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+        times = interleaved({
+            "k4": lambda: PA.flash_attention_fwd(q, k, v, causal=causal),
+            "sdpa": sdpa}, reps=5, iters=3, warm=1)
+        dev_us = device_us(lambda: PA.flash_attention_fwd(
+            q, k, v, causal=causal), "flash_tc_kernel", iters=3)
+        lib_err = (sdpa().transpose(1, 2).float() - PA.flash_attention_fwd(
+            q, k, v, causal=causal).float()).abs().max().item()
+        plain = cuda_ms(lambda: k4_plain(q, k, v, causal), iters=1,
+                        warmup=0)
+        nbytes, flops = k4_work(shape, q.element_size())
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S \
+            else "operations"
+        key = f"{shape[3]}/{shape[4]}/{shape[5]}"
+        rows[key] = dict(shape=list(shape[:6]), ms=times["k4"]["median"],
+                         k4=times["k4"], sdpa=times["sdpa"],
+                         library_ms=times["sdpa"]["median"],
+                         device_ms=None if dev_us is None else dev_us / 1e3,
+                         plain_ms=plain, bound_ms=bound, bound_by=by,
+                         sdpa_max_diff=lib_err)
+        log(f"[time] K4 prefill_32k {shape} bf16, in turn with SDPA's "
+            f"forward (5 repeats of 3 calls, median [least, largest]): K4 "
+            f"{fmt_spread(times['k4'])}, SDPA {fmt_spread(times['sdpa'])} "
+            f"({times['k4']['median'] / times['sdpa']['median']:.2f}x); K4's "
+            f"device {fmt_us(dev_us)}; plain (by blocks) {plain:.1f} ms; "
+            f"bound {bound:.3f} ms ({by}, {flops / 1e12:.2f} TFLOP at the "
+            f"bf16 peak); SDPA's max diff to K4 {lib_err:.3g}")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
 # seconds by phase (the docstring's items), summed over a phase's parts
 PHASE_S: dict = {}
 
@@ -6293,6 +6790,13 @@ class Phase:
 def main() -> int:
     if sys.argv[1:2] == ["--tp-worker"]:
         return tp_worker(sys.argv[2:])
+    seed = SEED
+    if sys.argv[1:2] == ["--seed"]:
+        seed = int(sys.argv[2])
+    elif sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; usage: "
+              "chip_smoke.py [--seed N]", file=sys.stderr)
+        return 2
     try:
         import numpy as np  # noqa: F401
         import torch
@@ -6438,6 +6942,7 @@ def main() -> int:
     k2["rounds_checked"] = k2_rounds
     k4, k4_core = time_k4(dev, k4_shapes, lm_launches, cfg.n_layers, k4_err,
                           built.get("flash_attn_tc.cu", {}).get("log"))
+    k4["prefill_32k_shapes"] = time_k4_long(dev)
     timing.__exit__(None, None, None)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6449,6 +6954,11 @@ def main() -> int:
     with Phase(25, "slice 18, recurrentgemma-9b, rwkv6-1.6b and "
                "qwen3-moe-235b-a22b's training"):
         slice18 = phase_slice18(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase(26, "slice 19, the reference's serving cells: prefill_32k, "
+               "decode_32k and long_500k"):
+        slice19 = phase_slice19(dev, seed)
     want = sorted(SLICE9 + tuple(name for name, _ in SLICE17))
     if sorted(decode) != want:
         raise AssertionError(f"slices 9 and 17 decoded {sorted(decode)}, not "
@@ -6524,6 +7034,11 @@ def main() -> int:
                    "k4_bwd_launches")}
         for name, row in slice18.items()}
     k4b["slice18"] = slice18
+    # slice 19's launches: each prefill_32k (phase 26)
+    k4["launches_slice19"] = {
+        name: {"prefill_32k": row["k4_launches"]}
+        for name, row in slice19["prefill_32k"].items()}
+    k4["slice19"] = slice19
     # slice 12's launches: the examples (phase 19) and the mesh step (20)
     k1["launches_examples"] = {k: v["K1"] for k, v in examples.items()
                                if isinstance(v, dict) and "K1" in v}

@@ -16,8 +16,8 @@ import torch.nn.functional as F
 from ..distributed.collectives import all_reduce, max_over
 
 __all__ = ["dense_init", "rms_norm", "mlp_init", "mlp_apply",
-           "rotary_cos_sin", "apply_rotary", "softcap", "cross_entropy",
-           "cross_entropy_sums"]
+           "rotary_angles", "rotary_cos_sin", "apply_rotary", "softcap",
+           "cross_entropy", "cross_entropy_sums"]
 
 
 def dense_init(generator, shape, scale: float | None = None,
@@ -84,11 +84,29 @@ def mlp_apply(params, x, kind: str, *, tp=None):
 
 # --- rotary position embeddings ----------------------------------------------
 
+def rotary_angles(positions, d_rot: int, theta: float):
+    """The rotary angles: positions (...,) → (..., d_rot/2) float32.
+
+    The inverse frequencies are the reference's float32 table bit for bit
+    on any device: each of its float32 steps — the exponent ``k / d_rot``,
+    ``theta ** e``, the reciprocal — is taken in float64 and rounded once
+    to float32, which gives the correctly rounded float32 result. torch's
+    float32 ``pow`` is not correctly rounded (one entry a ulp off for a
+    120- or 256-wide rotation), and CUDA divides a float32 tensor by a
+    scalar as a product with the scalar's reciprocal (a ulp off in some
+    exponents k / 120); either moves the angle at position 524,287 by up
+    to 1e-3 rad and more. The angle is the float32 product, as the
+    reference's."""
+    k = torch.arange(0, d_rot, 2, dtype=torch.float64,
+                     device=positions.device)
+    e = (k / d_rot).float()
+    inv = (1.0 / torch.pow(theta, e.double()).float().double()).float()
+    return positions.float()[..., None] * inv
+
+
 def rotary_cos_sin(positions, d_rot: int, theta: float):
     """cos/sin tables for rotary dims. positions (...,) → (..., d_rot/2)."""
-    inv = 1.0 / (theta ** (torch.arange(0, d_rot, 2, dtype=torch.float32,
-                                        device=positions.device) / d_rot))
-    ang = positions.float()[..., None] * inv
+    ang = rotary_angles(positions, d_rot, theta)
     return torch.cos(ang), torch.sin(ang)
 
 

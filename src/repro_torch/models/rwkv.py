@@ -36,6 +36,12 @@ __all__ = ["rwkv_init", "rwkv_time_mix", "rwkv_channel_mix", "rwkv_decode",
            "rwkv_state_spec"]
 
 _LORA_RANK = 64
+# the bytes of one group's (g, B, H, C, C, N) float32 intra-chunk decays in
+# ``_wkv_chunked`` (each of ``delta`` and ``p``; a few such tensors are
+# live at once): at rwkv6-1.6b's widths, B = 2 and T = 2048 its 64 chunks
+# are exactly 1 GiB, one group; at T = 32768 the 1024 chunks would be
+# 17.2 GB a tensor, and 16 groups keep the prefill within the card
+WKV_GROUP_BYTES = 1 << 30
 
 
 def rwkv_init(generator, cfg, dtype=torch.float32, device=None):
@@ -109,7 +115,10 @@ def _wkv_chunked(r, k, v, logw, u, s0, chunk: int):
     chunks, two operations a chunk; the inter-chunk reads then take the
     stacked chunk-start states in one product. (A loop of whole chunk
     steps made ~165 launches a chunk under autograd: rwkv6-1.6b's training
-    step at T = 2048 was 254,000 launches, host-bound.)"""
+    step at T = 2048 was 254,000 launches, host-bound.) The intra-chunk
+    decays, (B, H, C, C, N) float32 a chunk, are formed for a group of
+    chunks at a time, as many as fit ``WKV_GROUP_BYTES``: the same
+    products a chunk, in as many groups as the length needs."""
     bsz, t, h, n = r.shape
     c = min(chunk, t)
     nc = -(-t // c)
@@ -126,13 +135,23 @@ def _wkv_chunked(r, k, v, logw, u, s0, chunk: int):
     lcum = torch.cumsum(lw, dim=3)                    # L_j (inclusive)
     lprev = lcum - lw                                 # L_{j-1} (exclusive)
     # intra-chunk, strictly lower triangular: exp(L_{i-1} - L_j), exponent
-    # ≤ 0 where the mask keeps it
-    delta = lprev[..., :, None, :] - lcum[..., None, :, :]  # (nc,B,H,C,C,N)
+    # ≤ 0 where the mask keeps it; (g, B, H, C, C, N) decays for a group of
+    # g chunks at a time, within WKV_GROUP_BYTES
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
                       -1)[:, :, None]
-    p = torch.where(mask, torch.exp(torch.clamp(delta, max=0.0)), 0.0)
-    att = torch.einsum("zbhin,zbhjn,zbhijn->zbhij", rr, kk, p)
-    o_intra = att @ vv
+    g = max(1, WKV_GROUP_BYTES // (bsz * h * c * c * n * 4))
+    o_intra = []
+    for z in range(0, nc, g):
+        # one group takes the whole tensors: no slice, so autograd records
+        # no slice backward
+        part = (lambda x: x) if g >= nc else (lambda x, z=z: x[z:z + g])
+        lp, lc = part(lprev), part(lcum)
+        delta = lp[..., :, None, :] - lc[..., None, :, :]
+        p = torch.where(mask, torch.exp(torch.clamp(delta, max=0.0)), 0.0)
+        att = torch.einsum("zbhin,zbhjn,zbhijn->zbhij", part(rr), part(kk),
+                           p)
+        o_intra.append(att @ part(vv))
+    o_intra = o_intra[0] if len(o_intra) == 1 else torch.cat(o_intra)
     # current-token bonus
     o_diag = (rr * u.float()[None, None, :, None, :] * kk).sum(
         -1, keepdim=True) * vv

@@ -982,3 +982,21 @@ def test_k4_operators_are_the_launches_on_card(cuda_device, rng):
     assert all(torch.equal(a, b) for a, b in zip(
         PA.flash_attention_bwd(q, k, v, out, dout, lse=lse), want))
 
+
+
+@pytest.mark.cuda
+def test_rotary_angles_on_card_are_the_hosts(cuda_device):
+    """``models/layers.py::rotary_angles`` of every config on the card bit
+    for bit the host's (the reference's table,
+    ``tests/test_torch_long_context.py``) at positions up to 524,287:
+    CUDA divides by a scalar through its reciprocal, which put a 120-wide
+    table's exponents a ulp off before the steps were taken in float64."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models.layers import rotary_angles
+    pos = torch.tensor([0, 2047, 32767, 524287])
+    for name in ARCHS:
+        cfg = get_config(name)
+        d_rot = int(cfg.d_head * cfg.rope_fraction)
+        assert torch.equal(
+            rotary_angles(pos.to(cuda_device), d_rot, cfg.rope_theta).cpu(),
+            rotary_angles(pos, d_rot, cfg.rope_theta)), name
