@@ -211,8 +211,10 @@ paths against its plain PyTorch version:
    320), (1, 40 over 100, 4/2, 320) and slice 12's ``train_lm`` (8, 256,
    12/4, 64, causal), chatglm3-6b's and the whisper encoder's in float32,
    and slice 17's granite-34b (2, 2048, 48/1, 128) and chameleon-34b (2,
-   2048, 64/8, 128) and slice 18's qwen3-moe-235b-a22b (2, 2048, 64/4,
-   128), causal, in bf16,
+   2048, 64/8, 128), slice 18's qwen3-moe-235b-a22b (2, 2048, 64/4,
+   128) and slice 20's train_4k microbatches, chatglm3-6b's (1, 4096,
+   32/2, 128) and gemma3-12b's global (1, 4096, 16/8, 256), causal, in
+   bf16,
    element by element, each route given its own K4's LSE: every bf16
    shape with Dh % 8 == 0 and Dh <= 256 on both routes — the tensor-core
    kernel (``csrc/flash_attn_bwd_tc.cu``, the route) within
@@ -317,9 +319,11 @@ paths against its plain PyTorch version:
    not a multi-card number;
 22. THE DRY RUN AGAINST THE CARD: ``launch/dryrun.py::count_train_step``
    in a fresh process (a ``fake`` group of 2 ranks, ``meta`` tensors)
-   counts rank 0 of phase 21's train step; its predicted peak must lie
-   within 0.8–1.25× of rank 0's measured ``max_memory_allocated``, and its
-   counted flops are printed beside the measured product device time;
+   counts rank 0 of phase 21's train step, and (a ``fake`` group of one
+   rank, started in phase 27 beside its steps) phase 27's chatglm3-6b
+   train_4k step, 16 microbatches; each predicted peak must lie within
+   0.8–1.25× of the measured ``max_memory_allocated``, and the counted
+   flops are printed beside the measured product device time;
 23. SLICE 14, THE REFERENCE'S OPTIMIZED CELLS AND THE SEQUENCE-SPLIT
    CACHE over processes that share the card (phase 21's ``--tp-worker``
    gloo groups, of 2 and then 4, which run these parts after phase 21's,
@@ -351,8 +355,10 @@ paths against its plain PyTorch version:
 24. SLICE 17'S MAIN PATH (run after phase 10): the three configs no
    earlier phase runs, at full width in bf16 from a seeded generator on
    the card — granite-34b (MQA, 48 query heads on one KV head) and
-   chameleon-34b (qk-norm, 64 on 8) at the most layers whose bf16 weights
-   fit beside ``SLICE8_RESERVE``, h2o-danube-3-4b (Dh 120, every layer
+   chameleon-34b (qk-norm, 64 on 8) served at ``SLICE8_LAYERS``' 30 and
+   24 layers (their bf16 weights fit 61 and 46 beside ``SLICE8_RESERVE``;
+   trained at the training state's fitting depth), h2o-danube-3-4b (Dh
+   120, every layer
    sliding-window at 4096) whole — each through phase 13's engine and
    prefill against its plain-attention twin (K4 a full-attention layer a
    LM batch and a prefill, every call held; h2o-danube 0) and phase 14's
@@ -411,7 +417,33 @@ paths against its plain PyTorch version:
    (``long_decode_f32``: logits within ``LONG_F32_TOL`` of the host's row
    rms, the top-1 tokens equal). Phases 8 and 10 hold and time K4 at both
    prefill_32k shapes (``K4_LONG_SHAPES``), phase 10 beside SDPA's forward
-   in turn.
+   in turn;
+27. SLICE 20'S MAIN PATH (after phase 26), the reference's train_4k cell
+   (``launch/specs.py``) at one data rank's share of its (16, 16) mesh,
+   the model axis whole on the card: ``TokenStream(global_batch=16,
+   seq_len=4096)`` seeded from ``--seed``, ``make_train_step(cfg,
+   OptConfig(warmup_steps=1), n_microbatches=16)`` (one sequence a
+   microbatch, as ``build_cell`` builds it), bf16 weights, remat on,
+   float32 accumulator and moments, on chatglm3-6b and gemma3-12b at full
+   width and the most whole repeats whose 16 bytes a parameter fit beside
+   ``TRAIN_RESERVE`` and ``GEMMA_TRAIN_RESERVE`` (``fitting_depth``; the
+   arithmetic printed): two steps with the counts zeroed just before and
+   read just after — loss and grad_norm finite, K4 and K4′ launched 16 ×
+   ``train_launches(cfg)`` a step, all on the tensor-core routes (K4′
+   refuses a call without K4's LSE) — s a step, tokens/s, peak memory
+   beside 16 bytes a parameter, the step's bound (8 × parameters × 65,536
+   tokens at the bf16 peak); one traced step (busy share, K4's and K4′'s
+   shares, device time by kind); the accumulation's own device time (its
+   copy, 15 float32 adds and the mean over the whole tree, CUDA events)
+   beside its byte bound; one microbatch's ``loss_and_grads`` with every
+   K4 and K4′ call held against its plain version on its own inputs
+   (``K4Checked``, ``K4BChecked``: a block of query heads at a time), the
+   checked launches those counted. chatglm3-6b also: its gradient at
+   ``SLICE17_CHECK`` layers, B = 1, T = 4096 against its plain-attention
+   twin within ``TRAIN_GRAD_TOL`` (``phase_train_grads``), and the
+   4-microbatch step at that depth bit for bit against ``opt_update`` on
+   the float32 mean of 4 separate ``loss_and_grads`` (``train4k_parts``).
+   Phases 8 and 15 hold and time K4 and K4′ at both train_4k shapes.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or outside the repository, it exits nonzero and prints no result.
@@ -492,8 +524,12 @@ K4_SHAPES = ((8, 16, 16, 32, 2, 128, True), (2, 2048, 2048, 32, 2, 128, True),
              # slice 19: prefill_32k's, chatglm3-6b's and gemma3-12b's
              # global layers at T = 32768 (held by blocks of query rows)
              (2, 32768, 32768, 32, 2, 128, True),
-             (2, 32768, 32768, 16, 8, 256, True))
-K4_LONG_SHAPES = K4_SHAPES[-2:]
+             (2, 32768, 32768, 16, 8, 256, True),
+             # slice 20: train_4k's microbatch (one sequence of 4096) on
+             # chatglm3-6b's and gemma3-12b's global layers
+             (1, 4096, 4096, 32, 2, 128, True),
+             (1, 4096, 4096, 16, 8, 256, True))
+K4_LONG_SHAPES = tuple(x for x in K4_SHAPES if x[1] == 32768)
 # K4 heads wider than the tensor-core tiles (route: the CUDA-core kernel's
 # Dh <= 512 tile, in both types)
 K4_WIDE_SHAPES = ((2, 77, 77, 8, 4, 320, True), (1, 40, 100, 4, 2, 320, False))
@@ -546,15 +582,20 @@ K4B_SHAPES = ((2, 2048, 2048, 32, 2, 128, True, "bfloat16"),
               # slice 18: qwen3-moe-235b-a22b's (64 query heads on 4 KV
               # heads: G = 16, the dK/dV pass in bwd_groups(16) = 4 groups
               # of 4)
-              (2, 2048, 2048, 64, 4, 128, True, "bfloat16"))
+              (2, 2048, 2048, 64, 4, 128, True, "bfloat16"),
+              # slice 20: train_4k's microbatch on chatglm3-6b's and
+              # gemma3-12b's global layers (twice the key tiles of a dK/dV
+              # block, twice the keys of a query row)
+              (1, 4096, 4096, 32, 2, 128, True, "bfloat16"),
+              (1, 4096, 4096, 16, 8, 256, True, "bfloat16"))
 # the K4′ shapes phase 15 times: chatglm3-6b's, gemma3-12b's, granite-34b's,
 # chameleon-34b's and qwen3-moe-235b-a22b's training shapes, the
-# whisper-tiny encoder, and the float32 ones of train_lm, chatglm3-6b and
-# the whisper encoder (with K4's forward and SDPA's forward and backward
-# beside each)
+# whisper-tiny encoder, the float32 ones of train_lm, chatglm3-6b and
+# the whisper encoder, and train_4k's two (with K4's forward and SDPA's
+# forward and backward beside each)
 K4B_TIMED = (K4B_SHAPES[0], K4B_SHAPES[1], K4B_SHAPES[2], K4B_SHAPES[7],
              K4B_SHAPES[13], K4B_SHAPES[14], K4B_SHAPES[15], K4B_SHAPES[16],
-             K4B_SHAPES[17])
+             K4B_SHAPES[17], K4B_SHAPES[18], K4B_SHAPES[19])
 # K4′ against its plain version in float32 on the same inputs, element by
 # element: |out - ref| <= a |ref| + b rms(ref's row over Dh) + c rms(ref).
 # bfloat16 (a, b, c) = (2^-7, 2^-10, 2^-16): a is twice the outputs'
@@ -641,7 +682,11 @@ SLICE8_RESERVE = 16 * 2 ** 30
 # took 14.4 s of decode, rwkv6's 24 layers (its WKV a Python loop) 14.3 s
 # and 1.9 s a prefill
 SLICE8_LAYERS = {"qwen3-moe-235b-a22b": 4, "mixtral-8x7b": 8,
-                 "rwkv6-1.6b": 8}
+                 "rwkv6-1.6b": 8,
+                 # phase 24's serving of slice 17's two cut configs, at
+                 # about half their fitting 61 and 46 layers since slice 20
+                 # (phase 27 and a slow host took the script past 1000 s)
+                 "granite-34b": 30, "chameleon-34b": 24}
 # phase 14's gemma3-12b: two repeats of its pattern (5 local layers to 1
 # global, the rings wrapped by the prompt), of 48 since slice 17
 DECODE_GEMMA_LAYERS = 12
@@ -797,6 +842,26 @@ LONG_CHECK_LAYERS = {"chatglm3-6b": 2, "recurrentgemma-9b": 3,
                      "rwkv6-1.6b": 1, "h2o-danube-3-4b": 1}
 LONG_F32_TOL = 1e-4
 LONG_ROTARY_POSITIONS = (0, 2047, 32767, 524287)
+# decode_32k's float32 check, the card against the host, runs the cell's
+# last LONG_F32_STEPS positions (32 before slice 20: the host's 43.5 s of
+# phase 26, cut to keep the script, with phase 27, inside its time limit)
+LONG_F32_STEPS = 8
+# slice 20: the reference's train_4k cell (``src/repro/launch/specs.py``:
+# 256 sequences of 4096 tokens on a (16, 16) mesh, ``n_microbatches =
+# batch // n_data``) at one data rank's share on one card, the model axis
+# whole: TRAIN4K_B sequences as TRAIN4K_MICRO microbatches of one. Its
+# training state is 16 bytes a parameter (bf16 weights and one
+# microbatch's gradient, float32 moments and accumulator), so each config
+# of TRAIN4K_ARCHS runs at the most whole repeats whose state fits beside
+# its reserve (phase 17's chatglm3-6b and gemma3-12b reserves: the
+# logits, a repeat's recompute, the update's pieces; gemma3-12b's
+# 262,144-word vocabulary's logits take 4.3 GB a microbatch in float32),
+# TRAIN4K_STEPS timed steps; the accumulation is held against its parts at
+# SLICE17_CHECK layers over TRAIN4K_PARTS microbatches
+TRAIN4K_ARCHS = (("chatglm3-6b", TRAIN_RESERVE),
+                 ("gemma3-12b", GEMMA_TRAIN_RESERVE))
+TRAIN4K_B, TRAIN4K_T, TRAIN4K_MICRO = 16, 4096, 16
+TRAIN4K_BYTES_PER_PARAM, TRAIN4K_STEPS, TRAIN4K_PARTS = 16, 2, 4
 SEED = 0
 
 
@@ -1505,15 +1570,16 @@ def profile_call(fn, what: str, warm: bool = True):
     """Where one call of ``fn`` spends its time: wall time, device busy
     time (summed kernel time), launches and the top kernels, from a
     ``torch.profiler`` trace of a warm call (launches: every device event,
-    kernels and copies); ``warm=False`` where ``fn`` has just run. Returns
-    (wall us, device us by kernel name, launches)."""
+    kernels and copies); ``warm=False`` where ``fn`` has just run. Only the
+    device's activity is recorded: a host event an operator (~10^5 in a
+    train_4k step) would slow the host being measured.
+    Returns (wall us, device us by kernel name, launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2735,8 +2801,9 @@ class K4Checked:
             out = PA.flash_attention_fwd(q, k, v, causal=causal)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            self.worst = max(self.worst,
-                             k4_call_excess(q, k, v, causal, out))
+            with torch.no_grad():     # no graph of the check under autograd
+                self.worst = max(self.worst,
+                                 k4_call_excess(q, k, v, causal, out))
             self.check_s += time.perf_counter() - t0
             self.calls += 1
             return out
@@ -3497,15 +3564,15 @@ def leaf_rms(w) -> float:
     return live.pow(2).mean().sqrt().item() if live.numel() else 0.0
 
 
-def train_batch(dev, cfg, b, t, step=0):
-    """``TokenStream`` batch ``step`` (seed 0) on ``dev``; an
+def train_batch(dev, cfg, b, t, step=0, seed=0):
+    """``TokenStream`` batch ``step`` (seeded by ``seed``) on ``dev``; an
     encoder-decoder's also carries (b, WHISPER_FRAMES, d_model) frame
     embeddings from a generator seeded by the step (``models/model.py::
     _frames`` encodes them)."""
     import torch
     from repro_torch.data import DataConfig, TokenStream
     data = TokenStream(DataConfig(global_batch=b, seq_len=t,
-                                  vocab_size=cfg.vocab_size, seed=0))
+                                  vocab_size=cfg.vocab_size, seed=seed))
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in data.batch(step).items()}
     if cfg.is_encdec:
@@ -4440,8 +4507,8 @@ def phase_slice19(dev, seed=SEED):
             f"{LM_ARCH}'s decode_32k in float32, the card against the host",
             lambda: long_decode_f32(
                 dev, LM_ARCH, LONG_CHECK_LAYERS[LM_ARCH], LONG_DECODE_B,
-                LONG_T, LONG_T - DECODE_STEPS, seed,
-                cache=held.pop("cache")))}
+                LONG_T, LONG_T - LONG_F32_STEPS, seed,
+                cache=held.pop("cache"), n=LONG_F32_STEPS))}
     # gemma3-12b at phase 14's 12 layers: 2 global layers on K4 at Dh 256
     cfg = dataclasses.replace(get_config("gemma3-12b"),
                               n_layers=DECODE_GEMMA_LAYERS)
@@ -4476,6 +4543,329 @@ def phase_slice19(dev, seed=SEED):
                 LONG_POS + 1 - DECODE_STEPS, seed, vocab=SCAN_CHECK_VOCAB))
     if failed:
         raise AssertionError("slice 19: " + "; ".join(failed))
+    return out
+
+
+# -------------------------------------------------------------- slice 20
+
+def train4k_parts(dev, cfg, seed=SEED):
+    """The accumulation against its parts: ``make_train_step(cfg, opt,
+    n_microbatches=TRAIN4K_PARTS)`` on a (``TRAIN4K_PARTS``, ``TRAIN4K_T``)
+    ``TokenStream`` batch, one sequence a microbatch, against
+    ``opt_update`` applied, on a copy of the same weights and moments, to
+    the float32 mean of ``TRAIN4K_PARTS`` separate ``loss_and_grads``
+    calls (one a sequence, summed in order, then divided): the loss, the
+    grad norm, the parameters and both moments bit for bit. It holds the
+    step's loop, not the kernels. Returns its numbers."""
+    import torch
+    from repro_torch.training import OptConfig, make_train_step, opt_init
+    from repro_torch.training.optimizer import loss_and_grads, opt_update
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    m = TRAIN4K_PARTS
+    opt = OptConfig(warmup_steps=1)
+    params = lm_model(dev, cfg)
+    parts = _clone(params)
+    batch = train_batch(dev, cfg, m, TRAIN4K_T, 0, seed)
+    state, parts_state = opt_init(params), opt_init(parts)
+    params, state, got = make_train_step(cfg, opt, n_microbatches=m)(
+        params, state, batch)
+    acc, losses = None, []
+    for i in range(m):
+        loss, _, g = loss_and_grads(
+            parts, {k: v[i:i + 1] for k, v in batch.items()}, cfg)
+        acc = tree_map(lambda x: x.float(), g) if acc is None \
+            else tree_map(lambda a, x: a + x.float(), acc, g)
+        losses.append(loss)
+        del g
+    parts, parts_state, want = opt_update(
+        opt, parts, tree_map(lambda a: a / m, acc), parts_state)
+    want["loss"] = torch.stack(losses).mean()
+    torch.cuda.synchronize()
+    same = {k: torch.equal(got[k], want[k])
+            for k in ("loss", "grad_norm", "lr")}
+    same["params"] = all(torch.equal(a, b) for a, b in zip(
+        _leaves(params), _leaves(parts)))
+    same["moments"] = all(torch.equal(a, b) for a, b in zip(
+        _leaves((state["m"], state["v"])),
+        _leaves((parts_state["m"], parts_state["v"]))))
+    log(f"[train4k] {cfg.name} at {cfg.n_layers} layers, {m} microbatches of "
+        f"one {TRAIN4K_T}-token sequence: the step against opt_update on the "
+        f"float32 mean of {m} separate loss_and_grads — loss "
+        f"{float(got['loss']):.6f} / {float(want['loss']):.6f}, grad_norm "
+        f"{float(got['grad_norm']):.6f} / {float(want['grad_norm']):.6f}; "
+        "bit for bit: " + ", ".join(f"{k} {v}" for k, v in same.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    if not all(same.values()):
+        raise AssertionError(f"train_4k: the {m}-microbatch step differs "
+                             f"from its parts: {same}")
+    del params, parts, state, parts_state, acc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, microbatches=m,
+                loss=float(got["loss"]), grad_norm=float(got["grad_norm"]),
+                bit_for_bit=same, s=time.perf_counter() - t0)
+
+
+def train4k_step(dev, name, reserve, seed=SEED, dry=False):
+    """SLICE 20'S MAIN PATH on ``name``: the reference's train_4k step at
+    one data rank's share (docstring item 27), at the most whole repeats
+    whose ``TRAIN4K_BYTES_PER_PARAM`` a parameter fit the card's free
+    memory beside ``reserve``. With ``dry``, the dry run's count of the
+    same step on a one-rank ``fake`` group (phase 22), started once the
+    depth is known and run beside the steps (device-bound: 97 % busy on
+    chatglm3-6b), is held against the measured peak. Returns the step's
+    numbers."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attn import attn as PA
+    from repro_torch.training import OptConfig, make_train_step, opt_init
+    from repro_torch.training import optimizer as TO
+    t_phase = time.perf_counter()
+    gc.collect()              # autograd's checkpoint hooks leave cycles
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    base = dataclasses.replace(get_config(name), remat=True)
+    cfg = fitting_depth(base, free, TRAIN4K_BYTES_PER_PARAM, reserve)
+    n_params = cfg.param_count()
+    state_b = n_params * TRAIN4K_BYTES_PER_PARAM
+    more = dataclasses.replace(cfg, n_layers=cfg.n_layers
+                               + len(cfg.block_pattern))
+    log(f"[train4k] {name}: {free / 2 ** 30:.2f} GiB free; at {cfg.n_layers} "
+        f"of {base.n_layers} layers {n_params / 1e9:.3f} B parameters x "
+        f"{TRAIN4K_BYTES_PER_PARAM} bytes = {state_b / 2 ** 30:.2f} GiB, with "
+        f"the {reserve / 2 ** 30:.0f} GiB reserve "
+        f"{(state_b + reserve) / 2 ** 30:.2f} GiB"
+        + (f"; {more.n_layers} layers would need "
+           f"{(more.param_count() * TRAIN4K_BYTES_PER_PARAM + reserve) / 2 ** 30:.2f}"
+           " GiB" if more.n_layers <= base.n_layers else ""))
+    proc = dryrun_start(world=1, layers=cfg.n_layers, b=TRAIN4K_B,
+                        t=TRAIN4K_T, arch=name, micro=TRAIN4K_MICRO) \
+        if dry else None
+    want, layers = train_launches(cfg)
+    route = PA.route(torch.bfloat16, cfg.d_head)
+    if layers == 0 or route != "tensor_cores":
+        raise AssertionError(f"{name}: {layers} full-attention layers on the "
+                             f"{route} route")
+    params = lm_model(dev, cfg)
+    state = opt_init(params)
+    opt = OptConfig(warmup_steps=1)
+    step = make_train_step(cfg, opt, n_microbatches=TRAIN4K_MICRO)
+    batches = [train_batch(dev, cfg, TRAIN4K_B, TRAIN4K_T, s, seed)
+               for s in range(TRAIN4K_STEPS + 1)]
+    tokens = TRAIN4K_B * TRAIN4K_T
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    history, secs = [], []
+    for s in range(TRAIN4K_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[s])
+        history.append({k: float(v) for k, v in m.items()})
+        secs.append(time.perf_counter() - t0)
+    counts = kernel_counts()
+    tc = PA.FLASH_TC_KERNEL.launches
+    bwd_routes = {r: k4b_kernel(r).launches for r in PA.BWD_PASSES}
+    peak = torch.cuda.max_memory_allocated()
+    segments = torch.cuda.memory_snapshot()
+    expandable = sum(bool(x.get("is_expandable")) for x in segments)
+    log(f"[train4k] {name}: {expandable} of the allocator's {len(segments)} "
+        f"segments expandable; {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
+        "GiB reserved after the steps")
+    for s, m in enumerate(history):
+        log(f"[train4k] {name} step {s}: loss {m['loss']:.4f}, grad_norm "
+            f"{m['grad_norm']:.4f}, lr {m['lr']:.3g}, {secs[s]:.3f} s")
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"train_4k {name} step {s}: {m}")
+    k4_step = TRAIN4K_MICRO * want
+    k4b_step = TRAIN4K_MICRO * PA.BWD_PASSES[route] * layers
+    if counts["K4"] != k4_step * TRAIN4K_STEPS or tc != counts["K4"]:
+        raise AssertionError(f"train_4k {name}: K4 launched {counts['K4']} "
+                             f"times ({tc} on the tensor cores), not "
+                             f"{k4_step} x {TRAIN4K_STEPS}")
+    if counts["K4′"] != k4b_step * TRAIN4K_STEPS \
+            or bwd_routes[route] != counts["K4′"]:
+        raise AssertionError(f"train_4k {name}: K4′ launched {bwd_routes}, "
+                             f"not {k4b_step} x {TRAIN4K_STEPS} on its "
+                             f"{route} route")
+    # one more step traced
+    t_trace = time.perf_counter()
+    wall_us, kern, count = profile_call(
+        lambda: step(params, state, batches[-1]),
+        f"train_4k step {name} {cfg.n_layers} layers", warm=False)
+    t_trace = time.perf_counter() - t_trace
+    busy = sum(kern.values())
+    groups = train_step_groups(kern)
+    k4_us, k4b_us = groups.get("K4", 0.0), groups.get("K4′", 0.0)
+    log(f"[train4k] {name}, the traced step's device time by kind: "
+        + ", ".join(f"{g} {us / 1e3:.1f} ms" for g, us in groups.items()))
+    # the accumulation alone: the first microbatch's copy, the other 15
+    # float32 adds and the mean, over the whole tree, as the step runs them
+    micro = TO._micro(batches[0], TRAIN4K_MICRO, 0)
+    _, _, g = TO.loss_and_grads(params, micro, cfg)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    gacc = TO._accumulate(None, g, torch.float32)
+    for _ in range(TRAIN4K_MICRO - 1):
+        TO._accumulate(gacc, g, torch.float32)
+    TO._mean_(gacc, TRAIN4K_MICRO)
+    end.record()
+    torch.cuda.synchronize()
+    acc_ms = start.elapsed_time(end)
+    del g, gacc
+    t_held = time.perf_counter()
+    acc_bound_ms = n_params * (6 + 10 * (TRAIN4K_MICRO - 1) + 8) \
+        / HBM_BYTES_PER_S * 1e3
+    # one microbatch with every K4 and K4′ call held
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with K4Checked() as fwd, K4BChecked() as bwd:
+        _, _, g = TO.loss_and_grads(params, micro, cfg)
+    torch.cuda.synchronize()
+    del g
+    held_counts = kernel_counts()
+    if held_counts["K4"] != want \
+            or held_counts["K4′"] != PA.BWD_PASSES[route] * layers:
+        raise AssertionError(f"train_4k {name}: the held microbatch launched "
+                             f"{held_counts}, not K4 {want}, K4′ "
+                             f"{PA.BWD_PASSES[route] * layers}")
+    held = every_call_held(f"{name}'s train_4k microbatch at {cfg.n_layers} "
+                           "layers", held_counts, fwd, bwd)
+    held.update(check_s=fwd.check_s + bwd.check_s,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                s=time.perf_counter() - t_held)
+    steady = secs[-1]
+    bound = 8 * n_params * tokens / BF16_FLOP_PER_S
+    log(f"[train4k] {name} at {cfg.n_layers} layers, B = {TRAIN4K_B}, T = "
+        f"{TRAIN4K_T} as {TRAIN4K_MICRO} microbatches: {steady:.3f} s a step "
+        f"(steps {', '.join(f'{x:.3f}' for x in secs)}), "
+        f"{tokens / steady:.0f} tokens/s; peak {peak / 2 ** 30:.2f} GiB "
+        f"against {state_b / 2 ** 30:.2f} GiB of {TRAIN4K_BYTES_PER_PARAM} "
+        f"bytes a parameter (+{(peak - state_b) / 2 ** 30:.2f}; "
+        f"{before / 2 ** 30:.2f} allocated before the steps); K4 "
+        f"{counts['K4'] // TRAIN4K_STEPS} and K4′ "
+        f"{counts['K4′'] // TRAIN4K_STEPS} launches a step ({TRAIN4K_MICRO} x "
+        f"{want} and {TRAIN4K_MICRO} x {PA.BWD_PASSES[route]} x {layers}); "
+        "the traced "
+        f"step: busy {100 * busy / wall_us:.1f} %, K4 {k4_us / 1e3:.1f} ms "
+        f"({100 * k4_us / wall_us:.2f} %), K4′ {k4b_us / 1e3:.1f} ms "
+        f"({100 * k4b_us / wall_us:.2f} %), {count} launches; the "
+        f"accumulation {acc_ms:.1f} ms of device time (bound "
+        f"{acc_bound_ms:.1f} ms, bytes); bound {bound:.3f} s (8 x "
+        f"{n_params / 1e9:.3f} B x {tokens} tokens at the bf16 peak), "
+        f"{100 * bound / steady:.1f} % of it; seconds: the steps "
+        f"{sum(secs):.1f}, the trace {t_trace:.1f}, the held microbatch "
+        f"{held['s']:.1f} (its checks {held['check_s']:.1f}); "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    row = dict(arch=name, layers=cfg.n_layers, of_layers=base.n_layers,
+               free_gib=free / 2 ** 30, reserve_gib=reserve / 2 ** 30,
+               params_b=n_params / 1e9, state_gib=state_b / 2 ** 30,
+               step_s=secs, tokens_per_s=tokens / steady,
+               peak_gib=peak / 2 ** 30, before_gib=before / 2 ** 30,
+               k4_launches_per_step=counts["K4"] // TRAIN4K_STEPS,
+               k4_bwd_launches_per_step=counts["K4′"] // TRAIN4K_STEPS,
+               k4_bwd_launches_by_route=bwd_routes,
+               traced_wall_ms=wall_us / 1e3, busy_share=busy / wall_us,
+               k4_share=k4_us / wall_us, k4_bwd_share=k4b_us / wall_us,
+               traced_launches=count, trace_s=t_trace,
+               traced_ms_by_kind={g: us / 1e3 for g, us in groups.items()},
+               accumulation_ms=acc_ms, accumulation_bound_ms=acc_bound_ms,
+               bound_s=bound, held=held,
+               loss=[m["loss"] for m in history],
+               grad_norm=[m["grad_norm"] for m in history])
+    if proc is not None:
+        t0 = time.perf_counter()
+        pred = dryrun_check(proc)
+        ratio = peak / pred["peak_bytes"]
+        product_ms = (groups.get("matmul", 0.0) + k4_us + k4b_us) / 1e3
+        rate = pred["flops"] / (product_ms * 1e-3) if product_ms else 0.0
+        row["dryrun"] = dict(predicted=pred, peak_ratio=ratio,
+                             product_device_ms=product_ms,
+                             counted_flops_per_product_s=rate,
+                             wait_s=time.perf_counter() - t0)
+        log(f"[dryrun] phase 22: the dry run's count of phase 27's {name} "
+            f"train_4k step ({cfg.n_layers} layers, B = {TRAIN4K_B}, T = "
+            f"{TRAIN4K_T}, {TRAIN4K_MICRO} microbatches; meta tensors on a "
+            f"fake group of one): peak {pred['peak_bytes'] / 2 ** 30:.3f} GiB "
+            f"(arguments {pred['argument_bytes'] / 2 ** 30:.3f}), "
+            f"{pred['flops'] / 1e12:.1f} TFLOP of products; measured peak "
+            f"{peak / 2 ** 30:.3f} GiB ({ratio:.3f}x the prediction), the "
+            f"traced step's products (matmul, K4, K4′) {product_ms:.1f} ms "
+            f"of device time ({rate / 1e12:.1f} TFLOP/s of the counted "
+            f"flops); waited {row['dryrun']['wait_s']:.1f} s for the count")
+        if not 0.8 <= ratio <= 1.25:
+            raise AssertionError(f"train_4k {name}: the measured peak is "
+                                 f"{ratio:.3f}x the dry run's prediction, "
+                                 "outside 0.8-1.25")
+    del params, state, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row
+
+
+def expandable_segments() -> bool:
+    """Whether the process's CUDA allocator grows its segments by pages, as
+    ``PYTORCH_ALLOC_CONF`` (or the older ``PYTORCH_CUDA_ALLOC_CONF``) set
+    it at start; False by default."""
+    conf = os.environ.get("PYTORCH_ALLOC_CONF",
+                          os.environ.get("PYTORCH_CUDA_ALLOC_CONF", ""))
+    opts = dict(x.split(":", 1) for x in conf.split(",") if ":" in x)
+    return opts.get("expandable_segments", "").strip() == "True"
+
+
+def phase_train_4k(dev, seed=SEED):
+    """Phase 27 (docstring item 27): chatglm3-6b's gradient at T = 4096
+    against its plain-attention twin and its accumulation against its
+    parts, both at ``SLICE17_CHECK`` layers, then the train_4k step of each
+    of ``TRAIN4K_ARCHS`` (chatglm3-6b's held against phase 22's dry run).
+    Every part runs even after another fails; the phase then raises with
+    every failure. Returns each part's numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    out, failed = {}, []
+
+    def part(what, fn):
+        t0 = time.perf_counter()
+        try:
+            got = fn()
+        except (AssertionError, torch.OutOfMemoryError) as e:
+            log(f"[train4k] {what} FAILED: {e}")
+            failed.append(f"{what}: {e}")
+            got = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[train4k] {what}: {time.perf_counter() - t0:.1f} s")
+        return got
+    name = TRAIN4K_ARCHS[0][0]
+    check = dataclasses.replace(get_config(name), n_layers=SLICE17_CHECK,
+                                remat=True)
+    out["gradient_check"] = part(
+        f"{name}'s gradient at T = {TRAIN4K_T} against its twin",
+        lambda: phase_train_grads(dev, check, b=1, t=TRAIN4K_T))
+    out["parts"] = part(f"{name}'s accumulation against its parts",
+                        lambda: train4k_parts(dev, check, seed))
+    # a work-around for this script, not the port: the steps fill 88-94 %
+    # of the card, and after phases 1-26 in this process gemma3-12b's step
+    # found fixed segments split into ~10 GiB of free blocks too small for
+    # its 4 GiB float32 logits and ran out of memory (in a process of its
+    # own it fitted); segments that grow and shrink by pages do not split.
+    # The process's own setting is restored after the steps.
+    was = expandable_segments()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        for arch, reserve in TRAIN4K_ARCHS:
+            out[arch] = part(f"{arch}'s train_4k step", lambda: train4k_step(
+                dev, arch, reserve, seed, dry=arch == name))
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            f"expandable_segments:{was}")
+    if failed:
+        raise AssertionError("slice 20: " + "; ".join(failed))
     return out
 
 
@@ -5236,12 +5626,13 @@ sys.path.insert(0, sys.argv[1])
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_test_mesh
-world, layers, b, t = (int(x) for x in sys.argv[2:6])
+world, layers, b, t, micro = (int(x) for x in sys.argv[2:7])
 dryrun.start_fake_group(world)
 mesh = make_test_mesh(1, world, device_type="cpu")
-cfg = dataclasses.replace(get_config(sys.argv[6]), n_layers=layers,
+cfg = dataclasses.replace(get_config(sys.argv[7]), n_layers=layers,
                           remat=True)
-c = dryrun.count_train_step(cfg, mesh, b, t, rules=json.loads(sys.argv[7]))
+c = dryrun.count_train_step(cfg, mesh, b, t, rules=json.loads(sys.argv[8]),
+                            n_microbatches=micro)
 print(json.dumps(dict(peak_bytes=c.peak_bytes, flops=c.flops,
                       argument_bytes=c.argument_bytes,
                       product_bytes=c.product_bytes,
@@ -5250,30 +5641,59 @@ print(json.dumps(dict(peak_bytes=c.peak_bytes, flops=c.flops,
 """
 
 
-def dryrun_check(rules=None) -> dict:
-    """The dry run's count (a fresh process, a ``fake`` group, ``meta``
-    tensors) of rank 0's train step of ``TRAIN_ARCH`` at ``MESH_LAYERS``
-    layers over (1, ``TP_SIZES[0]``), under the axis ``rules``."""
-    proc = subprocess.run(
+# the dry runs started and not yet read: stopped at exit
+_DRYRUNS: list = []
+
+
+def _stop_dryruns() -> None:
+    for proc in _DRYRUNS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_start(rules=None, *, world=TP_SIZES[0], layers=MESH_LAYERS,
+                 b=TRAIN_B, t=TRAIN_T, arch=TRAIN_ARCH, micro=1):
+    """Starts the dry run's count (a fresh process, a ``fake`` group of
+    ``world`` ranks, ``meta`` tensors) of rank 0's train step of ``arch``
+    at ``layers`` layers over (1, ``world``) on a (``b``, ``t``) batch in
+    ``micro`` microbatches, under the axis ``rules`` — by default phase
+    21's step — and returns the process for :func:`dryrun_check`: the
+    count needs no card, so the script need not wait for it alone."""
+    if not _DRYRUNS:
+        import atexit
+        atexit.register(_stop_dryruns)
+    proc = subprocess.Popen(
         [sys.executable, "-c", DRYRUN_CHECK, os.path.join(ROOT, "src"),
-         str(TP_SIZES[0]), str(MESH_LAYERS), str(TRAIN_B), str(TRAIN_T),
-         TRAIN_ARCH, json.dumps(rules or {})], capture_output=True,
-        text=True, timeout=600)
+         *(str(x) for x in (world, layers, b, t, micro)), arch,
+         json.dumps(rules or {})], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    _DRYRUNS.append(proc)
+    return proc
+
+
+def dryrun_check(proc) -> dict:
+    """The count a :func:`dryrun_start` process printed."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("the dry run's count took over 600 s")
     if proc.returncode != 0:
-        raise AssertionError(f"the dry run's count failed: "
-                             f"{proc.stderr[-3000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+        raise AssertionError(f"the dry run's count failed: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
 
 
-def phase_dryrun(card, tp):
-    """Phase 22 (docstring item 22): the dry run's count of the step phase
-    21 trained (rank 0 of tp = the first size, ``MESH_LAYERS`` layers) on a
-    ``fake`` group of that many ranks, against rank 0's measured peak
-    memory and product time."""
+def phase_dryrun(card, tp, proc):
+    """Phase 22 (docstring item 22): the dry run's count (``proc``, from
+    :func:`dryrun_start`) of the step phase 21 trained (rank 0 of tp = the
+    first size, ``MESH_LAYERS`` layers) on a ``fake`` group of that many
+    ranks, against rank 0's measured peak memory and product time."""
     world = TP_SIZES[0]
     tr = tp[world][0]["train"]
     t0 = time.perf_counter()
-    pred = dryrun_check()
+    pred = dryrun_check(proc)
     ratio = tr["peak_bytes"] / pred["peak_bytes"]
     rate = pred["flops"] / (tr["product_device_ms"] * 1e-3) \
         if tr["product_device_ms"] else 0.0
@@ -5590,13 +6010,14 @@ def zero3_train(dev, mesh, rank, world, b=TRAIN_B, t=TRAIN_T):
     return out
 
 
-def phase_slice14(dev, card, tp):
+def phase_slice14(dev, card, tp, dry_sp):
     """Phase 23 (docstring item 23): Megatron-SP, the sequence-split decode
     cache and (at 4 processes) ZeRO-3 of the MoE experts over processes
     that share the card (``tp_worker``'s gloo groups: phase 21's, ``tp``,
     which ran these parts after its own), then the dry run's count of the
-    SP step against its measured peak. → the ranks' numbers and the count;
-    its seconds include its parts' in phase 21's groups."""
+    SP step (``dry_sp``, from :func:`dryrun_start`) against its measured
+    peak. → the ranks' numbers and the count; its seconds include its
+    parts' in phase 21's groups."""
     import torch
     gc.collect()
     torch.cuda.empty_cache()
@@ -5650,7 +6071,7 @@ def phase_slice14(dev, card, tp):
         f" against meshless {z['meshless_loss']:.6f}; worst gradient leaf at "
         f"{max(r['zero3']['grad_worst_rms_share'] for r in res[4]):.4g} of "
         f"its rms; rank 0 peak {z['peak_bytes'] / 2**30:.3f} GiB")
-    dry = dryrun_check(SP_RULES)
+    dry = dryrun_check(dry_sp)
     sp = res[2][0]["sp"]
     ratio = sp["peak_bytes"] / dry["peak_bytes"]
     log(f"[dryrun] phase 23: the dry run's count of rank 0's SP tp=2 step: "
@@ -6919,10 +7340,13 @@ def main() -> int:
         tp = phase_tp(dev, card)
     PHASE_S[21] -= tp["slice14_s"]
     PHASE_S[23] = tp["slice14_s"]
+    # phases 22 and 23's dry-run counts need no card: they run beside each
+    # other, and beside no phase whose times are reported
+    dry_tp, dry_sp = dryrun_start(), dryrun_start(SP_RULES)
     with Phase(22, "the dry run against the card"):
-        dry = phase_dryrun(card, tp)
+        dry = phase_dryrun(card, tp, dry_tp)
     with Phase(23, "slice 14"):
-        slice14 = phase_slice14(dev, card, tp)
+        slice14 = phase_slice14(dev, card, tp, dry_sp)
     timing = Phase(10, "the kernels' times")
     timing.__enter__()
     k1 = time_k1(dev, serve_stack, metro_stack, launches, k1_err)
@@ -6959,6 +7383,10 @@ def main() -> int:
     with Phase(26, "slice 19, the reference's serving cells: prefill_32k, "
                "decode_32k and long_500k"):
         slice19 = phase_slice19(dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase(27, "slice 20, the reference's train_4k cell"):
+        slice20 = phase_train_4k(dev, seed)
     want = sorted(SLICE9 + tuple(name for name, _ in SLICE17))
     if sorted(decode) != want:
         raise AssertionError(f"slices 9 and 17 decoded {sorted(decode)}, not "
@@ -7039,6 +7467,14 @@ def main() -> int:
         name: {"prefill_32k": row["k4_launches"]}
         for name, row in slice19["prefill_32k"].items()}
     k4["slice19"] = slice19
+    # slice 20's launches: a train_4k step of each config (phase 27)
+    k4["launches_train_4k"] = {
+        name: slice20[name]["k4_launches_per_step"]
+        for name, _ in TRAIN4K_ARCHS}
+    k4b["launches_train_4k"] = {
+        name: slice20[name]["k4_bwd_launches_per_step"]
+        for name, _ in TRAIN4K_ARCHS}
+    k4b["slice20"] = slice20
     # slice 12's launches: the examples (phase 19) and the mesh step (20)
     k1["launches_examples"] = {k: v["K1"] for k, v in examples.items()
                                if isinstance(v, dict) and "K1" in v}

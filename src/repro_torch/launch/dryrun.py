@@ -154,13 +154,15 @@ def count_cell(cell, mesh):
 
 
 def count_train_step(cfg, mesh, batch: int, seq: int, *, opt=None,
-                     rules=None):
-    """This rank's counts of ``make_train_step(cfg, opt, mesh=mesh)`` (the
-    compute layout, whole AdamW moments of the rank's shards, no ZeRO
-    layout) on a ``(batch, seq)`` token batch whole on every rank, under
-    the axis ``rules`` (Megatron-SP with ``{"seq_sp": "model"}``): the
-    steps ``chip_smoke.py``'s phases 21 and 23 run on the card, counted
-    without it."""
+                     rules=None, n_microbatches: int = 1):
+    """This rank's counts of ``make_train_step(cfg, opt, mesh=mesh,
+    n_microbatches=n_microbatches)`` (the compute layout, whole AdamW
+    moments of the rank's shards, no ZeRO layout) on a ``(batch, seq)``
+    token batch whole on every rank, under the axis ``rules`` (Megatron-SP
+    with ``{"seq_sp": "model"}``): the steps ``chip_smoke.py``'s phases 21
+    and 23 run on the card, and on a one-rank mesh phase 27's train_4k
+    step (16 microbatches, as ``launch/specs.py::build_cell`` passes
+    them), counted without it."""
     from ..distributed.sharding import compute_shardings
     from ..models import param_specs
     from ..training.optimizer import OptConfig, make_train_step, opt_init
@@ -170,7 +172,8 @@ def count_train_step(cfg, mesh, batch: int, seq: int, *, opt=None,
     state = opt_init(params)
     tokens = torch.empty((batch, seq), dtype=torch.int32, device="meta")
     rows = {"tokens": tokens, "labels": tokens.clone()}
-    step = make_train_step(cfg, opt, mesh=mesh, rules=rules)
+    step = make_train_step(cfg, opt, mesh=mesh, rules=rules,
+                           n_microbatches=n_microbatches)
     _, cost = count(step, params, state, rows, track=(params, state, rows))
     return cost
 

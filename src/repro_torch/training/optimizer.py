@@ -428,7 +428,10 @@ def make_train_step(cfg, opt: OptConfig, *, mesh=None, moe_impl=None,
     ``n_microbatches > 1`` accumulates the gradients of that many slices of
     the batch in ``accum_dtype`` (float32 by default), then takes their
     mean in float32, and the loss is the mean of the slices' losses, as the
-    reference's scan does. With no mesh an MoE FFN is the dense form.
+    reference's scan does. The sums and the mean are taken in place on the
+    accumulator, and each slice's gradient is dropped once added, so the
+    loop holds the accumulator and at most one slice's gradient. With no
+    mesh an MoE FFN is the dense form.
 
     Over a ``DeviceMesh`` ``mesh`` each rank passes the global batch and
     its own shards: ``params`` in the layout ``param_out_shardings``
@@ -465,24 +468,41 @@ def make_train_step(cfg, opt: OptConfig, *, mesh=None, moe_impl=None,
                    if isinstance(node, tuple) else lay.reduce(node)
                    for (_, node, _), lay in zip(_param_leaves(params, g),
                                                 layouts)]
+            del g
             for blocks, device in _RECORDERS:
                 blocks.extend(u.to(device or u.device, copy=True)
                               for node in red for u in (
                                   node if isinstance(node, tuple)
                                   else (node,)))
             if m > 1:
-                gacc = tree_map(lambda x: x.to(accum_dtype), red) \
-                    if gacc is None else tree_map(
-                        lambda a, x: a + x.to(accum_dtype), gacc, red)
+                gacc = _accumulate(gacc, red, accum_dtype)
+                del red
             losses.append(loss_i)
         if m > 1:
-            red = tree_map(lambda a: a.float() / m, gacc)
+            red = _mean_(gacc, m)
         loss = losses[0] if m == 1 else torch.stack(losses).mean()
         params, opt_state, opt_metrics = opt_update(
             opt, params, rebuild(params, red), opt_state,
             zero_shardings=zero, out_shardings=param_out_shardings)
         return params, opt_state, {"loss": loss, **opt_metrics}
     return train_step
+
+
+def _accumulate(gacc, g, dtype):
+    """Adds a microbatch's gradient ``g`` into the accumulator ``gacc`` in
+    place and returns it; the first (``gacc`` None) is a copy of ``g`` in
+    ``dtype``. The caller drops ``g`` after it, so that a step holds the
+    accumulator and at most one microbatch's gradient."""
+    if gacc is None:
+        return tree_map(lambda x: x.to(dtype, copy=True), g)
+    tree_map(lambda a, x: a.add_(x), gacc, g)
+    return gacc
+
+
+def _mean_(gacc, m: int):
+    """The accumulated gradients' mean in float32, as the reference takes
+    it (``g.astype(float32) / m``): in place on a float32 accumulator."""
+    return tree_map(lambda a: a.float().div_(m), gacc)
 
 
 def _train_step(cfg, opt, n_microbatches, accum_dtype):
@@ -496,11 +516,10 @@ def _train_step(cfg, opt, n_microbatches, accum_dtype):
             for i in range(m):
                 loss_i, _, g = loss_and_grads(params, _micro(batch, m, i),
                                               cfg)
-                gacc = tree_map(lambda x: x.to(accum_dtype), g) \
-                    if gacc is None else tree_map(
-                        lambda a, x: a + x.to(accum_dtype), gacc, g)
+                gacc = _accumulate(gacc, g, accum_dtype)
+                del g
                 losses.append(loss_i)
-            grads = tree_map(lambda a: a.float() / m, gacc)
+            grads = _mean_(gacc, m)
             loss = torch.stack(losses).mean()
             metrics = {"loss": loss}
         params, opt_state, opt_metrics = opt_update(opt, params, grads,

@@ -370,7 +370,9 @@ def test_kernels_launch_on_the_callers_stream_on_card(cuda_device, rng):
     (2, 1500, 1500, 6, 6, 64, False), (2, 448, 1500, 6, 6, 64, False),
     (2, 448, 448, 6, 6, 64, True), (2, 2048, 2048, 64, 4, 128, True),
     # granite-34b's 48 query heads on one KV head, chameleon-34b's 64 on 8
-    (1, 256, 256, 48, 1, 128, True), (1, 256, 256, 64, 8, 128, True)])
+    (1, 256, 256, 48, 1, 128, True), (1, 256, 256, 64, 8, 128, True),
+    # the train_4k microbatch: chatglm3-6b's and gemma3-12b's global layers
+    (1, 4096, 4096, 32, 2, 128, True), (1, 4096, 4096, 16, 8, 256, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh, causal,
                                             dtype, cuda_device, rng):
@@ -800,7 +802,9 @@ def test_flash_bwd_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
     # bwd_groups(48) = 4 groups of 12), chameleon-34b's 64 on 8 and
     # qwen3-moe-235b-a22b's 64 on 4 (bwd_groups(16) = 4 groups of 4)
     (1, 256, 256, 48, 1, 128, True), (1, 256, 256, 64, 8, 128, True),
-    (1, 256, 256, 64, 4, 128, True)])
+    (1, 256, 256, 64, 4, 128, True),
+    # the train_4k microbatch: chatglm3-6b's and gemma3-12b's global layers
+    (1, 4096, 4096, 32, 2, 128, True), (1, 4096, 4096, 16, 8, 256, True)])
 def test_flash_bwd_tc_kernel_matches_plain_on_card(b, tq, tk, hq, hkv, dh,
                                                    causal, cuda_device, rng):
     """The tensor-core K4′ (``csrc/flash_attn_bwd_tc.cu``) given K4's LSE
