@@ -1,0 +1,13 @@
+"""The share of the traced window (the traced decode calls' span on the
+host's clock) in which no kernel ran: one less the union of the kernel
+intervals over the window."""
+
+LAYER = "device"
+UNIT = "%"
+MOVES = "decode_tokens_per_s"
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)
